@@ -8,21 +8,39 @@ Phases (each check that fails ends the run with a nonzero exit):
 1. Device: the card's name and power limit from ``nvidia-smi``; build (or
    load) the box kernel from ``pacmensl_tpu_torch/csrc`` and print the
    build time.
-2. Kernel vs its plain PyTorch version, in float64, on the box shapes of
-   the bundled models at small bounds (hog1p_3d at t = 0, 30, 120), after
-   an epoch-style bounds change at fixed capacity, and on the fixed-bounds
-   128^3 repressilator box, where both are timed with CUDA events.  In
-   every case ``dp`` is bitwise equal to the plain version's, the sinks
-   (summed in another order) agree within rtol 1e-12 / atol 1e-13, and two
-   launches give bitwise-equal ``dp`` and sinks.
+2. Both modes of the kernel (mask-reading K1, synthesized-mask K3) vs
+   their plain PyTorch versions, in float64, on the box shapes of the
+   bundled models at small bounds (hog1p_3d at t = 0, 30, 120, hog1p_5d at
+   t = 0, 60), after an epoch-style bounds change at fixed capacity, and on
+   the fixed-bounds 128^3 repressilator box, where all are timed with CUDA
+   events.  In every case ``dp`` is bitwise equal to the plain version's,
+   the sinks (summed in another order) agree within rtol 1e-12 /
+   atol 1e-13, and two launches give bitwise-equal ``dp`` and sinks.  On
+   every box whose mask is constraint-only, K3's ``dp`` and sinks are
+   bitwise K1's, with the forms evaluated in int32 (as the wrapper
+   chooses for these boxes) and in int64; transcr_reg_6d (not
+   constraint-only) selects K1.
 3. Poisson oracle: the transient solve of ``models.poisson()`` to t = 10
    on the GPU against the Poisson(2t) pmf.
-4. The slice: repressilator with its custom constraints, t = 10,
-   fsp_tol = 1e-4, Krylov, float64, with the box kernel's launch count.
-   Then the kernel against its plain version on the slice's final
-   operator (its capacity, bounds, mask and constraints) and solution, and
-   the same solve with the plain version in place of the kernel: the two
-   distributions must lie within 2 * fsp_tol in L1.
+4. Repressilator with its custom constraints, t = 10, fsp_tol = 1e-4,
+   Krylov, float64, with the launches of each kernel mode.  Then both
+   modes against their plain versions on the final operator and solution,
+   and the same solve with the plain versions in place of the kernels:
+   the two distributions must lie within 2 * fsp_tol in L1.
+5. hog1p_5d with its custom constraints, t = 180, fsp_tol = 1e-4, the
+   default integrator choice (BDF with matrix-free GMRES, the model is
+   time-varying), every matvec on K3.  Then K3 against its plain version
+   and K1 on the final operator and solution, and the same solve with the
+   mask-reading kernel forced, a comparison run whose launches count for
+   no path: the two distributions must be bitwise equal (K3's dp and sinks
+   are K1's).
+6. transcr_reg_6d with its coordinate constraints, t = 30, fsp_tol = 1e-4,
+   BDF: reachability prunes its box, so the mask is not constraint-only
+   and every matvec runs K1, as the reference package chooses.  Then K1
+   against its plain version on the final operator and solution.
+
+The ``kernels`` record counts each kernel's launches in the three paths'
+own solves (phases 4, 5 and 6) only.
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is the
@@ -43,6 +61,15 @@ SLICE_T_FINAL, SLICE_TOL = 10.0, 1.0e-4
 SLICE_STATES = 1193406
 #: edge of the fixed-bounds repressilator box of bench.py:78-98
 BENCH_EDGE = 128
+#: the hog1p benchmark solve (examples/hog1p.py, BASELINE.json config 2)
+HOG_T_FINAL, HOG_TOL = 180.0, 1.0e-4
+#: GMRES's relative residual in BDF (float64 default): each step's
+#: corrector conserves mass only to about this, relative
+GMRES_TOL = 1.0e-10
+#: transcr_reg_6d over the first 30 s of its cell cycle, as the reference
+#: package's own test solves it (tests/test_fsp_solver.py:110-125;
+#: examples/transcr_reg_6d.cpp runs to t = 300)
+TR6_T_FINAL, TR6_TOL = 30.0, 1.0e-4
 
 
 def fail(msg):
@@ -97,39 +124,85 @@ def main():
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
-    max_err = 0.0
+    max_err = {"mask": 0.0, "synth": 0.0}
+    TOL = dict(rtol=1e-12, atol=1e-13)
 
-    def check_action(phase, label, c, p, mask, a, viol, geom):
-        """Kernel (launched twice) against the plain version."""
-        nonlocal max_err
-        kp, ks = bk.box_action(c, p, mask, a, viol, geom)
-        kp2, ks2 = bk.box_action(c, p, mask, a, viol, geom)
-        rp, rs = bk.box_action_reference(c, p, mask, a, viol, geom)
+    def same_twice(label, run):
+        """Two launches, bitwise equal and finite; returns the first."""
+        kp, ks = run()
+        kp2, ks2 = run()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kp).all() and torch.isfinite(ks).all()),
               f"{label}: non-finite kernel output")
-        err = float(max((kp - rp).abs().max(),
-                        (ks - rs).abs().max() if ks.numel() else 0.0))
-        check(torch.allclose(kp, rp, rtol=1e-12, atol=1e-13),
-              f"{label}: dp differs, max abs {err:.3e}")
-        check(torch.equal(kp, rp),
-              f"{label}: dp is not bitwise the plain version's")
-        check(torch.allclose(ks, rs, rtol=1e-12, atol=1e-13),
-              f"{label}: sinks differ, max abs {err:.3e}")
         check(torch.equal(kp, kp2) and torch.equal(ks, ks2),
               f"{label}: two launches differ")
-        max_err = max(max_err, err)
-        print(f"[{phase}] {label:<34} shape={geom.shape} n={geom.n} "
+        return kp, ks
+
+    def against_plain(label, mode, got, want):
+        kp, ks = got
+        rp, rs = want
+        err = float(max((kp - rp).abs().max(),
+                        (ks - rs).abs().max() if ks.numel() else 0.0))
+        check(torch.equal(kp, rp),
+              f"{label}: dp is not bitwise the plain version's "
+              f"(max abs {err:.3e})")
+        check(torch.allclose(ks, rs, **TOL),
+              f"{label}: sinks differ, max abs {err:.3e}")
+        max_err[mode] = max(max_err[mode], err)
+        return err
+
+    def check_mask(phase, label, c, p, mask, a, viol, geom):
+        """K1 (launched twice) against its plain version."""
+        got = same_twice(label, lambda: bk.box_action(c, p, mask, a, viol,
+                                                      geom))
+        err = against_plain(label, "mask", got, bk.box_action_reference(
+            c, p, mask, a, viol, geom))
+        print(f"[{phase}] K1 {label:<38} shape={geom.shape} n={geom.n} "
               f"max_abs_err={err:.3e}", flush=True)
+        return got
+
+    def check_synth(phase, label, c, p, a, bounds, geom, k1):
+        """K3 (launched twice) against its plain version and against the
+        K1 result ``k1`` on the same data: bitwise in dp and sinks."""
+        got = same_twice(label, lambda: bk.box_action_synth(c, p, a, bounds,
+                                                            geom))
+        err = against_plain(label, "synth", got, bk.box_action_synth_reference(
+            c, p, a, bounds, geom))
+        check(torch.equal(got[0], k1[0]) and torch.equal(got[1], k1[1]),
+              f"{label}: K3 is not bitwise K1")
+        check(geom.narrow(bounds), f"{label}: expected int32 form arithmetic")
+        # the same with the int64 form arithmetic, which the bundles' boxes
+        # do not need
+        geom.narrow = lambda b: False
+        wide = same_twice(label, lambda: bk.box_action_synth(c, p, a, bounds,
+                                                             geom))
+        del geom.narrow
+        check(torch.equal(wide[0], k1[0]) and torch.equal(wide[1], k1[1]),
+              f"{label}: K3 with int64 forms is not bitwise K1")
+        print(f"[{phase}] K3 {label:<38} shape={geom.shape} n={geom.n} "
+              f"max_abs_err={err:.3e}, bitwise K1 (int32 and int64 forms)",
+              flush=True)
+
+    def k1_data(op):
+        """The mask-reading kernel's inputs for ``op``'s current epoch."""
+        return (op.space.mask.reshape(-1).to(torch.uint8),
+                bo.violation_bits(op.space.constraints,
+                                  op.model.stoichiometry, op.shape, dev))
 
     def compare(phase, label, op, t, p=None):
-        d = op.data()
+        """Every mode that applies to ``op``: K1 always, K3 where the
+        mask is constraint-only."""
+        mask, viol = k1_data(op)
         if p is None:
             p = torch.as_tensor(rng.random(op.geom.n), device=dev)
-            p = torch.where(d.mask != 0, p,
+            p = torch.where(mask != 0, p,
                             torch.zeros((), device=dev, dtype=p.dtype))
-        check_action(phase, label, op.model.coefficients(t), p, d.mask,
-                     op.prop_fields, d.viol, op.geom)
+        c = op.model.coefficients(t)
+        k1 = check_mask(phase, label, c, p, mask, op.prop_fields, viol,
+                        op.geom)
+        if op.synth_mask:
+            check_synth(phase, label, c, p, op.prop_fields,
+                        op.data().bounds, op.geom, k1)
 
     def operator(bundle, bounds):
         cs = pt.ConstraintSet(bundle.constraint, bounds,
@@ -153,6 +226,12 @@ def main():
     ]
     for name, bundle, bounds, ts in cases:
         op = operator(bundle, np.asarray(bounds))
+        if name == "transcr_reg_6d":
+            check(not op.space.mask_is_constraint_only and not op.synth_mask,
+                  "transcr_reg_6d: expected the mask-reading kernel")
+        else:
+            check(op.synth_mask, f"{name}: expected the synthesized-mask "
+                                 "kernel")
         for t in ts:
             compare(2, f"{name} t={t:g}", op, t)
     # epoch-style bounds change at fixed capacity
@@ -163,21 +242,26 @@ def main():
     check(tuple(op.space.shape) == tuple(shape0),
           "toggle epoch change left the capacity")
     op.refresh_data()
+    check(op.synth_mask, "toggle epoch change left the synthesized mask")
     compare(2, "toggle, bounds grown in capacity", op, 0.0)
 
     # the fixed-bounds 128^3 repressilator box (all states valid)
     rep = m.repressilator()
     shape = (BENCH_EDGE,) * 3
     n = int(np.prod(shape))
-    cs = pt.ConstraintSet(None, [BENCH_EDGE - 1] * 3, None, 3)
-    geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3)
+    bench_bounds = np.array([BENCH_EDGE - 1] * 3)
+    cs = pt.ConstraintSet(None, bench_bounds, None, 3)
+    geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3, cs.form)
     a = bo.propensity_fields(rep.model, shape, dev)
     viol = bo.violation_bits(cs, rep.model.stoichiometry, shape, dev)
     mask = torch.ones(n, dtype=torch.uint8, device=dev)
     p = torch.as_tensor(rng.random(n), device=dev)
     c = rep.model.coefficients(0.0)
-    check_action(2, f"{BENCH_EDGE}^3 repressilator box", c, p, mask, a,
-                 viol, geom)
+    k1 = check_mask(2, f"{BENCH_EDGE}^3 repressilator box", c, p, mask, a,
+                    viol, geom)
+    check_synth(2, f"{BENCH_EDGE}^3 repressilator box", c, p, a,
+                bench_bounds, geom, k1)
+    del k1
 
     def time_ms(fn, reps=100):
         for _ in range(5):
@@ -192,18 +276,24 @@ def main():
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    plain_ms = time_ms(lambda: bk.box_action_reference(c, p, mask, a, viol,
-                                                       geom))
-    kern_ms = time_ms(lambda: bk.box_action(c, p, mask, a, viol, geom))
-    kern_ms2 = time_ms(lambda: bk.box_action(c, p, mask, a, viol, geom))
-    plain_ms2 = time_ms(lambda: bk.box_action_reference(c, p, mask, a, viol,
-                                                        geom))
-    print(f"[2] {BENCH_EDGE}^3 repressilator box per matvec: kernel "
-          f"{kern_ms * 1e3:.1f} / {kern_ms2 * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} / {plain_ms2 * 1e3:.1f} us "
-          f"(100 calls each, order plain-kernel-kernel-plain; {smi})",
-          flush=True)
-    del a, viol, mask, p
+    run = {
+        "plain": lambda: bk.box_action_reference(c, p, mask, a, viol, geom),
+        "plain_synth": lambda: bk.box_action_synth_reference(
+            c, p, a, bench_bounds, geom),
+        "K1": lambda: bk.box_action(c, p, mask, a, viol, geom),
+        "K3": lambda: bk.box_action_synth(c, p, a, bench_bounds, geom),
+    }
+    order = ["plain", "plain_synth", "K1", "K3", "K3", "K1", "plain_synth",
+             "plain"]
+    times = {k: [] for k in run}
+    for k in order:
+        times[k].append(time_ms(run[k]))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"[2] {BENCH_EDGE}^3 repressilator box per matvec (us, 100 calls "
+          f"each, order {' '.join(order)}): "
+          + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+                      for k, vs in times.items()) + f"; {smi}", flush=True)
+    del a, viol, mask, p, geom, run
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -225,97 +315,200 @@ def main():
           f"{l1:.3e} (limit 1e-6), {wall:.2f} s", flush=True)
     check(l1 <= 1.0e-6, f"poisson oracle L1 {l1:.3e} > 1e-6")
 
-    # ---------------------------------------------------------- phase 4
-    def slice_solver():
-        s = pt.FspSolverMultiSinks(backend="box", odes_type="krylov",
+    # ------------------------------------------------ phases 4 and 5
+    def solver_for(bundle, odes_type):
+        s = pt.FspSolverMultiSinks(backend="box", odes_type=odes_type,
                                    device=dev)
-        s.set_model(rep.model)
-        s.set_constraint_functions(rep.constraint)
-        s.set_initial_bounds(rep.bounds)
-        s.set_expansion_factors(rep.expansion_factors)
-        s.set_initial_distribution(rep.x0, rep.p0)
+        s.set_model(bundle.model)
+        s.set_constraint_functions(bundle.constraint)
+        s.set_initial_bounds(bundle.bounds)
+        s.set_expansion_factors(bundle.expansion_factors)
+        s.set_initial_distribution(bundle.x0, bundle.p0)
         return s
 
-    s = slice_solver()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    bk.KERNEL.reset_counts()
-    t0 = time.perf_counter()
-    d = s.solve(SLICE_T_FINAL, SLICE_TOL)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, plain_calls = bk.KERNEL.launches, bk.KERNEL.plain_cuda_calls
-    peak = torch.cuda.max_memory_allocated(dev)
-    ev = s.get_event_log().events
-    mass, sinks = d.sum(), np.asarray(d.sinks)
-    print(f"[4] repressilator t={SLICE_T_FINAL:g} tol={SLICE_TOL:g}: "
-          f"{d.num_states} states (reference CPU f64: {SLICE_STATES}), "
-          f"bounds {d.bounds.tolist()}, capacity {tuple(s._space.shape)}, "
-          f"epochs {ev['ODESolve'].count}, RHS evaluations "
-          f"{ev['RHSEvaluation'].count}, wall {wall:.2f} s, peak device "
-          f"memory {peak / 2**30:.2f} GiB, sum(p) {mass:.10f}, sum(sinks) "
-          f"{sinks.sum():.3e}, kernel launches {launches}, plain calls on "
-          f"CUDA {plain_calls}", flush=True)
-    print(s.get_event_log().report(), flush=True)
-    check(np.isfinite(d.p).all() and np.isfinite(sinks).all(),
-          "non-finite solution")
-    check(d.p.min() > -1e-12, f"negative probability {d.p.min():.3e}")
-    check(mass >= 1.0 - SLICE_TOL, f"sum(p) = {mass} < 1 - {SLICE_TOL:g}")
-    # Sinks count a transition in every constraint it violates, so
-    # max(sinks) <= mass that left <= sum(sinks): mass is conserved iff
-    # sum(p) + max(sinks) <= 1 <= sum(p) + sum(sinks), to rounding.
-    check(mass + sinks.sum() >= 1.0 - 1.0e-8,
-          f"sum(p) + sum(sinks) - 1 = {mass + sinks.sum() - 1:.3e}")
-    check(mass + sinks.max() <= 1.0 + 1.0e-8,
-          f"sum(p) + max(sinks) - 1 = {mass + sinks.max() - 1:.3e}")
-    check(launches > 0, "the solve launched no box kernel")
-    check(plain_calls == 0, f"the solve ran the plain version "
-                            f"{plain_calls} times on CUDA")
+    def run_solve(phase, label, s, t_final, tol, mass_tol):
+        """One solve with the counters set to 0 just before it; prints
+        and checks its output; returns (distribution, launches, plain
+        calls)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bk.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        d = s.solve(t_final, tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(bk.KERNEL.launches)
+        plain = dict(bk.KERNEL.plain_cuda_calls)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ev = s.get_event_log().events
+        mass, sinks = d.sum(), np.asarray(d.sinks)
+        steps = ev["ODESteps"].count if "ODESteps" in ev else 0
+        rej = ev["ODEStepsRejected"].count if "ODEStepsRejected" in ev else 0
+        print(f"[{phase}] {label}: {d.num_states} states, bounds "
+              f"{d.bounds.tolist()}, capacity {tuple(s._space.shape)}, "
+              f"epochs {ev['ODESolve'].count}, RHS evaluations "
+              f"{ev['RHSEvaluation'].count}, steps {steps}, rejected {rej}, "
+              f"wall {wall:.2f} s, peak device memory {peak / 2**30:.2f} "
+              f"GiB, sum(p) {mass:.10f}, sum(sinks) {sinks.sum():.3e}, "
+              f"kernel launches {launches}, plain calls on CUDA {plain}",
+              flush=True)
+        print(s.get_event_log().report(), flush=True)
+        check(np.isfinite(d.p).all() and np.isfinite(sinks).all(),
+              f"{label}: non-finite solution")
+        check(d.p.min() > -1e-12,
+              f"{label}: negative probability {d.p.min():.3e}")
+        check(mass >= 1.0 - tol, f"{label}: sum(p) = {mass} < 1 - {tol:g}")
+        # Sinks count a transition in every constraint it violates, so
+        # max(sinks) <= mass that left <= sum(sinks): mass is conserved iff
+        # sum(p) + max(sinks) <= 1 <= sum(p) + sum(sinks), to rounding (or
+        # to the integrator's own conservation, mass_tol(steps)).
+        mt = mass_tol(steps + rej)
+        check(mass + sinks.sum() >= 1.0 - mt,
+              f"{label}: sum(p) + sum(sinks) - 1 = "
+              f"{mass + sinks.sum() - 1:.3e} (tolerance {mt:.1e})")
+        check(mass + sinks.max() <= 1.0 + mt,
+              f"{label}: sum(p) + max(sinks) - 1 = "
+              f"{mass + sinks.max() - 1:.3e} (tolerance {mt:.1e})")
+        print(f"[{phase}] {label}: mass balance sum(p) + sum(sinks) - 1 = "
+              f"{mass + sinks.sum() - 1:.3e}, sum(p) + max(sinks) - 1 = "
+              f"{mass + sinks.max() - 1:.3e}, tolerance {mt:.1e}",
+              flush=True)
+        check(sum(launches.values()) > 0, f"{label}: no kernel launch")
+        check(sum(plain.values()) == 0,
+              f"{label}: the plain versions ran {plain} times on CUDA")
+        return d, launches, wall
 
-    # the kernel against its plain version at the slice's own capacity,
-    # bounds, mask and constraints, on the final solution
-    compare(4, "slice: final operator and p", s._operator,
-            SLICE_T_FINAL, p=s._y.p)
+    def final_operator(phase, label, s, t, synth=True):
+        """Every mode that applies against its plain version on the final
+        operator and solution; the final operator's mode must be
+        ``synth``."""
+        op = s._operator
+        check(op.synth_mask == synth,
+              f"{label}: the final operator does not use the "
+              f"{'synthesized-mask' if synth else 'mask-reading'} kernel")
+        compare(phase, f"{label}: final operator and p", op, t, p=s._y.p)
+
+    # phase 4: repressilator, Krylov
+    s = solver_for(rep, "krylov")
+    d4, launch4, _ = run_solve(4, f"repressilator t={SLICE_T_FINAL:g} "
+                                  f"tol={SLICE_TOL:g}", s, SLICE_T_FINAL,
+                               SLICE_TOL, lambda k: 1.0e-8)
+    final_operator(4, "repressilator", s, SLICE_T_FINAL)
     del s
     torch.cuda.empty_cache()
 
-    # The same solve with the plain version in place of the kernel.  Its
-    # dp is bitwise the kernel's but its sinks are summed in another
-    # order, and the sinks enter the Krylov norms and the stop-check, so
-    # the two solves may take different expansion paths (PERF.md).  Both
-    # are certified to SLICE_TOL, so they must agree within 2 * SLICE_TOL.
+    # The same solve with the plain versions in place of the kernels.
+    # Their dp is bitwise the kernels' but their sinks are summed in
+    # another order, and the sinks enter the Krylov norms and the
+    # stop-check, so the two solves may take different expansion paths
+    # (PERF.md).  Both are certified to SLICE_TOL, so they must agree
+    # within 2 * SLICE_TOL.
     bo.box_action = bk.box_action_reference
+    bo.box_action_synth = bk.box_action_synth_reference
     t0 = time.perf_counter()
-    sp = slice_solver()
+    sp = solver_for(rep, "krylov")
     dplain = sp.solve(SLICE_T_FINAL, SLICE_TOL)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     bo.box_action = bk.box_action
+    bo.box_action_synth = bk.box_action_synth
     evp = sp.get_event_log().events
     del sp
     torch.cuda.empty_cache()
-    l1 = l1_by_state(d, dplain)
-    print(f"[4] the same solve with the plain version: {dplain.num_states} "
+    l1 = l1_by_state(d4, dplain)
+    print(f"[4] the same solve with the plain versions: {dplain.num_states} "
           f"states, epochs {evp['ODESolve'].count}, RHS evaluations "
           f"{evp['RHSEvaluation'].count}, wall {wall_plain:.2f} s; L1 to "
-          f"the kernel's solution {l1:.3e} (limit {2 * SLICE_TOL:g})",
+          f"the kernels' solution {l1:.3e} (limit {2 * SLICE_TOL:g})",
           flush=True)
-    check(l1 <= 2 * SLICE_TOL, f"L1 between the kernel's and the plain "
-                               f"version's solve {l1:.3e} > "
+    check(l1 <= 2 * SLICE_TOL, f"L1 between the kernels' and the plain "
+                               f"versions' solve {l1:.3e} > "
                                f"{2 * SLICE_TOL:g}")
     # The state count is a discrete outcome that rounding selects (each
     # expansion step adds thousands of states), so a change of summation
     # order alone can move it by several percent; the L1 check above is
     # the one on the distribution.
-    check(abs(d.num_states - SLICE_STATES) <= 0.05 * SLICE_STATES,
-          f"{d.num_states} states, not within 5% of {SLICE_STATES}")
+    check(abs(d4.num_states - SLICE_STATES) <= 0.05 * SLICE_STATES,
+          f"{d4.num_states} states, not within 5% of {SLICE_STATES}")
 
-    print(json.dumps({"kernels": [{
-        "name": "box_action", "route": "cuda",
-        "source": "pacmensl_tpu_torch/csrc/box_action.cu",
-        "replaces": "pacmensl_tpu/ops/pallas_box.py:655",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kern_ms, "plain_ms": plain_ms}]}), flush=True)
+    # phase 5: hog1p_5d, auto -> BDF with matrix-free GMRES, K3
+    hog = m.hog1p_5d()
+
+    def bdf_mass_tol(steps):
+        return max(1.0e-8, GMRES_TOL * steps)
+
+    s = solver_for(hog, "auto")
+    d5, launch5, wall5 = run_solve(
+        5, f"hog1p_5d t={HOG_T_FINAL:g} tol={HOG_TOL:g}", s, HOG_T_FINAL,
+        HOG_TOL, bdf_mass_tol)
+    check(isinstance(s._ode_solver, pt.BdfSolver),
+          "hog1p_5d did not run the BDF integrator")
+    check(launch5["synth"] > 0, "hog1p_5d launched no K3 kernel")
+    ev = s.get_event_log().events
+    n_solves = (ev["ODESteps"].count + ev["ODEStepsRejected"].count
+                + ev["ODESolve"].count)
+    print(f"[5] GMRES iterations {ev['RHSEvaluation'].count - n_solves} "
+          f"(RHS evaluations less one per step and one per epoch)",
+          flush=True)
+    final_operator(5, "hog1p_5d", s, HOG_T_FINAL)
+    del s
+    torch.cuda.empty_cache()
+
+    # The same solve with the mask-reading kernel forced: a comparison
+    # run, not a path, so its launches stay out of the kernels record.
+    # K3's dp and sinks are bitwise K1's, so the two solves take the same
+    # path and must give the same distribution, bit for bit.
+    bo.USE_SYNTH_MASK = False
+    s = solver_for(hog, "auto")
+    d5k1, launch5k1, wall5k1 = run_solve(
+        5, "hog1p_5d, mask-reading kernel forced", s, HOG_T_FINAL, HOG_TOL,
+        bdf_mass_tol)
+    bo.USE_SYNTH_MASK = True
+    check(launch5k1["mask"] > 0 and launch5k1["synth"] == 0,
+          f"the forced solve launched {launch5k1}")
+    del s
+    torch.cuda.empty_cache()
+    l1 = l1_by_state(d5, d5k1)
+    same = (np.array_equal(d5.states, d5k1.states)
+            and np.array_equal(d5.p, d5k1.p)
+            and np.array_equal(np.asarray(d5.sinks), np.asarray(d5k1.sinks)))
+    print(f"[5] K3 solve {wall5:.2f} s, forced-K1 solve {wall5k1:.2f} s "
+          f"(comparison run, K1 launches {launch5k1['mask']}, not counted "
+          f"for any path); L1 between them {l1:.3e}, bitwise equal "
+          f"(states, p, sinks): {same}", flush=True)
+    check(same, f"the K3 and the forced-K1 solve differ (L1 {l1:.3e})")
+
+    # phase 6: transcr_reg_6d, auto -> BDF, K1 (the mask is pruned by
+    # reachability, so not constraint-only)
+    tr6 = m.transcription_regulation_6d()
+    s = solver_for(tr6, "auto")
+    d6, launch6, _ = run_solve(
+        6, f"transcr_reg_6d t={TR6_T_FINAL:g} tol={TR6_TOL:g}", s,
+        TR6_T_FINAL, TR6_TOL, bdf_mass_tol)
+    check(isinstance(s._ode_solver, pt.BdfSolver),
+          "transcr_reg_6d did not run the BDF integrator")
+    check(launch6["mask"] > 0, "transcr_reg_6d launched no K1 kernel")
+    n0 = int(np.prod(np.asarray(tr6.bounds) + 1))
+    check(d6.num_states > n0, f"transcr_reg_6d: {d6.num_states} states, "
+                              f"no expansion beyond the initial {n0}")
+    final_operator(6, "transcr_reg_6d", s, TR6_T_FINAL, synth=False)
+    del s
+    torch.cuda.empty_cache()
+
+    paths = (launch4, launch5, launch6)
+    print(json.dumps({"kernels": [
+        {"name": "box_action", "route": "cuda",
+         "source": "pacmensl_tpu_torch/csrc/box_action.cu",
+         "replaces": "pacmensl_tpu/ops/pallas_box.py:655",
+         "launches": sum(lc["mask"] for lc in paths),
+         "max_abs_err": max_err["mask"],
+         "ms": ms["K1"], "plain_ms": ms["plain"]},
+        {"name": "box_action_synth", "route": "cuda",
+         "source": "pacmensl_tpu_torch/csrc/box_action.cu",
+         "replaces": "pacmensl_tpu/ops/pallas_box.py:477",
+         "launches": sum(lc["synth"] for lc in paths),
+         "max_abs_err": max_err["synth"],
+         "ms": ms["K3"], "plain_ms": ms["plain_synth"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``pacmensl_tpu`` (JAX/Pallas for the TPU), with the same
 subpackage layout.  It imports no JAX.  This package holds the transient
-solve on the dense-box backend with the Krylov integrator::
+solve on the dense-box backend, with the Krylov integrator for
+time-invariant models and BDF with matrix-free GMRES for time-varying
+ones (``odes_type="auto"`` picks)::
 
     import pacmensl_tpu_torch as pt
 
@@ -16,6 +18,15 @@ solve on the dense-box backend with the Krylov integrator::
     s.set_expansion_factors(b.expansion_factors)
     s.set_initial_distribution(b.x0, b.p0)
     dist = s.solve(t_final=10.0, fsp_tol=1e-4)
+
+    h = pt.models.hog1p_5d()            # time-varying: BDF
+    s = pt.FspSolverMultiSinks(device="cuda")
+    s.set_model(h.model)
+    s.set_constraint_functions(h.constraint)
+    s.set_initial_bounds(h.bounds)
+    s.set_expansion_factors(h.expansion_factors)
+    s.set_initial_distribution(h.x0, h.p0)
+    dist = s.solve(t_final=180.0, fsp_tol=1e-4)
 
 Pass ``device="cpu"`` to run on the host, where the box kernel's plain
 PyTorch version takes the kernel's place.
@@ -35,8 +46,9 @@ from .ops.vecops import FspVector  # noqa: F401
 from .ops.box_operator import BoxOperator  # noqa: F401
 from .solvers.base import ODESolverType  # noqa: F401
 from .solvers.krylov import KrylovSolver  # noqa: F401
+from .solvers.bdf import BdfSolver  # noqa: F401
 from .fsp.distribution import DiscreteDistribution  # noqa: F401
 from .fsp.solver import FspSolverMultiSinks  # noqa: F401
 from . import interop  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

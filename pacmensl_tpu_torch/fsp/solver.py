@@ -2,7 +2,8 @@
 
 Counterpart of ``pacmensl_tpu/fsp/solver.py`` (reference
 ``src/Fsp/FspSolverMultiSinks.{h,cpp}``) on the dense-box backend with the
-Krylov integrator.  It owns the constrained state space, the CME operator
+Krylov integrator (time-invariant models) and the BDF integrator with
+matrix-free GMRES (time-varying models).  It owns the constrained state space, the CME operator
 and the integrator, and runs the solve -> check sinks -> expand -> scatter
 -> resume loop (``Advance_``, FspSolverMultiSinks.cpp:62-224):
 
@@ -15,7 +16,7 @@ and the integrator, and runs the solve -> check sinks -> expand -> scatter
   * PETSc event logging -> :class:`~..sys.events.EventLog` with the same
     phase names.
 
-The compressed (ELL) backend, the other integrators and the axis
+The compressed (ELL) backend, the RK and CN integrators and the axis
 reordering of the reference package are not ported yet (ROADMAP): where
 the reference package would migrate to the ELL backend, this driver
 raises :class:`StateSpaceError`.
@@ -34,13 +35,14 @@ from ..models.model import Model
 from ..sys.errors import SetupError, IntegratorError, StateSpaceError
 from ..sys.events import (EventLog, StepTrace, EVT_SETUP, EVT_PARTITION,
                           EVT_MATGEN, EVT_ODESOLVE, EVT_RHS, EVT_SCATTER,
-                          EVT_TOTAL)
+                          EVT_TOTAL, EVT_STEPS, EVT_REJECTED)
 from ..statespace.constraints import ConstraintSet
 from ..statespace.box_space import (BoxStateSpace, MAX_BOX_ELEMS,
                                     _round_capacity)
 from ..ops.box_operator import BoxOperator
 from ..ops.vecops import FspVector
 from ..solvers.base import ODESolverType, STATUS_OK, STATUS_FSP_STOP
+from ..solvers.bdf import BdfSolver
 from ..solvers.krylov import KrylovSolver
 from .distribution import DiscreteDistribution
 
@@ -71,13 +73,15 @@ class FspSolverMultiSinks:
         self._init_probs: Optional[np.ndarray] = None
         self._pending_constraint_fn = None
         self.krylov_dim_range = (25, 60)
+        self.ode_rtol: Optional[float] = None
+        self.ode_atol = 1.0e-14
         self.verbosity = 0
         self.events = EventLog()
         self.step_trace = StepTrace()
 
         self._space: Optional[BoxStateSpace] = None
         self._operator: Optional[BoxOperator] = None
-        self._ode_solver: Optional[KrylovSolver] = None
+        self._ode_solver: Optional[Union[KrylovSolver, BdfSolver]] = None
         self._ode_solver_key = None
         self._y: Optional[FspVector] = None
         self._t_now = 0.0
@@ -165,7 +169,7 @@ class FspSolverMultiSinks:
     def set_odes_type(self, odes_type) -> "FspSolverMultiSinks":
         """Pick the integrator; ``"auto"`` resolves at set-up to KRYLOV for
         time-invariant models and CVODE (BDF) for time-varying ones, as in
-        the reference package.  Only KRYLOV is ported."""
+        the reference package.  PETSC (RK, CN) is not ported yet."""
         if isinstance(odes_type, str) and odes_type.strip().lower() == "auto":
             self.odes_type = "auto"
             return self
@@ -186,6 +190,13 @@ class FspSolverMultiSinks:
                 if self.model is not None and self.model.tv_reactions
                 else ODESolverType.KRYLOV)
 
+    def set_ode_tolerances(self, rtol, atol) -> "FspSolverMultiSinks":
+        """BDF tolerances (``rtol=None`` keeps the integrator's default)."""
+        self.ode_rtol = None if rtol is None else float(rtol)
+        self.ode_atol = float(atol)
+        self._ode_solver = None
+        return self
+
     def set_krylov_dim_range(self, m_min, m_max) -> "FspSolverMultiSinks":
         self.krylov_dim_range = (int(m_min), int(m_max))
         return self
@@ -196,14 +207,22 @@ class FspSolverMultiSinks:
 
     # -------------------------------------------------------------- setup
     def _box_elem_budget(self) -> float:
-        """Box elements the integrator's vectors may take: the Krylov
-        integrator keeps m_max + 2 box-sized vectors alive."""
+        """Box elements the integrator's vectors may take (reference
+        ``_box_elem_budget``): the Krylov integrator keeps m_max + 2
+        box-sized vectors alive; BDF its GMRES basis (restart + 1), the
+        difference array (q_max + 3) and its work vectors with a margin,
+        the reference package's count."""
         if self.device.type == "cuda":
             mem = 0.5 * torch.cuda.get_device_properties(
                 self.device).total_memory
         else:
             mem = _HOST_MEM_BUDGET
-        vecs = self.krylov_dim_range[1] + 2
+        if self._resolve_odes_type() in (ODESolverType.KRYLOV,
+                                         ODESolverType.EPIC):
+            vecs = self.krylov_dim_range[1] + 2
+        else:
+            restart = BdfSolver.__init__.__kwdefaults__["gmres_restart"]
+            vecs = restart + 1 + 8 + 11
         return mem / (vecs * torch.finfo(self.dtype).bits / 8)
 
     def _choose_backend(self) -> str:
@@ -238,10 +257,10 @@ class FspSolverMultiSinks:
         if self._init_states.shape[1] != self.model.num_species:
             raise SetupError("initial states do not match model species")
         odes = self._resolve_odes_type()
-        if odes not in (ODESolverType.KRYLOV, ODESolverType.EPIC):
+        if odes == ODESolverType.PETSC:
             raise SetupError(
-                f"ODE solver {odes.value!r} is not ported yet (BDF: "
-                "ROADMAP A7; RK/CN: ROADMAP A8); use odes_type='krylov'")
+                "ODE solver 'petsc' (RK, CN) is not ported yet (ROADMAP "
+                "A8); use odes_type='cvode' or 'krylov'")
 
         self._ode_solver = None
         self._operator = None
@@ -285,8 +304,7 @@ class FspSolverMultiSinks:
             sinks=torch.zeros(n_c, dtype=self.dtype, device=self.device))
 
     # -------------------------------------------------------------- solve
-    def _make_ode_solver(self, fsp_tol: float, t_final: float
-                         ) -> KrylovSolver:
+    def _make_ode_solver(self, fsp_tol: float, t_final: float):
         n_sinks = self.constraints.num_constraints
 
         if fsp_tol > 0:
@@ -312,9 +330,13 @@ class FspSolverMultiSinks:
                                 m_max=self.krylov_dim_range[1],
                                 rhs_cost=self._operator.local_mv_flops(),
                                 stop_check=stop_check)
+        if odes == ODESolverType.CVODE:
+            return BdfSolver(self._operator.action,
+                             rtol=self.ode_rtol, atol=self.ode_atol,
+                             stop_check=stop_check)
         raise SetupError(
-            f"ODE solver {odes.value!r} is not ported yet (BDF: ROADMAP A7; "
-            "RK/CN: ROADMAP A8)")
+            f"ODE solver {odes.value!r} is not ported yet (RK/CN: ROADMAP "
+            "A8)")
 
     def _expand(self, to_expand: np.ndarray, rounds: int = 1):
         """Grow the flagged bounds, rebuild the mask, and rebuild the
@@ -439,6 +461,8 @@ class FspSolverMultiSinks:
                 self.events.add_count(
                     EVT_RHS, n_mv,
                     flops=n_mv * self._operator.local_mv_flops())
+                self.events.add_count(EVT_STEPS, res.stats.n_steps)
+                self.events.add_count(EVT_REJECTED, res.stats.n_rejected)
                 if status == STATUS_FSP_STOP:
                     viol = np.asarray(res.viol_excess)
                     to_expand = viol >= 0.0
@@ -514,6 +538,7 @@ class FspSolverMultiSinks:
     SetInitialDistribution = set_initial_distribution
     SetOdesType = set_odes_type
     SetKrylovDimRange = set_krylov_dim_range
+    SetOdeTolerances = set_ode_tolerances
     SetVerbosity = set_verbosity
     SetUp = set_up
     Solve = solve

@@ -18,7 +18,9 @@ fixture.
 
 Propensities are batched torch functions over ``states[n, S]``; the
 arithmetic follows the reference package operation by operation, so the
-fields agree with it to within an ulp.
+fields agree with it to within an ulp.  Every custom constraint function
+also carries ``form``, the closed form of its scores that the CUDA box
+kernel evaluates (``statespace/constraints.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..statespace.constraints import coord, gated, linear, product
 from .model import Model
 
 
@@ -104,6 +107,7 @@ def toggle() -> BundledModel:
 
     constr.components = (lambda x: x[:, 0], lambda x: x[:, 1],
                          lambda x: x[:, 0] * x[:, 1])
+    constr.form = (coord(0), coord(1), product(0, 1))
 
     return BundledModel(
         model=Model(stoich, prop),
@@ -152,6 +156,8 @@ def repressilator() -> BundledModel:
         lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2],
         lambda x: x[:, 0] * x[:, 1], lambda x: x[:, 2] * x[:, 1],
         lambda x: x[:, 0] * x[:, 2])
+    constr.form = (coord(0), coord(1), coord(2),
+                   product(0, 1), product(2, 1), product(0, 2))
 
     return BundledModel(
         model=Model(stoich, prop),
@@ -234,6 +240,8 @@ def hog1p_5d() -> BundledModel:
         lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2],
         lambda x: x[:, 3], lambda x: x[:, 4],
         lambda x: x[:, 1] + x[:, 3], lambda x: x[:, 2] + x[:, 4])
+    constr.form = tuple(coord(d) for d in range(5)) + (
+        linear({1: 1, 3: 1}), linear({2: 1, 4: 1}))
 
     return BundledModel(
         model=Model(stoich, prop, t_coeff, tv_reactions=(2,)),
@@ -297,6 +305,8 @@ def hog1p_3d() -> BundledModel:
         [lambda x: x[:, 0], lambda x: x[:, 1], lambda x: x[:, 2]] +
         [(lambda x, _g=g: (x[:, 0] == _g) * (x[:, 1] + x[:, 2]))
          for g in range(4)])
+    constr.form = tuple(coord(d) for d in range(3)) + tuple(
+        gated(0, g, linear({1: 1, 2: 1})) for g in range(4))
 
     return BundledModel(
         model=Model(stoich, prop, t_coeff, tv_reactions=(2,)),

@@ -1,4 +1,4 @@
-"""Fused box-action kernel: CUDA loader, wrapper and plain PyTorch version.
+"""Fused box-action kernel: CUDA loader, wrappers and plain PyTorch versions.
 
 Counterpart of ``pacmensl_tpu/ops/pallas_box.py`` (``PallasBoxKernel``).
 The kernel (``csrc/box_action.cu``, see its header for what it computes and
@@ -8,10 +8,16 @@ library with a plain C interface at first use, cached under
 loaded with ``ctypes``.  A failed build or launch raises; there is no
 fallback.
 
-:func:`box_action` dispatches on the device of its tensors: CUDA tensors
-launch the kernel, CPU tensors run :func:`box_action_reference`, the plain
-PyTorch version of the same function (which the CPU tests pin to the
-reference package and ``chip_smoke.py`` compares the kernel with).
+It has two modes, each with a wrapper that dispatches on the device of
+its tensors (CUDA tensors launch the kernel, CPU tensors run the plain
+PyTorch version of the same function, which the CPU tests pin to the
+reference package and ``chip_smoke.py`` compares the kernel with):
+
+* :func:`box_action` reads the validity mask and the violation bits
+  (the TPU kernel's K1/K2); plain version :func:`box_action_reference`;
+* :func:`box_action_synth` computes both from the constraint form and the
+  epoch's bounds (K3, ``synth_mask=True``); plain version
+  :func:`box_action_synth_reference`.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..statespace.box_space import EVAL_CHUNK
+from ..statespace.constraints import form_values
 from ..sys.errors import PacmenslError
-from .stencil import shift_nd
+from .stencil import coord_grid, shift_nd
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "box_action.cu"
@@ -44,6 +52,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Fixed maxima of the kernel's parameter struct (csrc/box_action.cu).
 MAX_R, MAX_S, MAX_NC = 32, 8, 32
+#: synthesized-mask mode: constraints a form may describe, product terms
+#: per constraint
+MAX_FORM_NC, MAX_PROD = 16, 2
+#: box elements: the kernel decodes flat indices in 32-bit arithmetic
+MAX_ELEMS = 2 ** 31 - 1
+_I32 = 2 ** 31
+#: the kernel's modes, keys of the launch counters
+MODES = ("mask", "synth")
 #: most blocks of a launch: 8 on each of an H100 SXM's 132 SMs.  A fixed
 #: grid gives every card the same sink reduction order, so the sinks are
 #: bitwise reproducible across cards as well as across launches.
@@ -54,6 +70,15 @@ class KernelError(PacmenslError):
     """The CUDA kernel failed to build, load or launch."""
 
 
+class _BoxForm(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_int * MAX_S),
+                ("pu", ctypes.c_int * MAX_PROD),
+                ("pi", ctypes.c_int * MAX_PROD),
+                ("pj", ctypes.c_int * MAX_PROD),
+                ("gate", ctypes.c_int),
+                ("gate_val", ctypes.c_int)]
+
+
 class _BoxParams(ctypes.Structure):
     _fields_ = [("c", ctypes.c_double * MAX_R),
                 ("kflat", ctypes.c_longlong * MAX_R),
@@ -62,18 +87,54 @@ class _BoxParams(ctypes.Structure):
                 ("n", ctypes.c_longlong),
                 ("R", ctypes.c_int),
                 ("S", ctypes.c_int),
-                ("nc", ctypes.c_int)]
+                ("nc", ctypes.c_int),
+                ("bounds", ctypes.c_longlong * MAX_FORM_NC),
+                ("form", _BoxForm * MAX_FORM_NC),
+                ("dmul", ctypes.c_ulonglong * MAX_S),
+                ("dshift", ctypes.c_int * MAX_S)]
+
+
+def form_fits_kernel(form, stoich) -> bool:
+    """Whether the synthesized-mask kernel can take ``form`` (a tuple of
+    :class:`~..statespace.constraints.ConstraintForm`) for reactions with
+    moves ``stoich [R, S]``: at most ``MAX_FORM_NC`` constraints of at most
+    ``MAX_PROD`` products, every species index inside the box, int32
+    coefficients, and int32 entries in the kernel's table of each
+    product's change along a move (``u_k s_j`` and ``u_k s_i``)."""
+    stoich = np.atleast_2d(np.asarray(stoich, dtype=np.int64))
+    num_species = stoich.shape[1]
+    if form is None or len(form) > MAX_FORM_NC or num_species > MAX_S:
+        return False
+    smax = int(np.abs(stoich).max(initial=0))
+    for f in form:
+        if len(f.products) > MAX_PROD:
+            return False
+        ints = [w for _, w in f.weights] + [u for u, _, _ in f.products]
+        ints.append(2 * smax * sum(abs(u) for u, _, _ in f.products))
+        if f.gate is not None:
+            ints.append(f.gate[1])
+        if any(not -_I32 <= int(v) < _I32 for v in ints):
+            return False
+        if any(not 0 <= d < num_species for d in f.species):
+            return False
+    return True
 
 
 class BoxGeometry:
     """Static description of one box action: capacity shape, per-reaction
-    moves and the constraint count, with the kernel's flat source offsets
+    moves, the constraint count and, for the synthesized-mask mode, the
+    constraint form; with the kernel's flat source offsets
     ``k_r = sum_d s_rd * stride_d``."""
 
-    def __init__(self, shape: Sequence[int], stoich, num_constraints: int):
+    def __init__(self, shape: Sequence[int], stoich, num_constraints: int,
+                 form=None):
         self.shape = tuple(int(s) for s in shape)
         self.stoich = np.atleast_2d(np.asarray(stoich, dtype=np.int64))
         self.nc = int(num_constraints)
+        self.form = tuple(form) if form is not None else None
+        if self.form is not None and len(self.form) != self.nc:
+            raise ValueError(f"form has {len(self.form)} constraints, "
+                             f"expected {self.nc}")
         self.n = int(np.prod(self.shape))
         R, S = self.stoich.shape
         if S != len(self.shape):
@@ -82,19 +143,40 @@ class BoxGeometry:
         self.kflat = [int(sum(int(self.stoich[r, d]) * strides[d]
                               for d in range(S))) for r in range(R)]
         self._params: Optional[_BoxParams] = None
+        self._synth_plain = None
+        self._form_range: Optional[int] = None
 
     @property
     def num_reactions(self) -> int:
         return self.stoich.shape[0]
 
-    def params(self, c) -> _BoxParams:
-        """The kernel's parameter struct with coefficients ``c``."""
+    def narrow(self, bounds) -> bool:
+        """Whether the synthesized-mask kernel may evaluate the form in
+        int32: every value it forms at a box point and at its neighbours
+        x -/+ s_r (bounded by sum |w| Y + sum |u| Y^2 with
+        Y = max extent + 2 max |s|), and every bound, fits.  The int32
+        evaluation is then exact, the same as the int64 one."""
+        if self._form_range is None:
+            Y = max(self.shape) + 2 * int(np.abs(self.stoich).max(initial=0))
+            self._form_range = max(
+                (sum(abs(w) for _, w in f.weights) * Y
+                 + sum(abs(u) for u, _, _ in f.products) * Y * Y
+                 for f in self.form), default=0)
+        b = np.abs(np.asarray(bounds, dtype=np.int64))
+        return self._form_range < _I32 and int(b.max(initial=0)) < _I32
+
+    def params(self, c, bounds=None) -> _BoxParams:
+        """The kernel's parameter struct with coefficients ``c``, and for
+        the synthesized-mask mode the constraint ``bounds``."""
         R, S = self.stoich.shape
         if R > MAX_R or S > MAX_S or self.nc > MAX_NC:
             raise KernelError(
                 f"box kernel takes at most {MAX_R} reactions, {MAX_S} "
                 f"species and {MAX_NC} constraints (got {R}, {S}, "
                 f"{self.nc})")
+        if self.n > MAX_ELEMS:
+            raise KernelError(f"box kernel takes at most {MAX_ELEMS} "
+                              f"elements (got {self.n})")
         if self._params is None:
             prm = _BoxParams()
             for r in range(R):
@@ -103,31 +185,51 @@ class BoxGeometry:
                     prm.stoich[r][d] = int(self.stoich[r, d])
             for d in range(S):
                 prm.shape[d] = self.shape[d]
+                # round-up reciprocal: exact quotients below 2^31
+                prm.dshift[d] = 31 + (self.shape[d] - 1).bit_length()
+                prm.dmul[d] = -(-(1 << prm.dshift[d]) // self.shape[d])
             prm.n, prm.R, prm.S, prm.nc = self.n, R, S, self.nc
+            if self.form is not None and form_fits_kernel(self.form,
+                                                          self.stoich):
+                for k, f in enumerate(self.form):
+                    pf = prm.form[k]
+                    for d, w in f.weights:
+                        pf.w[d] += int(w)
+                    for m, (u, i, j) in enumerate(f.products):
+                        pf.pu[m], pf.pi[m], pf.pj[m] = int(u), int(i), int(j)
+                    pf.gate, pf.gate_val = ((int(f.gate[0]), int(f.gate[1]))
+                                            if f.gate is not None else (-1, 0))
             self._params = prm
         prm = self._params
         for r, v in enumerate(c):
             prm.c[r] = float(v)
+        if bounds is not None:
+            if not form_fits_kernel(self.form, self.stoich):
+                raise KernelError(
+                    "the synthesized-mask kernel needs a constraint form "
+                    f"of at most {MAX_FORM_NC} constraints with at most "
+                    f"{MAX_PROD} products each and int32 coefficients")
+            for k, b in enumerate(np.asarray(bounds).reshape(-1)):
+                prm.bounds[k] = int(b)
         return prm
 
 
 class BoxActionKernel:
     """The compiled library, built and loaded at first launch, and the
-    launch counters.  ``launches`` counts kernel launches;
-    ``plain_cuda_calls`` counts calls of the plain version on CUDA
-    tensors (the solve path makes none)."""
+    launch counters, one per mode (``"mask"``, ``"synth"``).  ``launches``
+    counts kernel launches; ``plain_cuda_calls`` counts calls of the plain
+    versions on CUDA tensors (the solve path makes none)."""
 
     def __init__(self):
         self.lib = None
         self.path: Optional[Path] = None
         self.build_seconds: Optional[float] = None
         self.build_log = ""
-        self.launches = 0
-        self.plain_cuda_calls = 0
+        self.reset_counts()
 
     def reset_counts(self) -> None:
-        self.launches = 0
-        self.plain_cuda_calls = 0
+        self.launches = dict.fromkeys(MODES, 0)
+        self.plain_cuda_calls = dict.fromkeys(MODES, 0)
 
     # ------------------------------------------------------------ build
     @staticmethod
@@ -185,6 +287,15 @@ class BoxActionKernel:
             [ctypes.POINTER(_BoxParams)] + [ctypes.c_void_p] * 7
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.box_action_launch.restype = ctypes.c_int
+        lib.box_action_synth_launch.argtypes = (
+            [ctypes.POINTER(_BoxParams)] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.box_action_synth_launch.restype = ctypes.c_int
+        lib.box_action_max_form_constraints.argtypes = []
+        lib.box_action_max_form_constraints.restype = ctypes.c_int
+        if lib.box_action_max_form_constraints() != MAX_FORM_NC:
+            raise KernelError("MAX_FORM_NC differs between the kernel and "
+                              "its wrapper")
         size = lib.box_action_params_size()
         if size != ctypes.sizeof(_BoxParams):
             raise KernelError(f"parameter struct size mismatch: kernel "
@@ -195,24 +306,33 @@ class BoxActionKernel:
         return lib
 
     # ----------------------------------------------------------- launch
-    def launch(self, c, p, mask, a, viol, geom: BoxGeometry
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        lib = self.load()
+    def _outputs(self, p, a, c, geom: BoxGeometry):
+        """Checks shared by both modes; (c as floats, nblocks, dp, sink
+        partials, sinks)."""
         dev = p.device
         R, n, nc = geom.num_reactions, geom.n, geom.nc
         _check(p, (n,), torch.float64, dev, "p")
-        _check(mask, (n,), torch.uint8, dev, "mask")
         _check(a, (R, n), torch.float64, dev, "a")
-        _check(viol, (R, n), torch.int32, dev, "viol")
         c = [float(v) for v in (c.tolist() if torch.is_tensor(c) else c)]
         if len(c) != R:
             raise ValueError(f"c has {len(c)} entries, expected {R}")
-        prm = geom.params(c)
         nblocks = max(1, min(-(-n // self.threads), GRID_BLOCKS))
         dp = torch.empty(n, dtype=torch.float64, device=dev)
         part = torch.empty(nblocks * max(nc, 1), dtype=torch.float64,
                            device=dev)
         sinks = torch.empty(max(nc, 1), dtype=torch.float64, device=dev)
+        return c, nblocks, dp, part, sinks
+
+    def launch(self, c, p, mask, a, viol, geom: BoxGeometry
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The mask-reading kernel (K1/K2)."""
+        lib = self.load()
+        dev = p.device
+        R, n = geom.num_reactions, geom.n
+        _check(mask, (n,), torch.uint8, dev, "mask")
+        _check(viol, (R, n), torch.int32, dev, "viol")
+        c, nblocks, dp, part, sinks = self._outputs(p, a, c, geom)
+        prm = geom.params(c)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.box_action_launch(
             ctypes.byref(prm), p.data_ptr(), mask.data_ptr(), a.data_ptr(),
@@ -220,8 +340,30 @@ class BoxActionKernel:
             sinks.data_ptr(), nblocks, dev.index, stream)
         if rc != 0:
             raise KernelError(f"box_action launch failed: cudaError {rc}")
-        self.launches += 1
-        return dp, sinks[:nc]
+        self.launches["mask"] += 1
+        return dp, sinks[:geom.nc]
+
+    def launch_synth(self, c, p, a, bounds, geom: BoxGeometry
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The synthesized-mask kernel (K3)."""
+        lib = self.load()
+        dev = p.device
+        bounds = np.asarray(bounds, dtype=np.int64).reshape(-1)
+        if bounds.shape != (geom.nc,):
+            raise ValueError(f"bounds has shape {bounds.shape}, expected "
+                             f"({geom.nc},)")
+        c, nblocks, dp, part, sinks = self._outputs(p, a, c, geom)
+        prm = geom.params(c, bounds)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.box_action_synth_launch(
+            ctypes.byref(prm), p.data_ptr(), a.data_ptr(), dp.data_ptr(),
+            part.data_ptr(), sinks.data_ptr(), nblocks,
+            int(geom.narrow(bounds)), dev.index, stream)
+        if rc != 0:
+            raise KernelError(f"box_action_synth launch failed: cudaError "
+                              f"{rc}")
+        self.launches["synth"] += 1
+        return dp, sinks[:geom.nc]
 
 
 def _check(t: torch.Tensor, shape, dtype, device, name: str) -> None:
@@ -240,13 +382,42 @@ def _check(t: torch.Tensor, shape, dtype, device, name: str) -> None:
 KERNEL = BoxActionKernel()
 
 
-def box_action_reference(c, p, mask, a, viol, geom: BoxGeometry
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: zero-filled box shifts
-    (``shift_nd``) and dense masked sink sums, in the kernel's order of
-    accumulation over reactions."""
-    if p.is_cuda:
-        KERNEL.plain_cuda_calls += 1
+def pack_bits(over: torch.Tensor) -> torch.Tensor:
+    """[m, n_c] bool -> [m] int32 words, bit c = over[:, c] (bit 31 set is
+    a negative int32, which the kernel reads back as unsigned)."""
+    nc = over.shape[1]
+    weights = torch.tensor([1 << c for c in range(nc)], dtype=torch.int64,
+                           device=over.device)
+    bits = (over.to(torch.int64) * weights[None, :]).sum(dim=1)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+
+
+def form_mask_and_bits(geom: BoxGeometry, bounds, device
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the synthesized-mask kernel computes in registers, as the
+    mask-reading kernel's inputs: the mask [n] uint8 (every constraint of
+    the form holds at x) and the violation bits [R, n] int32 (bit c =
+    f_c(x + s_r) > b_c), from ``geom.form`` at ``bounds``."""
+    b = torch.as_tensor(np.asarray(bounds, dtype=np.int64), device=device)
+    mask = torch.empty(geom.n, dtype=torch.uint8, device=device)
+    viol = torch.empty((geom.num_reactions, geom.n), dtype=torch.int32,
+                       device=device)
+    for lo in range(0, geom.n, EVAL_CHUNK):
+        hi = min(geom.n, lo + EVAL_CHUNK)
+        x = coord_grid(geom.shape, device, lo, hi)
+        mask[lo:hi] = (form_values(geom.form, x) <= b[None, :]).all(
+            dim=1).to(torch.uint8)
+        for r in range(geom.num_reactions):
+            s = torch.as_tensor(geom.stoich[r], device=device)
+            viol[r, lo:hi] = pack_bits(
+                form_values(geom.form, x + s[None, :]) > b[None, :])
+    return mask, viol
+
+
+def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-filled box shifts (``shift_nd``) and dense masked sink sums,
+    in the kernel's order of accumulation over reactions."""
     c = [float(v) for v in (c.tolist() if torch.is_tensor(c) else c)]
     shape = geom.shape
     mb = mask.reshape(shape) != 0
@@ -267,6 +438,32 @@ def box_action_reference(c, p, mask, a, viol, geom: BoxGeometry
     return dp.reshape(-1), sk
 
 
+def box_action_reference(c, p, mask, a, viol, geom: BoxGeometry
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the mask-reading kernel."""
+    if p.is_cuda:
+        KERNEL.plain_cuda_calls["mask"] += 1
+    return _masked_stencil(c, p, mask, a, viol, geom)
+
+
+def box_action_synth_reference(c, p, a, bounds, geom: BoxGeometry
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the synthesized-mask kernel: the mask and
+    the violation bits from the form's torch evaluator, then the same
+    masked stencil and sink sums."""
+    if p.is_cuda:
+        KERNEL.plain_cuda_calls["synth"] += 1
+    # the synthesized data of the last bounds, kept on the geometry: a
+    # solve calls this many times per epoch with the same bounds
+    key = (np.asarray(bounds, dtype=np.int64).tobytes(), p.device)
+    if geom._synth_plain is None or geom._synth_plain[0] != key:
+        geom._synth_plain = None
+        geom._synth_plain = (key,) + form_mask_and_bits(geom, bounds,
+                                                         p.device)
+    _, mask, viol = geom._synth_plain
+    return _masked_stencil(c, p, mask, a, viol, geom)
+
+
 def box_action(c, p, mask, a, viol, geom: BoxGeometry
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dp, sinks)`` of the truncated generator applied to ``p``.
@@ -279,4 +476,18 @@ def box_action(c, p, mask, a, viol, geom: BoxGeometry
         return KERNEL.launch(c, p, mask, a, viol, geom)
     if p.device.type == "cpu":
         return box_action_reference(c, p, mask, a, viol, geom)
+    raise ValueError(f"unsupported device {p.device}")
+
+
+def box_action_synth(c, p, a, bounds, geom: BoxGeometry
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`box_action` with the mask and the violation bits computed
+    from ``geom.form`` at the constraint ``bounds [n_c]`` (host integers).
+    Equal to :func:`box_action` wherever the mask is exactly "every
+    constraint holds".  CUDA tensors launch the kernel; CPU tensors run
+    :func:`box_action_synth_reference`."""
+    if p.device.type == "cuda":
+        return KERNEL.launch_synth(c, p, a, bounds, geom)
+    if p.device.type == "cpu":
+        return box_action_synth_reference(c, p, a, bounds, geom)
     raise ValueError(f"unsupported device {p.device}")

@@ -7,9 +7,9 @@ Here ``p`` is the flat C-order box vector ``[n]`` and ``sinks`` a small
 ``[n_constraints]`` tensor on the same device; every operation treats the
 pair as one vector.
 
-Krylov bases are stored as a pair of stacked tensors ``([m, n], [m, n_c])``
-(:class:`FspBasis`), allocated once per operator capacity and overwritten
-in place.
+Krylov and GMRES bases and the BDF difference array are stored as a pair of
+stacked tensors ``([m, n], [m, n_c])`` (:class:`FspBasis`), allocated once
+per operator capacity and overwritten in place.
 """
 from __future__ import annotations
 
@@ -42,6 +42,23 @@ def scale(alpha, x: FspVector) -> FspVector:
     return FspVector(p=alpha * x.p, sinks=alpha * x.sinks)
 
 
+def add(x: FspVector, y: FspVector) -> FspVector:
+    return FspVector(p=x.p + y.p, sinks=x.sinks + y.sinks)
+
+
+def sub(x: FspVector, y: FspVector) -> FspVector:
+    return FspVector(p=x.p - y.p, sinks=x.sinks - y.sinks)
+
+
+def zeros_like(x: FspVector) -> FspVector:
+    return FspVector(p=torch.zeros_like(x.p), sinks=torch.zeros_like(x.sinks))
+
+
+def isfinite(x: FspVector) -> torch.Tensor:
+    """Every entry of both parts finite (a 0-d bool device tensor)."""
+    return torch.isfinite(x.p).all() & torch.isfinite(x.sinks).all()
+
+
 class FspBasis(NamedTuple):
     """Stacked basis vectors: ``p [m, n]`` and ``sinks [m, n_c]``."""
     p: torch.Tensor
@@ -54,6 +71,16 @@ def basis_empty(template: FspVector, m: int) -> FspBasis:
         p=torch.empty((m,) + tuple(template.p.shape),
                       dtype=template.p.dtype, device=template.p.device),
         sinks=torch.empty((m,) + tuple(template.sinks.shape),
+                          dtype=template.sinks.dtype,
+                          device=template.sinks.device))
+
+
+def stack_zeros(template: FspVector, m: int) -> FspBasis:
+    """Allocate ``m`` zero basis vectors shaped like ``template``."""
+    return FspBasis(
+        p=torch.zeros((m,) + tuple(template.p.shape),
+                      dtype=template.p.dtype, device=template.p.device),
+        sinks=torch.zeros((m,) + tuple(template.sinks.shape),
                           dtype=template.sinks.dtype,
                           device=template.sinks.device))
 

@@ -70,7 +70,7 @@ class StepRing:
     """Per-accepted-step trace in a fixed-capacity ring (reference
     per-step logging, ``OdeSolverBase.cpp:105-132``): entry
     ``i = step % capacity`` holds the step's end time, step size and a
-    method-specific integer (the Krylov dimension m)."""
+    method-specific integer (the Krylov dimension m, the BDF order q)."""
 
     def __init__(self, cap: int):
         self.t = np.zeros(cap)

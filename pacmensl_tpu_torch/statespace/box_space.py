@@ -11,6 +11,8 @@ constraint set with a boolean validity mask = (constraints satisfied) AND
   point (:func:`bfs_closure`).
 * ``State2Index`` becomes the C-order flat index into the box.
 * Expansion embeds the old box in the new one with a zero pad.
+* :attr:`BoxStateSpace.mask_is_constraint_only` records whether
+  reachability pruned nothing, so the mask is the constraint test alone.
 
 Box axes are allocated on a x1.5 capacity ladder (:func:`_ladder`), so most
 expansion epochs keep the capacity and change only the mask.  The
@@ -71,9 +73,12 @@ def _round_capacity(n: int, quantum: int = 1) -> int:
 
 
 def constraint_ok(constraints: ConstraintSet, shape, device,
-                  offset=None) -> torch.Tensor:
+                  offset=None, by_form=False) -> torch.Tensor:
     """Flat [n] bool: every constraint holds at box point x (+ ``offset``),
-    evaluated in chunks on ``device``."""
+    evaluated in chunks on ``device``; the scores come from the constraint
+    function, or with ``by_form`` from the constraints' form (what the
+    synthesized-mask kernel evaluates)."""
+    values = constraints.form_values if by_form else constraints.values
     n = int(np.prod(shape))
     b = constraints.bounds_tensor(device)
     out = torch.empty(n, dtype=torch.bool, device=device)
@@ -85,7 +90,7 @@ def constraint_ok(constraints: ConstraintSet, shape, device,
         x = coord_grid(shape, device, lo, hi)
         if off is not None:
             x = x + off[None, :]
-        out[lo:hi] = (constraints.values(x) <= b[None, :]).all(dim=1)
+        out[lo:hi] = (values(x) <= b[None, :]).all(dim=1)
     return out
 
 
@@ -227,6 +232,10 @@ class BoxStateSpace:
         self._mask = mask
         self._mask_host = None
         self._num_states = int(mask.sum())
+        # reachability pruned nothing: the mask is "every constraint
+        # holds", which the box kernel can recompute from the bounds
+        # instead of reading it (reference box_space.py:495-499)
+        self.mask_is_constraint_only = self._num_states == int(ok.sum())
         if self.events is not None:
             self.events.add("MaskBFS", time.perf_counter() - t0)
         if not self._leaks.any():

@@ -9,15 +9,91 @@ bounds.  The default constraint is coordinate-wise (``f_i(x) = x_i``).
 ``fn(states[n, S]) -> [n, n_constraints]`` runs on the device of its input:
 host-side probes (the bounding-box search, initial-state checks) call it on
 CPU tensors, the state-space builder and the operator on device tensors.
+
+The CUDA box kernel cannot call Python, so a constraint set may also carry
+a *device description* of its scores: one :class:`ConstraintForm` per
+constraint, a small closed form the kernel evaluates in registers.  The
+coordinate default has one automatically; a custom ``fn`` carries it as
+the attribute ``fn.form`` next to ``fn.components``, and the set checks it
+against ``fn`` when it is built.  A set without a form is evaluated by
+``fn`` alone (the operator then uses the mask-reading kernel).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..sys.errors import StateSpaceError
+
+
+class ConstraintForm(NamedTuple):
+    """Closed form of one constraint score, evaluated in int64::
+
+        f(x) = [x_g == v] * (sum_d w_d x_d + sum_k u_k x_{i_k} x_{j_k})
+
+    ``weights`` holds ``(d, w_d)`` pairs, ``products`` ``(u_k, i_k, j_k)``
+    triples, all integers; ``gate = (g, v)``, or None for no indicator."""
+    weights: Tuple[Tuple[int, int], ...] = ()
+    products: Tuple[Tuple[int, int, int], ...] = ()
+    gate: Optional[Tuple[int, int]] = None
+
+    @property
+    def species(self) -> Tuple[int, ...]:
+        """Every species index the form reads."""
+        out = [d for d, _ in self.weights]
+        for _, i, j in self.products:
+            out += [i, j]
+        if self.gate is not None:
+            out.append(self.gate[0])
+        return tuple(out)
+
+
+def coord(d: int) -> ConstraintForm:
+    """f(x) = x_d."""
+    return ConstraintForm(weights=((int(d), 1),))
+
+
+def linear(weights: dict) -> ConstraintForm:
+    """f(x) = sum_d w_d x_d, from ``{d: w_d}``."""
+    return ConstraintForm(weights=tuple(
+        (int(d), int(w)) for d, w in sorted(weights.items())))
+
+
+def product(i: int, j: int, u: int = 1) -> ConstraintForm:
+    """f(x) = u x_i x_j."""
+    return ConstraintForm(products=((int(u), int(i), int(j)),))
+
+
+def gated(g: int, v: int, form: ConstraintForm) -> ConstraintForm:
+    """f(x) = [x_g == v] * form(x)."""
+    return form._replace(gate=(int(g), int(v)))
+
+
+def form_values(forms: Sequence[ConstraintForm],
+                states: torch.Tensor) -> torch.Tensor:
+    """Scores of ``forms`` at ``states[n, S]``: [n, len(forms)] int64, on
+    the device of ``states`` (the plain version of the kernel's
+    evaluation)."""
+    x = states.to(torch.int64)
+    cols = []
+    for f in forms:
+        v = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+        for d, w in f.weights:
+            v = v + w * x[:, d]
+        for u, i, j in f.products:
+            v = v + u * x[:, i] * x[:, j]
+        if f.gate is not None:
+            g, gv = f.gate
+            v = torch.where(x[:, g] == gv, v, torch.zeros_like(v))
+        cols.append(v)
+    return torch.stack(cols, dim=1)
+
+
+#: seeded points on which a form is checked against its function, besides
+#: the corners of the probe box
+_FORM_CHECK_POINTS = 200
 
 
 class ConstraintSet:
@@ -42,9 +118,12 @@ class ConstraintSet:
             nb = len(np.asarray(bounds).reshape(-1))
             self.components = tuple(
                 (lambda x, _d=d: x[:, _d]) for d in range(nb))
+            self.form = tuple(coord(d) for d in range(nb))
         else:
             comps = getattr(fn, "components", None)
             self.components = tuple(comps) if comps is not None else None
+            form = getattr(fn, "form", None)
+            self.form = tuple(form) if form is not None else None
         self.bounds = np.asarray(bounds, dtype=np.int64).reshape(-1)
         if expansion_factors is None:
             expansion_factors = np.full(self.bounds.shape, 0.25)
@@ -60,6 +139,8 @@ class ConstraintSet:
             raise StateSpaceError(
                 "default (coordinate-wise) constraints need one bound per "
                 f"species: {len(self.bounds)} bounds, {num_species} species")
+        if fn is not None and self.form is not None:
+            self._check_form()
 
     @property
     def num_constraints(self) -> int:
@@ -72,6 +153,50 @@ class ConstraintSet:
             return states  # coordinate-wise default
         vals = torch.as_tensor(self.fn(states))
         return vals.reshape(states.shape[0], self.num_constraints)
+
+    def form_values(self, states: torch.Tensor) -> torch.Tensor:
+        """Scores f(x) from the device description: [n, n_constraints]
+        int64, on the device of ``states``."""
+        if self.form is None:
+            raise StateSpaceError("this constraint set has no form")
+        return form_values(self.form, states)
+
+    def _check_form(self) -> None:
+        """Raise unless the form gives the function's scores on the
+        corners of a box well beyond the bounds and on seeded points
+        (including coordinates of -1, where a transition's target can
+        lie).  Checked once per function and shared through
+        :meth:`with_bounds` copies."""
+        if len(self.form) != self.num_constraints:
+            raise StateSpaceError(
+                f"constraint form has {len(self.form)} entries for "
+                f"{self.num_constraints} constraints")
+        if "form_checked" in self._box_cache:
+            return
+        S = self.num_species
+        if S is None:
+            S = 1 + max((d for f in self.form for d in f.species),
+                        default=0)
+        hi = 2 * int(max(self.bounds.max(initial=0), 1)) + 2
+        corners = np.array(np.meshgrid(*[[0, hi]] * S),
+                           dtype=np.int64).reshape(S, -1).T
+        rng = np.random.default_rng(0)
+        pts = np.concatenate([
+            corners,
+            rng.integers(-1, hi + 1, size=(_FORM_CHECK_POINTS, S)),
+            rng.integers(-1, 6, size=(_FORM_CHECK_POINTS, S))])
+        x = torch.as_tensor(pts)
+        want = torch.as_tensor(self.fn(x)).reshape(
+            x.shape[0], self.num_constraints).to(torch.float64)
+        got = form_values(self.form, x).to(torch.float64)
+        bad = (want != got).any(dim=1)
+        if bool(bad.any()):
+            at = pts[int(torch.nonzero(bad)[0, 0])].tolist()
+            raise StateSpaceError(
+                "the constraint form disagrees with the constraint "
+                f"function at {at}: form {got[bad][0].tolist()}, function "
+                f"{want[bad][0].tolist()}")
+        self._box_cache["form_checked"] = True
 
     def bounds_tensor(self, device) -> torch.Tensor:
         return torch.as_tensor(self.bounds, dtype=torch.int64, device=device)

@@ -23,6 +23,9 @@ EVT_ODESOLVE = "ODESolve"
 EVT_RHS = "RHSEvaluation"
 EVT_SCATTER = "SolutionScatter"
 EVT_TOTAL = "Solving"
+#: integrator step counts (accepted, rejected), summed over epochs
+EVT_STEPS = "ODESteps"
+EVT_REJECTED = "ODEStepsRejected"
 
 
 @dataclass

@@ -1,0 +1,122 @@
+"""The port's BDF integrator against the reference package's
+(``pacmensl_tpu.solvers.bdf.BdfSolver``) on fixed box operators (toggle,
+and the time-varying hog1p_3d), with the same float64 defaults: the same
+status, accepted steps, rejections, matvecs and orders, the end time to
+1e-8 relative, and ``y`` to 1e-10.  Then
+the FSP stop-check's revert, the failure of a matvec that turns NaN
+(``tests/test_ode.py:66-112``)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+import pacmensl_tpu as pm  # noqa: E402
+from pacmensl_tpu.ops.box_operator import BoxOperator as JOp  # noqa: E402
+from pacmensl_tpu.ops.vecops import FspVector as JVec  # noqa: E402
+from pacmensl_tpu.solvers.bdf import BdfSolver as JBdf  # noqa: E402
+from pacmensl_tpu.statespace.box_space import BoxStateSpace as JBox  # noqa: E402
+import pacmensl_tpu_torch as pt  # noqa: E402
+from pacmensl_tpu_torch.solvers.base import (  # noqa: E402
+    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE)
+
+Y_TOL = 1e-10
+
+
+def _ops(name, bounds):
+    jb, tb = pm.models.ALL_MODELS[name](), pt.models.ALL_MODELS[name]()
+    js = JBox(jb.model.stoichiometry,
+              pm.ConstraintSet(jb.constraint, bounds, jb.expansion_factors),
+              jb.x0)
+    ts = pt.BoxStateSpace(
+        tb.model.stoichiometry,
+        pt.ConstraintSet(tb.constraint, bounds, tb.expansion_factors),
+        tb.x0, device="cpu")
+    assert tuple(js.shape) == tuple(ts.shape)
+    jop = JOp(jb.model, js, dtype=jnp.float64)
+    top = pt.BoxOperator(tb.model, ts)
+    p0 = np.zeros(js.shape)
+    p0[tuple(jb.x0[0])] = 1.0
+    n_c = js.num_constraints
+    jy = JVec(p=jnp.asarray(p0), sinks=jnp.zeros(n_c))
+    ty = pt.FspVector(p=torch.as_tensor(p0.reshape(-1)),
+                      sinks=torch.zeros(n_c, dtype=torch.float64))
+    return jop, top, jy, ty
+
+
+def _same(jr, tr, y_rtol=0.0):
+    assert tr.status == int(jr.status)
+    assert tr.stats.n_steps == int(jr.stats.n_steps)
+    assert tr.stats.n_rejected == int(jr.stats.n_rejected)
+    assert tr.stats.n_matvecs == int(jr.stats.n_matvecs)
+    # adaptive step control carries rounding-level differences of the
+    # error norms (sums in another order) into the step sizes: measured
+    # 3.6e-9 relative on toggle to t = 100, with the same steps
+    assert tr.t == pytest.approx(float(jr.t), rel=1e-8)
+    np.testing.assert_allclose(tr.y.p.numpy(),
+                               np.asarray(jr.y.p).reshape(-1),
+                               rtol=y_rtol, atol=Y_TOL)
+    np.testing.assert_allclose(tr.y.sinks.numpy(), np.asarray(jr.y.sinks),
+                               rtol=y_rtol, atol=Y_TOL)
+
+
+@pytest.mark.parametrize("name,bounds,t_final", [
+    ("toggle", [12, 9, 40], 100.0),
+    ("hog1p_3d", [3, 8, 8, 4, 12, 12, 12], 20.0),
+])
+def test_bdf_matches_reference(name, bounds, t_final):
+    jop, top, jy, ty = _ops(name, np.asarray(bounds))
+    jr = JBdf(jop.action).solve(jy, 0.0, t_final)
+    tr = pt.BdfSolver(top.action).solve(ty, 0.0, t_final)
+    assert tr.status == STATUS_OK and tr.t == t_final
+    _same(jr, tr)
+    # the order travels in the step trace
+    orders = tr.trace.aux[:tr.stats.n_steps]
+    assert orders.min() >= 1 and orders.max() <= 5
+    np.testing.assert_array_equal(
+        orders, np.asarray(jr.trace.aux)[:tr.stats.n_steps])
+
+
+def test_bdf_stop_check_reverts():
+    """A violated stop-check keeps the last accepted state and returns
+    status 1, as CvodeFsp does; both packages stop at the same point."""
+    jop, top, jy, ty = _ops("toggle", np.array([12, 9, 40]))
+    tol, t_final = 1e-6, 100.0
+
+    def jcheck(t, y):
+        return y.sinks * 3 - tol * (t / t_final)
+
+    def tcheck(t, y):
+        return y.sinks.numpy() * 3 - tol * (t / t_final)
+
+    jr = JBdf(jop.action, stop_check=jcheck).solve(jy, 0.0, t_final)
+    tr = pt.BdfSolver(top.action, stop_check=tcheck).solve(ty, 0.0, t_final)
+    assert tr.status == STATUS_FSP_STOP and tr.t < t_final
+    assert (tcheck(tr.t, tr.y) <= 1e-14).all()     # the reverted state
+    assert tr.viol_excess.max() > 0                 # what stopped it
+    # the stop lands after 145 steps, 6.5e-8 apart in t (9.5e-10
+    # relative, see _same); y there moves by as much relative
+    _same(jr, tr, y_rtol=1e-8)
+
+
+def test_bdf_bad_matvec_fails():
+    """A matvec that turns NaN after t > 1 ends the solve with status -1
+    (reference test_ode.cpp:188,261)."""
+    jop, top, jy, ty = _ops("toggle", np.array([12, 9, 40]))
+
+    def jbad(t, y):
+        d = jop.action(t, y)
+        return JVec(p=d.p * jnp.where(t > 1.0, jnp.nan, 1.0), sinks=d.sinks)
+
+    def tbad(t, y):
+        d = top.action(t, y)
+        return pt.FspVector(p=d.p * (float("nan") if t > 1.0 else 1.0),
+                            sinks=d.sinks)
+
+    jr = JBdf(jbad).solve(jy, 0.0, 100.0)
+    tr = pt.BdfSolver(tbad).solve(ty, 0.0, 100.0)
+    assert int(jr.status) == STATUS_FAILURE == tr.status
+    assert tr.t <= 1.0 + 1e-12
+    assert np.isfinite(tr.y.p.numpy()).all()

@@ -1,11 +1,13 @@
-"""The box kernel's wrapper: device dispatch on the CPU, and on a card the
-CUDA kernel against its plain PyTorch version.
+"""The box kernel's wrappers: device dispatch on the CPU, and on a card
+both kernel modes against their plain PyTorch versions.
 
 This file imports no JAX, so its CUDA cases also run on a GPU host without
 the reference package (see README: ``pytest --noconftest -m cuda``).  The
 kernel's ``dp`` rounds as its plain version's does and must equal it
 bitwise; its sinks are summed in another order, hence rtol 1e-12 /
-atol 1e-13.  Two launches of the kernel must agree bitwise."""
+atol 1e-13.  Two launches of the kernel must agree bitwise, and on a box
+whose mask is constraint-only the synthesized-mask mode (K3) must give
+the mask-reading mode's (K1) ``dp`` and sinks bitwise."""
 import math
 
 import numpy as np
@@ -16,6 +18,9 @@ torch.set_num_threads(2)
 
 import pacmensl_tpu_torch as pt  # noqa: E402
 from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
+from pacmensl_tpu_torch.ops import box_operator as bo  # noqa: E402
+from pacmensl_tpu_torch.statespace.constraints import (  # noqa: E402
+    coord, product)
 
 TOL = dict(rtol=1e-12, atol=1e-13)
 
@@ -32,64 +37,166 @@ def _operator(name, bounds, device):
     return b, pt.BoxOperator(b.model, space)
 
 
+def _k1_data(op):
+    """The mask-reading kernel's inputs for ``op``'s epoch."""
+    return (op.space.mask.reshape(-1).to(torch.uint8),
+            bo.violation_bits(op.space.constraints, op.model.stoichiometry,
+                              op.shape, op.device))
+
+
 def test_cpu_tensors_run_the_plain_version():
     """On CPU tensors the wrapper runs the plain version and launches
     nothing."""
     b, op = _operator("toggle", [12, 9, 40], "cpu")
     d = op.data()
+    mask, viol = _k1_data(op)
     rng = np.random.default_rng(5)
-    p = torch.as_tensor(rng.random(op.geom.n)) * d.mask
+    p = torch.as_tensor(rng.random(op.geom.n)) * mask
     c = b.model.coefficients(0.0)
-    n0, m0 = bk.KERNEL.launches, bk.KERNEL.plain_cuda_calls
-    got = bk.box_action(c, p, d.mask, op.prop_fields, d.viol, op.geom)
-    want = bk.box_action_reference(c, p, d.mask, op.prop_fields, d.viol,
+    n0, m0 = dict(bk.KERNEL.launches), dict(bk.KERNEL.plain_cuda_calls)
+    got = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    want = bk.box_action_reference(c, p, mask, op.prop_fields, viol,
                                    op.geom)
+    got3 = bk.box_action_synth(c, p, op.prop_fields, d.bounds, op.geom)
+    want3 = bk.box_action_synth_reference(c, p, op.prop_fields, d.bounds,
+                                          op.geom)
     assert (bk.KERNEL.launches, bk.KERNEL.plain_cuda_calls) == (n0, m0)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got3[0], want3[0]) and torch.equal(got3[1], want3[1])
+    assert torch.equal(got3[0], got[0]) and torch.equal(got3[1], got[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,bounds,t", [
+def test_index_decode_constants():
+    """The kernel decodes a flat index below 2^31 with one multiply and
+    shift per axis, q = (x * dmul) >> dshift; the wrapper's constants give
+    exact quotients, here checked with Python integers."""
+    rng = np.random.default_rng(3)
+    shapes = [(4, 42, 94, 42, 63), (211, 316, 211), (1, 2, 3, 5, 7, 64),
+              (1 << 20, 3), ((1 << 30) - 1,)]
+    for shape in shapes:
+        geom = bk.BoxGeometry(shape, np.zeros((1, len(shape)), int), 0)
+        prm = geom.params([0.0])
+        xs = [0, 1, (1 << 31) - 1] + rng.integers(0, 1 << 31, 400).tolist()
+        for d, e in enumerate(shape):
+            m, sh = int(prm.dmul[d]), int(prm.dshift[d])
+            for x in xs + [e - 1, e, 2 * e - 1]:
+                assert (x * m) >> sh == x // e, (shape, d, x)
+                assert x * m < 1 << 64
+
+
+def test_form_arithmetic_width():
+    """K3 evaluates the forms in int32 only where no value at a box point
+    or its neighbours, and no bound, can overflow it."""
+    _, op = _operator("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], "cpu")
+    assert op.geom.narrow(op.data().bounds)
+    assert not op.geom.narrow([3, 6, 6, 6, 6, 8, 1 << 31])
+    rep = pt.models.repressilator()
+    small = bk.BoxGeometry((300, 300, 300), rep.model.stoichiometry, 6,
+                           rep.constraint.form)
+    assert small.narrow([1] * 6)
+    big = bk.BoxGeometry((1 << 16, 2, 2), rep.model.stoichiometry, 6,
+                         rep.constraint.form)
+    assert not big.narrow([1] * 6)      # x0 * x2 may reach 2^32
+
+
+def test_kernel_limits():
+    stoich = np.array([[1, 0], [0, -1]])
+    ok = (product(0, 1),)
+    assert bk.form_fits_kernel(ok, stoich)
+    assert not bk.form_fits_kernel(None, stoich)
+    huge = (product(0, 1, u=1 << 30),)
+    assert not bk.form_fits_kernel(huge, stoich)     # u s_j leaves int32
+    outside = (coord(2),)
+    assert not bk.form_fits_kernel(outside, stoich)
+    many = (coord(0),) * (bk.MAX_FORM_NC + 1)
+    assert not bk.form_fits_kernel(many, stoich)
+    bk.BoxGeometry((1 << 16, (1 << 15) - 1), stoich, 0).params([0.0, 0.0])
+    with pytest.raises(bk.KernelError, match="elements"):
+        bk.BoxGeometry((1 << 16, 1 << 15), stoich, 0).params([0.0, 0.0])
+
+
+CASES = [
     ("toggle", [12, 9, 40], 0.0),
     ("repressilator", [25, 15, 15, 60, 30, 60], 0.0),
     ("hog1p_3d", [3, 8, 8, 4, 12, 12, 12], 30.0),
     ("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], 60.0),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bounds,t", CASES)
 def test_cuda_kernel_matches_plain_version(name, bounds, t):
     _needs_cuda()
     b, op = _operator(name, bounds, "cuda")
-    d = op.data()
+    mask, viol = _k1_data(op)
     rng = np.random.default_rng(11)
-    p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * d.mask
+    p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
     c = b.model.coefficients(t)
-    n0 = bk.KERNEL.launches
-    kp, ks = bk.box_action(c, p, d.mask, op.prop_fields, d.viol, op.geom)
-    kp2, ks2 = bk.box_action(c, p, d.mask, op.prop_fields, d.viol, op.geom)
-    rp, rs = bk.box_action_reference(c, p, d.mask, op.prop_fields, d.viol,
+    n0 = bk.KERNEL.launches["mask"]
+    kp, ks = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    kp2, ks2 = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    rp, rs = bk.box_action_reference(c, p, mask, op.prop_fields, viol,
                                      op.geom)
     torch.cuda.synchronize()
-    assert bk.KERNEL.launches == n0 + 2
+    assert bk.KERNEL.launches["mask"] == n0 + 2
     assert torch.equal(kp, rp)
     np.testing.assert_allclose(ks.cpu().numpy(), rs.cpu().numpy(), **TOL)
     assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name,bounds,t", CASES)
+def test_cuda_synth_kernel_matches_plain_version_and_k1(name, bounds, t,
+                                                        wide):
+    """``wide`` forces the int64 form arithmetic where int32 would do."""
+    _needs_cuda()
+    b, op = _operator(name, bounds, "cuda")
+    assert op.synth_mask
+    assert op.geom.narrow(op.data().bounds)
+    if wide:
+        op.geom.narrow = lambda bounds: False
+    mask, viol = _k1_data(op)
+    bounds_now = op.data().bounds
+    rng = np.random.default_rng(12)
+    p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
+    c = b.model.coefficients(t)
+    n0 = bk.KERNEL.launches["synth"]
+    kp, ks = bk.box_action_synth(c, p, op.prop_fields, bounds_now, op.geom)
+    kp2, ks2 = bk.box_action_synth(c, p, op.prop_fields, bounds_now,
+                                   op.geom)
+    rp, rs = bk.box_action_synth_reference(c, p, op.prop_fields, bounds_now,
+                                           op.geom)
+    k1p, k1s = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    torch.cuda.synchronize()
+    assert bk.KERNEL.launches["synth"] == n0 + 2
+    assert torch.equal(kp, rp)
+    np.testing.assert_allclose(ks.cpu().numpy(), rs.cpu().numpy(), **TOL)
+    assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
+    assert torch.equal(kp, k1p) and torch.equal(ks, k1s)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     _needs_cuda()
     b, op = _operator("toggle", [12, 9, 40], "cuda")
-    d = op.data()
+    mask, viol = _k1_data(op)
     c = b.model.coefficients(0.0)
     p = torch.zeros(op.geom.n, dtype=torch.float64, device="cuda")
     with pytest.raises(TypeError):
-        bk.box_action(c, p.float(), d.mask, op.prop_fields, d.viol, op.geom)
+        bk.box_action(c, p.float(), mask, op.prop_fields, viol, op.geom)
     with pytest.raises(ValueError):
-        bk.box_action(c, p[:-1], d.mask, op.prop_fields, d.viol, op.geom)
+        bk.box_action(c, p[:-1], mask, op.prop_fields, viol, op.geom)
     with pytest.raises(ValueError):
-        bk.box_action(c, p, d.mask, op.prop_fields.t().contiguous().t(),
-                      d.viol, op.geom)
+        bk.box_action(c, p, mask, op.prop_fields.t().contiguous().t(),
+                      viol, op.geom)
     with pytest.raises(ValueError):
-        bk.box_action(c, p, d.mask.cpu(), op.prop_fields, d.viol, op.geom)
+        bk.box_action(c, p, mask.cpu(), op.prop_fields, viol, op.geom)
+    with pytest.raises(ValueError):
+        bk.box_action_synth(c, p, op.prop_fields, [1, 2], op.geom)
+    with pytest.raises(TypeError):
+        bk.box_action_synth(c, p.float(), op.prop_fields, op.data().bounds,
+                            op.geom)
 
 
 @pytest.mark.cuda
@@ -104,8 +211,30 @@ def test_cuda_solve_runs_the_kernel():
     s.set_initial_distribution(b.x0, b.p0)
     bk.KERNEL.reset_counts()
     d = s.solve(10.0, 1.0e-6)
-    assert bk.KERNEL.launches > 0 and bk.KERNEL.plain_cuda_calls == 0
+    assert bk.KERNEL.launches["synth"] > 0
+    assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
     k = d.states[:, 0]
     pmf = np.exp(k * math.log(20.0) - 20.0
                  - np.array([math.lgamma(v + 1.0) for v in k]))
     assert np.abs(d.p - pmf).sum() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_bdf_solve_runs_the_synthesized_mask_kernel():
+    """hog1p_3d to t = 30 on the card: "auto" picks BDF, and every matvec
+    launches K3 (the mask stays constraint-only)."""
+    _needs_cuda()
+    b = pt.models.hog1p_3d()
+    s = pt.FspSolverMultiSinks(device="cuda")
+    s.set_model(b.model)
+    s.set_constraint_functions(b.constraint)
+    s.set_initial_bounds(b.bounds)
+    s.set_expansion_factors(b.expansion_factors)
+    s.set_initial_distribution(b.x0, b.p0)
+    bk.KERNEL.reset_counts()
+    d = s.solve(30.0, 1.0e-4)
+    assert isinstance(s._ode_solver, pt.BdfSolver)
+    assert bk.KERNEL.launches["synth"] > 0
+    assert bk.KERNEL.launches["mask"] == 0
+    assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
+    assert d.num_states == 350 and d.sum() >= 1.0 - 1.0e-4

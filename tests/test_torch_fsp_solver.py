@@ -142,12 +142,12 @@ def test_misuse_detection():
 def test_unported_paths_raise():
     with pytest.raises(pt.SetupError, match="A9"):
         pt.FspSolverMultiSinks(backend="ell", device="cpu")
-    b = pt.models.hog1p_3d()            # time-varying: "auto" picks BDF
-    s = pt.FspSolverMultiSinks(device="cpu")
+    b = pt.models.hog1p_3d()
+    s = pt.FspSolverMultiSinks(odes_type="petsc", device="cpu")
     s.set_model(b.model)
     s.set_constraints(b.constraint, b.bounds, b.expansion_factors)
     s.set_initial_distribution(b.x0, b.p0)
-    with pytest.raises(pt.SetupError, match="A7"):
+    with pytest.raises(pt.SetupError, match="A8"):
         s.set_up()
 
 

@@ -1,0 +1,93 @@
+"""The port's matrix-free GMRES against the reference package's
+(``pacmensl_tpu.ops.gmres.gmres``) on a fixed toggle operator: the BDF
+corrector matrix ``I - c A`` of the box operator, a right-hand side made
+with numpy from a seed.  Both run in float64 with the same restarts; the
+solutions agree to 1e-12 with the same matvec count and convergence flag
+(the Arnoldi sums are taken in another order, so the last bits differ)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+import pacmensl_tpu as pm  # noqa: E402
+from pacmensl_tpu.ops import vecops as jvo  # noqa: E402
+from pacmensl_tpu.ops.box_operator import BoxOperator as JOp  # noqa: E402
+from pacmensl_tpu.ops.gmres import gmres as jgmres  # noqa: E402
+from pacmensl_tpu.statespace.box_space import BoxStateSpace as JBox  # noqa: E402
+import pacmensl_tpu_torch as pt  # noqa: E402
+from pacmensl_tpu_torch.ops import vecops as tvo  # noqa: E402
+from pacmensl_tpu_torch.ops.gmres import gmres as tgmres  # noqa: E402
+
+BOUNDS = np.array([12, 9, 40])
+C = 0.75
+
+
+@pytest.fixture(scope="module")
+def toggle_ops():
+    jb, tb = pm.models.toggle(), pt.models.toggle()
+    js = JBox(jb.model.stoichiometry,
+              pm.ConstraintSet(jb.constraint, BOUNDS, jb.expansion_factors),
+              jb.x0)
+    ts = pt.BoxStateSpace(
+        tb.model.stoichiometry,
+        pt.ConstraintSet(tb.constraint, BOUNDS, tb.expansion_factors),
+        tb.x0, device="cpu")
+    assert tuple(js.shape) == tuple(ts.shape)
+    return JOp(jb.model, js, dtype=jnp.float64), pt.BoxOperator(tb.model, ts)
+
+
+def _rhs(js_mask, n_c, seed):
+    rng = np.random.default_rng(seed)
+    p = np.where(js_mask, rng.standard_normal(js_mask.shape), 0.0)
+    return p, rng.standard_normal(n_c)
+
+
+@pytest.mark.parametrize("restart,tol,max_restarts,seed", [
+    (16, 1e-10, 40, 0),        # the BDF defaults
+    (4, 1e-12, 40, 1),         # several restart cycles
+    (2, 1e-14, 1, 2),          # stops unconverged
+])
+def test_gmres_matches_reference(toggle_ops, restart, tol, max_restarts,
+                                 seed):
+    jop, top = toggle_ops
+    mask = np.asarray(jop.space.mask_host)
+    n_c = jop.num_constraints
+    p, sk = _rhs(mask, n_c, seed)
+
+    def j_apply(v):
+        return jvo.axpy(-C, jop.action(0.0, v), v)
+
+    def t_apply(v):
+        return tvo.axpy(-C, top.action(0.0, v), v)
+
+    jb = jvo.FspVector(p=jnp.asarray(p), sinks=jnp.asarray(sk))
+    tb = tvo.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                       sinks=torch.as_tensor(sk))
+    want = jgmres(j_apply, jb, jvo.zeros_like(jb), restart=restart, tol=tol,
+                  max_restarts=max_restarts)
+    got = tgmres(t_apply, tb, tvo.zeros_like(tb), restart=restart, tol=tol,
+                 max_restarts=max_restarts)
+    assert got.n_matvecs == int(want.n_matvecs)
+    assert got.converged == bool(want.converged)
+    assert got.converged == (max_restarts > 1)
+    np.testing.assert_allclose(got.x.p.numpy(),
+                               np.asarray(want.x.p).reshape(-1),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got.x.sinks.numpy(), np.asarray(want.x.sinks),
+                               rtol=0, atol=1e-12)
+    assert got.res_norm == pytest.approx(float(want.res_norm), rel=1e-6,
+                                         abs=1e-15)
+
+
+def test_gmres_nan_rhs_stops_unconverged(toggle_ops):
+    """A non-finite right-hand side ends the solve at once, unconverged,
+    with x0 returned (the reference's NaN target)."""
+    _, top = toggle_ops
+    b = top.zero_vector()
+    b.p[0] = float("nan")
+    res = tgmres(lambda v: v, b, tvo.zeros_like(b))
+    assert not res.converged and res.n_matvecs == 0
+    assert torch.equal(res.x.p, torch.zeros_like(b.p))
