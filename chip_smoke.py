@@ -38,9 +38,39 @@ Phases (each check that fails ends the run with a nonzero exit):
    BDF: reachability prunes its box, so the mask is not constraint-only
    and every matvec runs K1, as the reference package chooses.  Then K1
    against its plain version on the final operator and solution.
+7. The sharded box path (K4, the kernel's sharded mode behind a halo
+   exchange over ``torch.distributed``):
 
-The ``kernels`` record counts each kernel's launches in the three paths'
-own solves (phases 4, 5 and 6) only.
+   a. In this process: the 128^3 box and the repressilator's final
+      operator and solution from phase 4, each cut into 4 axis-0 slabs
+      whose windows hold the neighbours' halo planes as the exchange
+      delivers them.  K4 in both modes on every slab: the assembled dp is
+      bitwise the whole box's K1 dp and K3 dp and each slab's dp bitwise
+      the plain K4's; the summed sinks lie within 1e-12 relative of the
+      whole box's; two launches are bitwise equal.  Timed per slab and
+      per sweep of the 4 slabs beside K1 and K3, and against one
+      ``torch.mv`` of the same generator as a CSR matrix with the sink
+      rows appended (the library yardstick; the port never calls it).
+   b. The repressilator solve of phase 4 sharded over one rank per
+      visible card (NCCL, ``torch.multiprocessing`` spawn): phase 4's
+      checks, and L1 <= 2 * fsp_tol to phase 4's distribution.
+   c. Two ranks on one card over gloo (NCCL refuses two ranks on one
+      device), the repressilator to t = 2: L1 <= 2 * fsp_tol to a
+      one-device solve and a state count within 5% of its, with every
+      rank taking the same steps; K4 runs with real halos from the other
+      process.  The ranks sum the sinks and the dots in another order
+      than one device, and the expansion path is a discrete outcome that
+      rounding selects (as in phase 4), so the state sets may differ.
+
+   In 7b and 7c one matvec of the final operator, with the halos the
+   ranks exchange, must give the whole box's dp bitwise and its sinks
+   within 1e-12 relative.
+
+The ``kernels`` record counts each kernel's launches in the paths' own
+solves only: K1 and K3 in phases 4, 5 and 6, K4 in phases 7b and 7c (over
+all ranks).  ``bound_ms`` is the compulsory bytes of each timed call over
+the H100's 3.35 TB/s (the larger bound: the float64 operations over its
+34 TFLOP/s are far less).
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is the
@@ -70,6 +100,14 @@ GMRES_TOL = 1.0e-10
 #: package's own test solves it (tests/test_fsp_solver.py:110-125;
 #: examples/transcr_reg_6d.cpp runs to t = 300)
 TR6_T_FINAL, TR6_TOL = 30.0, 1.0e-4
+#: phase 7c: the repressilator to this time (its CPU test size)
+GLOO_T_FINAL = 2.0
+#: slabs the box is cut into in phase 7a
+SLABS = 4
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float64 FLOP/s
+HBM_RATE, F64_RATE = 3.35e12, 34e12
+#: seconds a phase-7 rank may take before the script stops every rank
+RANK_TIMEOUT = 300
 
 
 def fail(msg):
@@ -93,6 +131,168 @@ def l1_by_state(d1, d2):
     np.add.at(diff, inv[:k1.size], d1.p)
     np.subtract.at(diff, inv[k1.size:], d2.p)
     return float(np.abs(diff).sum())
+
+
+def free_port():
+    """A free TCP port on the loopback interface, for a rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card takes to move
+    ``nbytes`` and do ``flops`` float64 operations."""
+    tb, tf = nbytes / HBM_RATE, flops / F64_RATE
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def action_bytes(n_in, n_out, R, synth):
+    """Compulsory bytes of one box action over ``n_in`` input elements
+    and ``n_out`` outputs: p and R propensity values read (K1 also the
+    mask byte and R violation words), dp written."""
+    per_in = 8 + 8 * R + (0 if synth else 1 + 4 * R)
+    return n_in * per_in + 8 * n_out
+
+
+def generator_csr(c, mask, a, viol, shape, stoich, nc):
+    """The truncated generator at coefficients ``c`` as a CSR matrix of
+    ``n + nc`` rows, the sink rows last: the function the box kernel
+    computes (``A @ p`` = dp and sinks).  The library yardstick only."""
+    import numpy as np
+    import torch
+    dev = a.device
+    n = int(np.prod(shape))
+    strides = torch.tensor([int(np.prod(shape[d + 1:]))
+                            for d in range(len(shape))], device=dev)
+    ext = torch.tensor(shape, device=dev)
+    valid = mask != 0
+    x = torch.nonzero(valid).squeeze(1)
+    crd = (x[:, None] // strides[None, :]) % ext[None, :]
+    rows, cols, vals = [x], [x], []
+    diag = torch.zeros(x.numel(), dtype=torch.float64, device=dev)
+    for r in range(len(c)):
+        rate = float(c[r]) * a[r, x]
+        diag = diag - rate
+        tgt = crd + torch.as_tensor(stoich[r], device=dev)[None, :]
+        inb = ((tgt >= 0) & (tgt < ext[None, :])).all(1)
+        flat = torch.where(inb, (tgt * strides[None, :]).sum(1), 0)
+        ok = inb & valid[flat]
+        rows.append(flat[ok])
+        cols.append(x[ok])
+        vals.append(rate[ok])
+        bits = viol[r, x]
+        for cc in range(nc):
+            sel = ((bits >> cc) & 1) != 0
+            rows.append(torch.full((int(sel.sum()),), n + cc, device=dev))
+            cols.append(x[sel])
+            vals.append(rate[sel])
+    vals.insert(0, diag)
+    return torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n + nc, n)).coalesce().to_sparse_csr()
+
+
+def rank_solve(rank, world, port, backend, t_final, tol, queue):
+    """Phase 7b/7c on one rank: the repressilator solve over the mesh of
+    ``world`` ranks; puts its summary (and on rank 0 the distribution)
+    on ``queue``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    pt.environment.init(backend=backend, world_size=world, rank=rank,
+                        init_method=f"tcp://127.0.0.1:{port}",
+                        timeout=RANK_TIMEOUT)
+    try:
+        mesh = pt.make_mesh("cuda")
+        rep = pt.models.repressilator()
+        s = pt.FspSolverMultiSinks(backend="box", odes_type="krylov",
+                                   mesh=mesh)
+        s.set_model(rep.model)
+        s.set_constraint_functions(rep.constraint)
+        s.set_initial_bounds(rep.bounds)
+        s.set_expansion_factors(rep.expansion_factors)
+        s.set_initial_distribution(rep.x0, rep.p0)
+        torch.cuda.synchronize()
+        bk.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        d = s.solve(t_final, tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = s.get_event_log().events
+        tr = s.step_trace
+        out = {"rank": rank, "device": str(mesh.device), "wall": wall,
+               "launches": dict(bk.KERNEL.launches),
+               "plain": dict(bk.KERNEL.plain_cuda_calls),
+               "epochs": ev["ODESolve"].count,
+               "rhs": ev["RHSEvaluation"].count,
+               "halo": ev["HaloValuesPerMatvec"].count,
+               "halo_now": s._operator.sharded.comm_values_per_matvec(),
+               "capacity": tuple(s._space.shape),
+               "steps": (np.array(tr.model_time), np.array(tr.step_h),
+                         np.array(tr.aux)),
+               "sinks": np.asarray(d.sinks)}
+        if rank == 0:
+            out.update(states=d.states, p=d.p, bounds=d.bounds)
+        # one matvec of the final operator, with the halos the ranks
+        # exchange, against the whole box's kernel on rank 0
+        from pacmensl_tpu_torch.parallel.mesh import gather_global
+        dp = s._operator.action(t_final, s._y)
+        dp_all = gather_global(dp.p, mesh)
+        p_all = gather_global(s._y.p, mesh)
+        if rank == 0:
+            one = pt.BoxOperator(rep.model, s._space)
+            want = one.action(t_final, pt.FspVector(p=p_all,
+                                                    sinks=s._y.sinks))
+            out["matvec_dp_bitwise"] = bool(torch.equal(dp_all, want.p))
+            out["matvec_sinks_rel"] = float(
+                ((dp.sinks - want.sinks).abs()
+                 / want.sinks.abs().clamp_min(1e-300)).max())
+        queue.put(out)
+    finally:
+        pt.environment.finalize()
+
+
+def run_ranks(world, backend, t_final, tol):
+    """``rank_solve`` on ``world`` spawned processes; their summaries by
+    rank.  A rank that fails or outlasts RANK_TIMEOUT fails the run, and
+    every rank is stopped."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=rank_solve,
+                         args=(r, world, port, backend, t_final, tol, q))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    out, t0 = {}, time.perf_counter()
+    try:
+        while len(out) < world:
+            try:
+                res = q.get(timeout=5)
+                out[res["rank"]] = res
+            except queue_mod.Empty:
+                dead = [pr.exitcode for pr in procs
+                        if pr.exitcode not in (None, 0)]
+                check(not dead, f"a rank of the {backend} solve exited "
+                                f"with {dead}")
+                check(time.perf_counter() - t0 < RANK_TIMEOUT,
+                      f"the {backend} solve outlasted {RANK_TIMEOUT} s")
+        for pr in procs:
+            pr.join(timeout=60)
+            check(pr.exitcode == 0, f"a rank of the {backend} solve "
+                                    f"exited with {pr.exitcode}")
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.terminate()
+                pr.join()
+    return [out[r] for r in range(world)]
 
 
 def main():
@@ -124,7 +324,7 @@ def main():
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
-    max_err = {"mask": 0.0, "synth": 0.0}
+    max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0}
     TOL = dict(rtol=1e-12, atol=1e-13)
 
     def same_twice(label, run):
@@ -293,7 +493,33 @@ def main():
           f"each, order {' '.join(order)}): "
           + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
                       for k, vs in times.items()) + f"; {smi}", flush=True)
-    del a, viol, mask, p, geom, run
+    R = rep.model.num_reactions
+
+    def library(label, c, p, mask, a, viol, shape, nc, k1, reps=100):
+        """One torch.mv of the generator as CSR on ``p``, checked against
+        K1's (dp, sinks) ``k1``; its time in ms over ``reps`` calls."""
+        A = generator_csr(c, mask, a, viol, shape, rep.model.stoichiometry,
+                          nc)
+        y = torch.mv(A, p)
+        scale = float(k1[0].abs().max())
+        err = max(float((y[:-nc] - k1[0]).abs().max()),
+                  float((y[-nc:] - k1[1]).abs().max()))
+        check(err <= 1e-9 * scale, f"{label}: the CSR generator differs "
+                                   f"from K1 by {err:.3e}")
+        t = min(time_ms(lambda: torch.mv(A, p), reps) for _ in range(2))
+        print(f"[{label}] library: torch.mv of the CSR generator "
+              f"({A.shape[0]} x {A.shape[1]}, {A.values().numel()} "
+              f"nonzeros) {t * 1e3:.1f} us, max abs difference to K1 "
+              f"{err:.3e}", flush=True)
+        del A
+        return t
+
+    k1 = bk.box_action(c, p, mask, a, viol, geom)
+    lib_ms = library("2", c, p, mask, a, viol, shape, 3, k1)
+    flops = 2 * (2 * R + 1) * n
+    bounds_ms = {"K1": bound(action_bytes(n, n, R, False), flops),
+                 "K3": bound(action_bytes(n, n, R, True), flops)}
+    del k1, run
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -394,6 +620,7 @@ def main():
                                   f"tol={SLICE_TOL:g}", s, SLICE_T_FINAL,
                                SLICE_TOL, lambda k: 1.0e-8)
     final_operator(4, "repressilator", s, SLICE_T_FINAL)
+    op4, p4 = s._operator, s._y.p      # for phase 7a
     del s
     torch.cuda.empty_cache()
 
@@ -495,6 +722,217 @@ def main():
     del s
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- phase 7
+    from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
+
+    def slab_windows(geom, p, mask, a, viol):
+        """``geom``'s box cut into SLABS axis-0 slabs, each window holding
+        its neighbours' halo planes as the exchange delivers them: a list
+        of (K4 geometry, p, mask, fields, violation bits)."""
+        shape, g0 = geom.shape, geom.shape[0]
+        w0 = halo_width(geom.stoich)
+        cuts = np.linspace(0, g0, SLABS + 1).astype(int)
+        out = []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            o, rows = int(lo) - w0, int(hi - lo) + 2 * w0
+            g = bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
+                               geom.form, origin0=o, g0=g0,
+                               out_rows=(w0, w0 + int(hi - lo)))
+
+            def win(t):
+                return window_rows(t.reshape(shape), o, rows).reshape(-1)
+            out.append((g, win(p), win(mask),
+                        torch.stack([win(f) for f in a]),
+                        torch.stack([win(v) for v in viol])))
+        return out
+
+    def k4_launch(mode, c, bounds, w):
+        g, wp, wm, wa, wv = w
+        if mode == "mask":
+            return bk.box_action(c, wp, wm, wa, wv, g)
+        return bk.box_action_synth(c, wp, wa, bounds, g)
+
+    def k4_plain(mode, c, bounds, w):
+        g, wp, wm, wa, wv = w
+        if mode == "mask":
+            return bk.box_action_reference(c, wp, wm, wa, wv, g)
+        return bk.box_action_synth_reference(c, wp, wa, bounds, g)
+
+    def check_k4(label, c, p, mask, a, viol, bounds, geom, windows):
+        """K4 in both modes on every slab against the plain K4, and the
+        assembled result against the whole box's K1 and K3."""
+        k1 = bk.box_action(c, p, mask, a, viol, geom)
+        k3 = bk.box_action_synth(c, p, a, bounds, geom)
+        rel = 0.0
+        for mode in ("mask", "synth"):
+            dps, sk = [], 0
+            for i, w in enumerate(windows):
+                got = same_twice(f"{label} K4 {mode} slab {i}",
+                                 lambda: k4_launch(mode, c, bounds, w))
+                against_plain(f"{label} K4 {mode} slab {i}", "sharded", got,
+                              k4_plain(mode, c, bounds, w))
+                dps.append(got[0])
+                sk = sk + got[1]
+            dp = torch.cat(dps)
+            check(torch.equal(dp, k1[0]) and torch.equal(dp, k3[0]),
+                  f"{label}: the assembled K4 {mode} dp is not bitwise the "
+                  "whole box's K1 and K3")
+            check(torch.allclose(sk, k1[1], rtol=1e-12, atol=0.0),
+                  f"{label}: K4 {mode} sinks {sk.tolist()} against the "
+                  f"whole box's {k1[1].tolist()}")
+            rel = max(rel, float(((sk - k1[1]).abs()
+                                  / k1[1].abs().clamp_min(1e-300)).max()))
+        print(f"[7a] K4 {label}: {SLABS} slabs of "
+              f"{[w[0].out_hi - w[0].out_lo for w in windows]} rows, windows "
+              f"of {[w[0].shape[0] for w in windows]}; both modes bitwise "
+              f"the plain K4 and the whole box's K1 and K3, summed sinks "
+              f"within {rel:.3e} relative, max_abs_err "
+              f"{max_err['sharded']:.3e}", flush=True)
+        return k1
+
+    def time_k4(label, c, p, mask, a, viol, bounds, geom, windows,
+                with_plain):
+        """Per-slab and per-sweep K4 times beside K1 and K3 (ms)."""
+        run = {
+            "K1": lambda: bk.box_action(c, p, mask, a, viol, geom),
+            "K3": lambda: bk.box_action_synth(c, p, a, bounds, geom)}
+        for mode in ("mask", "synth"):
+            run[f"K4_{mode}"] = (lambda m=mode: [
+                k4_launch(m, c, bounds, w) for w in windows])
+        order = ["K1", "K4_mask", "K4_synth", "K3", "K3", "K4_synth",
+                 "K4_mask", "K1"]
+        if with_plain:
+            run["plain_K4_synth"] = lambda: [
+                k4_plain("synth", c, bounds, w) for w in windows]
+            order = ["plain_K4_synth"] + order + ["plain_K4_synth"]
+        t = {k: [] for k in run}
+        for k in order:
+            t[k].append(time_ms(run[k], reps=20 if "plain" in k else 100))
+        slab = {mode: [time_ms(lambda w=w, m=mode: k4_launch(m, c, bounds,
+                                                             w))
+                       for w in windows] for mode in ("mask", "synth")}
+        print(f"[7a] {label} per matvec (us; order {' '.join(order)}): "
+              + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+                          for k, vs in t.items())
+              + "; per slab K4 mask "
+              + " / ".join(f"{v * 1e3:.1f}" for v in slab["mask"])
+              + ", K4 synth "
+              + " / ".join(f"{v * 1e3:.1f}" for v in slab["synth"])
+              + f"; {smi}", flush=True)
+        return {k: float(np.mean(v)) for k, v in t.items()}
+
+    # 7a: the 128^3 box of phase 2
+    win128 = slab_windows(geom, p, mask, a, viol)
+    check_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, bench_bounds, geom,
+             win128)
+    ms4 = time_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, bench_bounds,
+                  geom, win128, with_plain=True)
+    n_win = sum(w[0].n for w in win128)
+    bounds_ms["K4"] = bound(action_bytes(n_win, n, R, True), flops)
+    del win128, a, viol, mask, p, geom
+    torch.cuda.empty_cache()
+    # 7a: the repressilator's final operator and solution of phase 4
+    mask4, viol4 = k1_data(op4)
+    c4 = op4.model.coefficients(SLICE_T_FINAL)
+    b4 = op4.data().bounds
+    win4 = slab_windows(op4.geom, p4, mask4, op4.prop_fields, viol4)
+    k1_4 = check_k4(f"repressilator final {op4.shape}", c4, p4, mask4,
+                    op4.prop_fields, viol4, b4, op4.geom, win4)
+    time_k4(f"repressilator final {op4.shape}", c4, p4, mask4,
+            op4.prop_fields, viol4, b4, op4.geom, win4, with_plain=False)
+    library("7a", c4, p4, mask4, op4.prop_fields, viol4, op4.shape,
+            op4.geom.nc, k1_4, reps=10)
+    del win4, k1_4, mask4, viol4, op4, p4
+    torch.cuda.empty_cache()
+
+    def rank_checks(phase, label, res, tol):
+        """The checks of a sharded solve's ranks: every matvec on K4, the
+        same steps and sinks on every rank, and phase 4's output checks
+        on the distribution; returns the distribution and K4 launches."""
+        d = res[0]
+        launches = sum(r["launches"]["sharded_mask"]
+                       + r["launches"]["sharded_synth"] for r in res)
+        for r in res:
+            check(r["launches"]["sharded_synth"] > 0,
+                  f"{label}: rank {r['rank']} launched no K4")
+            check(r["launches"]["mask"] + r["launches"]["synth"] == 0
+                  and sum(r["plain"].values()) == 0,
+                  f"{label}: rank {r['rank']} launched {r['launches']}, "
+                  f"plain versions {r['plain']}")
+            check(all(np.array_equal(x, y) for x, y in
+                      zip(r["steps"], d["steps"])),
+                  f"{label}: rank {r['rank']} took other steps than rank 0")
+            check(np.array_equal(r["sinks"], d["sinks"]),
+                  f"{label}: rank {r['rank']}'s sinks differ from rank 0's")
+        pv, sinks = d["p"], d["sinks"]
+        mass = float(pv.sum())
+        print(f"[{phase}] {label}: {len(res)} rank(s) on "
+              f"{[r['device'] for r in res]}, {pv.size} states, capacity "
+              f"{d['capacity']}, epochs {d['epochs']}, RHS evaluations "
+              f"{d['rhs']}, steps {d['steps'][0].size} (equal on every "
+              f"rank), K4 launches {launches}, wall "
+              + " / ".join(f"{r['wall']:.2f}" for r in res)
+              + f" s, halo values per matvec at the final capacity "
+              f"{d['halo_now']} ({d['halo_now'] * 8 / 1e6:.3f} MB over all "
+              f"ranks; the HaloValuesPerMatvec event adds it at each of the "
+              f"operator's builds: {d['halo']}), sum(p) {mass:.10f}, "
+              f"sum(sinks) {sinks.sum():.3e}", flush=True)
+        check(np.isfinite(pv).all() and np.isfinite(sinks).all(),
+              f"{label}: non-finite solution")
+        check(pv.min() > -1e-12, f"{label}: negative probability "
+                                 f"{pv.min():.3e}")
+        check(mass >= 1.0 - tol, f"{label}: sum(p) = {mass} < 1 - {tol:g}")
+        check(mass + sinks.sum() >= 1.0 - 1e-8
+              and mass + sinks.max() <= 1.0 + 1e-8,
+              f"{label}: mass balance sum(p) + sum(sinks) - 1 = "
+              f"{mass + sinks.sum() - 1:.3e}, sum(p) + max(sinks) - 1 = "
+              f"{mass + sinks.max() - 1:.3e}")
+        print(f"[{phase}] {label}: one matvec of the final operator with "
+              f"the exchanged halos: dp bitwise the whole box's "
+              f"{d['matvec_dp_bitwise']}, sinks within "
+              f"{d['matvec_sinks_rel']:.3e} relative", flush=True)
+        check(d["matvec_dp_bitwise"] and d["matvec_sinks_rel"] <= 1e-12,
+              f"{label}: the sharded matvec differs from the whole box's")
+        from types import SimpleNamespace
+        return SimpleNamespace(states=d["states"], p=pv), launches
+
+    # 7b: the repressilator solve of phase 4, one rank per card, NCCL
+    torch.cuda.synchronize()
+    world = torch.cuda.device_count()
+    d7b, launch7b = rank_checks(
+        "7b", f"sharded repressilator t={SLICE_T_FINAL:g} "
+              f"tol={SLICE_TOL:g} over NCCL",
+        run_ranks(world, "nccl", SLICE_T_FINAL, SLICE_TOL), SLICE_TOL)
+    l1 = l1_by_state(d7b, d4)
+    same = (np.array_equal(d7b.states, d4.states)
+            and np.array_equal(d7b.p, d4.p))
+    print(f"[7b] L1 to phase 4's distribution {l1:.3e} (limit "
+          f"{2 * SLICE_TOL:g}); bitwise phase 4's (states, p): {same}",
+          flush=True)
+    check(l1 <= 2 * SLICE_TOL, f"7b: L1 to phase 4 {l1:.3e} > "
+                               f"{2 * SLICE_TOL:g}")
+
+    # 7c: two ranks on the one card over gloo, against one device
+    d7c, launch7c = rank_checks(
+        "7c", f"sharded repressilator t={GLOO_T_FINAL:g} tol={SLICE_TOL:g}"
+              " over gloo", run_ranks(2, "gloo", GLOO_T_FINAL, SLICE_TOL),
+        SLICE_TOL)
+    s = solver_for(rep, "krylov")
+    t0 = time.perf_counter()
+    d1 = s.solve(GLOO_T_FINAL, SLICE_TOL)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    del s
+    l1 = l1_by_state(d7c, d1)
+    print(f"[7c] one-device solve (a comparison run): {d1.num_states} "
+          f"states, {wall1:.2f} s; same states: "
+          f"{np.array_equal(d7c.states, d1.states)}, L1 {l1:.3e} (limit "
+          f"{2 * SLICE_TOL:g})", flush=True)
+    check(abs(d7c.states.shape[0] - d1.num_states) <= 0.05 * d1.num_states,
+          f"7c: {d7c.states.shape[0]} states, not within 5% of the "
+          f"one-device solve's {d1.num_states}")
+    check(l1 <= 2 * SLICE_TOL, f"7c: L1 to the one-device solve {l1:.3e}")
+
     paths = (launch4, launch5, launch6)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
@@ -502,13 +940,25 @@ def main():
          "replaces": "pacmensl_tpu/ops/pallas_box.py:655",
          "launches": sum(lc["mask"] for lc in paths),
          "max_abs_err": max_err["mask"],
-         "ms": ms["K1"], "plain_ms": ms["plain"]},
+         "ms": ms["K1"], "plain_ms": ms["plain"],
+         "bound_ms": bounds_ms["K1"][0], "bound_by": bounds_ms["K1"][1],
+         "library_ms": lib_ms},
         {"name": "box_action_synth", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",
          "replaces": "pacmensl_tpu/ops/pallas_box.py:477",
          "launches": sum(lc["synth"] for lc in paths),
          "max_abs_err": max_err["synth"],
-         "ms": ms["K3"], "plain_ms": ms["plain_synth"]}]}), flush=True)
+         "ms": ms["K3"], "plain_ms": ms["plain_synth"],
+         "bound_ms": bounds_ms["K3"][0], "bound_by": bounds_ms["K3"][1],
+         "library_ms": lib_ms},
+        {"name": "box_action_sharded", "route": "cuda",
+         "source": "pacmensl_tpu_torch/csrc/box_action.cu",
+         "replaces": "pacmensl_tpu/ops/pallas_box.py:220",
+         "launches": launch7b + launch7c,
+         "max_abs_err": max_err["sharded"],
+         "ms": ms4["K4_synth"], "plain_ms": ms4["plain_K4_synth"],
+         "bound_ms": bounds_ms["K4"][0], "bound_by": bounds_ms["K4"][1],
+         "library_ms": lib_ms}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

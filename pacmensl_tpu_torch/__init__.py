@@ -30,6 +30,17 @@ ones (``odes_type="auto"`` picks)::
 
 Pass ``device="cpu"`` to run on the host, where the box kernel's plain
 PyTorch version takes the kernel's place.
+
+A sharded solve splits the box over the ranks of a ``torch.distributed``
+group (NCCL, one rank per card; start one process per card, for example
+with ``torchrun --nproc-per-node=<cards>``), every rank running the same
+script::
+
+    pt.environment.init()               # joins torchrun's group
+    s = pt.FspSolverMultiSinks(odes_type="krylov", mesh=pt.make_mesh())
+    ...                                 # as above
+    dist = s.solve(t_final=10.0, fsp_tol=1e-4)   # on every rank
+    pt.environment.finalize()
 """
 from . import config  # noqa: F401  (sets the TF32 switches)
 
@@ -49,6 +60,9 @@ from .solvers.krylov import KrylovSolver  # noqa: F401
 from .solvers.bdf import BdfSolver  # noqa: F401
 from .fsp.distribution import DiscreteDistribution  # noqa: F401
 from .fsp.solver import FspSolverMultiSinks  # noqa: F401
+from .sys import environment  # noqa: F401
+from .sys.environment import Environment  # noqa: F401
+from .parallel.mesh import StateMesh, make_mesh  # noqa: F401
 from . import interop  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

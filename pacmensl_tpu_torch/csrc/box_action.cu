@@ -23,7 +23,20 @@
 //     only for the constraints that reaction r can break.  It reads
 //     neither the mask nor the violation words, and visits reactions and
 //     constraints in K1's order with the same arithmetic, so where the
-//     mask is constraint-only its dp and sinks are bitwise K1's.
+//     mask is constraint-only its dp and sinks are bitwise K1's;
+//   * sharded (K4, PallasBoxKernel with global_extent0 set,
+//     pallas_box.py:220-229, 460-496, 542-546, driven by
+//     parallel/halo_box.py): either mode on a window of axis-0 planes of
+//     a box split into slabs over ranks.  Window row 0 sits at global row
+//     origin0; the kernel computes dp and sinks only for the window's rows
+//     [out_lo, out_hi) (the rows the rank owns), evaluates the forms and
+//     tests axis-0 source validity at global coordinates against the
+//     global extent g0, and keeps flat offsets local to the window.  The
+//     rows around the output rows are the neighbours' halo planes.  Sinks
+//     come only from the rows the kernel writes, so a sum over the ranks
+//     counts each transition once.  K1 and K3 are the window that is the
+//     whole box (origin0 = 0, g0 = shape[0], all rows out), so each
+//     slab's dp is bitwise the whole box's dp on its rows.
 //
 // For every flat C-order box index x:
 //
@@ -33,7 +46,8 @@
 //
 // srcok_r is the per-axis one-sided test that the source x - s_r lies in
 // the box (pallas_box.py:525-539), on int32 coordinates decoded from the
-// flat index (below 2^31) by a multiply and shift per axis.  A transition counts in
+// flat index (below 2^31) by a multiply and shift per axis, axis 0 in
+// global coordinates.  A transition counts in
 // every constraint it violates (reference sink semantics,
 // FspMatrixConstrained.cpp:173-195).
 //
@@ -52,12 +66,13 @@
 // (8 + 8R bytes) but issues the form's integer arithmetic, and on the
 // H100 it is slower than the mask-reading mode at every shape timed
 // (PERF.md, Findings).  The forms are evaluated in int32 where the host
-// shows that no value can overflow it, else in int64.
+// shows that no value can overflow it, else in int64.  K4 moves the same
+// bytes per output element, plus the halo planes' reads of its window.
 //
 // The design keeps one thread per flat index in a grid-stride loop over a
 // fixed grid (so every launch makes the same reduction tree), selects
-// rather than multiplies by the
-// mask (an inf or NaN propensity at an invalid position never reaches a
+// rather than multiplies by the mask (an inf or NaN propensity at an
+// invalid position never reaches a
 // sum), and writes per-block sink partials that a second one-block kernel
 // sums in a fixed order: no float atomics, so the sinks are bitwise equal
 // from run to run.  It is built with -fmad=false: each product and sum is
@@ -105,6 +120,17 @@ struct BoxParams {
     // dmul = ceil(2^dshift / shape[d]) and dshift = 31 + ceil(log2 shape[d])
     unsigned long long dmul[BOX_MAX_S];
     int dshift[BOX_MAX_S];
+    // The window (K4; the whole box for K1 and K3): global row of window
+    // row 0, global axis-0 extent, output rows [out_lo, out_hi) of the
+    // window, elements per axis-0 plane, and the element stride between
+    // reactions in a and viol (n, or more where they are row ranges of a
+    // larger window).
+    long long origin0;
+    long long g0;
+    long long out_lo;
+    long long out_hi;
+    long long plane;
+    long long rstride;
 };
 
 // y[i] for a run-time i, by selection over the unrolled axes, so that y
@@ -163,8 +189,8 @@ __device__ __forceinline__ bool shifted_over(const BoxForm& f, F b, F q,
     return v > b;
 }
 
-// C-order coordinates of flat index idx < 2^31, by a multiply and shift
-// per axis.
+// C-order coordinates of window index idx < 2^31, by a multiply and shift
+// per axis; axis 0 in global coordinates (window row + origin0).
 __device__ __forceinline__ void decode(long long idx, const BoxParams& prm,
                                        int (&crd)[BOX_MAX_S])
 {
@@ -180,7 +206,7 @@ __device__ __forceinline__ void decode(long long idx, const BoxParams& prm,
             crd[d] = 0;
         }
     }
-    crd[0] = (int)x;
+    crd[0] = (int)x + (int)prm.origin0;
 }
 
 // NCM: a compile-time bound on the constraint count; SYNTH: the mode; F:
@@ -255,17 +281,24 @@ box_action_kernel(const __grid_constant__ BoxParams prm,
         __syncthreads();
     }
 
-    const long long n = prm.n;
+    // Output element k is window element lo + k: a thread takes the same
+    // output elements whatever the window's origin, so a one-slab window
+    // reduces its sinks in the whole box's order.
+    const long long lo = prm.out_lo * prm.plane;
+    const long long nout = (prm.out_hi - prm.out_lo) * prm.plane;
+    const long long rs = prm.rstride;
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         idx < n; idx += stride) {
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         k < nout; k += stride) {
+        const long long idx = lo + k;
         double acc = 0.0;
         int crd[BOX_MAX_S];
         F q[NT];   // K3: each constraint's ungated part at x
         bool valid;
         if constexpr (SYNTH) {
             decode(idx, prm, crd);
-            valid = true;
+            // the synthesized mask is false outside the global box
+            valid = crd[0] >= 0 && crd[0] < prm.g0;
 #pragma unroll
             for (int c = 0; c < NCM; ++c) {
                 if (c < prm.nc) {
@@ -284,15 +317,16 @@ box_action_kernel(const __grid_constant__ BoxParams prm,
             const double pv = p[idx];
             for (int r = 0; r < prm.R; ++r) {
                 const double cr = prm.c[r];
-                const long long off = (long long)r * n;
+                const long long off = (long long)r * rs;
                 const double ap = a[off + idx] * pv;
                 bool ok = true;
 #pragma unroll
                 for (int d = 0; d < BOX_MAX_S; ++d) {
                     if (d < prm.S) {
                         const int s = prm.stoich[r][d];
+                        const long long hi = d == 0 ? prm.g0 : prm.shape[d];
                         if (s > 0) ok = ok && (crd[d] - s >= 0);
-                        else if (s < 0) ok = ok && (crd[d] - s < prm.shape[d]);
+                        else if (s < 0) ok = ok && (crd[d] - s < hi);
                     }
                 }
                 double in = 0.0;
@@ -348,7 +382,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm,
                 }
             }
         }
-        dp[idx] = acc;
+        dp[k] = acc;
     }
 
     // Block reduction of the sink partials: warp shuffles, then the warps'
@@ -401,6 +435,21 @@ extern "C" int box_action_params_size(void) { return (int)sizeof(BoxParams); }
 
 extern "C" int box_action_max_form_constraints(void) { return BOX_MAX_FNC; }
 
+// The window's fields describe rows of a box of fewer than 2^31 elements
+// whose global axis-0 coordinates fit an int (the wrapper checks more:
+// that every source an output row reads lies in the window).
+static bool window_ok(const BoxParams* prm)
+{
+    return prm->n <= BOX_MAX_N && prm->plane >= 1
+        && prm->shape[0] * prm->plane == prm->n
+        && 0 <= prm->out_lo && prm->out_lo <= prm->out_hi
+        && prm->out_hi <= prm->shape[0] && prm->rstride >= prm->n
+        && prm->g0 >= 1 && prm->g0 <= BOX_MAX_N
+        && prm->origin0 > -BOX_MAX_N && prm->origin0 < BOX_MAX_N
+        && prm->origin0 + prm->out_lo >= 0
+        && prm->origin0 + prm->out_hi <= prm->g0;
+}
+
 template <int NCM, bool SYNTH, typename F>
 static cudaError_t launch_pair(const BoxParams* prm, const double* p,
                                const uint8_t* mask, const double* a,
@@ -419,10 +468,11 @@ static cudaError_t launch_pair(const BoxParams* prm, const double* p,
     return e;
 }
 
-// Launches the mask-reading kernel (K1) and the sink reduction on
-// ``stream`` of CUDA device ``device``; returns cudaGetLastError() of the
-// launches (0 = cudaSuccess).  sink_part holds nblocks * max(nc, 1)
-// doubles.
+// Launches the mask-reading kernel (K1, or K4 on a window) and the sink
+// reduction on ``stream`` of CUDA device ``device``; returns
+// cudaGetLastError() of the launches (0 = cudaSuccess).  dp holds the
+// (out_hi - out_lo) * plane output elements; sink_part holds
+// nblocks * max(nc, 1) doubles.
 extern "C" int box_action_launch(const BoxParams* prm,
                                  const void* p, const void* mask,
                                  const void* a, const void* viol,
@@ -430,7 +480,7 @@ extern "C" int box_action_launch(const BoxParams* prm,
                                  int nblocks, int device, void* stream)
 {
     if (prm->R > BOX_MAX_R || prm->S > BOX_MAX_S || prm->nc > BOX_MAX_NC
-            || prm->n > BOX_MAX_N || nblocks < 1)
+            || !window_ok(prm) || nblocks < 1)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
@@ -452,8 +502,9 @@ extern "C" int box_action_launch(const BoxParams* prm,
     return (int)e;
 }
 
-// The same for the synthesized-mask kernel (K3): no mask, no violation
-// words; prm->bounds and prm->form describe the constraints.  narrow = 1
+// The same for the synthesized-mask kernel (K3, or K4 on a window): no
+// mask, no violation words; prm->bounds and prm->form describe the
+// constraints.  narrow = 1
 // evaluates the forms in int32, which the caller allows only where no
 // value at any box point or its neighbours can overflow it (the result is
 // then the int64 evaluation's).
@@ -464,7 +515,7 @@ extern "C" int box_action_synth_launch(const BoxParams* prm,
                                        void* stream)
 {
     if (prm->R > BOX_MAX_R || prm->S > BOX_MAX_S || prm->nc > BOX_MAX_FNC
-            || prm->n > BOX_MAX_N || nblocks < 1)
+            || !window_ok(prm) || nblocks < 1)
         return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;

@@ -16,6 +16,15 @@ and the integrator, and runs the solve -> check sinks -> expand -> scatter
   * PETSc event logging -> :class:`~..sys.events.EventLog` with the same
     phase names.
 
+With a ``mesh`` (:func:`~..parallel.mesh.make_mesh`) the box is split
+into axis-0 slabs over the ranks of a ``torch.distributed`` group, as the
+reference splits its state set over MPI ranks: every rank runs this
+solver, holds the whole state space and its slab of every box vector,
+and decides from all-reduced values only (``ops/vecops.py``), so all take
+the same steps.  Axis 0 of the capacity is padded to a multiple of the
+rank count; expansion gathers ``p``, embeds it and takes the new slab;
+the distribution is gathered on every rank.
+
 The compressed (ELL) backend, the RK and CN integrators and the axis
 reordering of the reference package are not ported yet (ROADMAP): where
 the reference package would migrate to the ELL backend, this driver
@@ -40,7 +49,9 @@ from ..statespace.constraints import ConstraintSet
 from ..statespace.box_space import (BoxStateSpace, MAX_BOX_ELEMS,
                                     _round_capacity)
 from ..ops.box_operator import BoxOperator
+from ..ops import vecops as vo
 from ..ops.vecops import FspVector
+from ..parallel.mesh import gather_global, shard_fsp_vector
 from ..solvers.base import ODESolverType, STATUS_OK, STATUS_FSP_STOP
 from ..solvers.bdf import BdfSolver
 from ..solvers.krylov import KrylovSolver
@@ -57,13 +68,16 @@ class FspSolverMultiSinks:
     def __init__(self,
                  backend: str = "box",
                  odes_type: Union[ODESolverType, str] = "auto",
-                 device="cuda"):
+                 device=None, mesh=None):
+        """``device`` defaults to the mesh's where a ``mesh`` is given,
+        else to ``"cuda"``."""
         if backend not in ("box", "auto"):
             raise SetupError(
                 f"backend {backend!r} is not ported yet: only the dense box "
                 "backend exists (compressed ELL backend: ROADMAP A9)")
         self.backend = backend
-        self.device = resolve_device(device)
+        self._device_arg = device
+        self.set_mesh(mesh)
         self.dtype = DEFAULT_DTYPE
         self.set_odes_type(odes_type)
 
@@ -90,6 +104,20 @@ class FspSolverMultiSinks:
         self.sinks_: Optional[np.ndarray] = None
 
     # ---------------------------------------------------------- settings
+    def set_mesh(self, mesh) -> "FspSolverMultiSinks":
+        """Split the box over ``mesh``'s ranks (None: one device), the
+        analogue of the reference running on several MPI ranks."""
+        dev = self._device_arg
+        if mesh is not None:
+            if dev is not None and resolve_device(dev) != mesh.device:
+                raise SetupError(f"device {dev!r} is not the mesh's device "
+                                 f"{mesh.device}")
+            dev = mesh.device
+        self.mesh = mesh
+        self.device = resolve_device("cuda" if dev is None else dev)
+        self._set_up = False
+        return self
+
     def set_model(self, model) -> "FspSolverMultiSinks":
         self.model = model
         return self
@@ -236,7 +264,8 @@ class FspSolverMultiSinks:
         cs_new = self.constraints.with_bounds(new_bounds)
         box = cs_new.derive_box_bounds(self.model.num_species,
                                        self._init_states)
-        need = [_round_capacity(int(b) + 1) for b in box]
+        need = [_round_capacity(int(b) + 1, int(q))
+                for b, q in zip(box, self.pad_quanta_for_space())]
         cap = float(np.prod(np.asarray(need, np.float64)))
         if cap > min(float(MAX_BOX_ELEMS), self._box_elem_budget()):
             return True
@@ -274,17 +303,29 @@ class FspSolverMultiSinks:
         self._set_up = True
         return self
 
+    def pad_quanta_for_space(self) -> np.ndarray:
+        """Capacity quanta per axis: axis 0 divides by the rank count."""
+        pad_quanta = np.ones(self.model.num_species, np.int64)
+        if self.mesh is not None:
+            pad_quanta[0] = self.mesh.size
+        return pad_quanta
+
     def _build_space(self):
         self._space = BoxStateSpace(self.model.stoichiometry,
                                     self.constraints, self._init_states,
-                                    device=self.device)
+                                    device=self.device,
+                                    pad_quanta=self.pad_quanta_for_space())
         self._space.events = self.events   # MaskBFS sub-timer
 
     def _build_operator(self):
         self._ode_solver = None     # its basis has the old capacity
         self._operator = None       # free the old fields first
         self._operator = BoxOperator(self.model, self._space,
-                                     dtype=self.dtype)
+                                     dtype=self.dtype, mesh=self.mesh)
+        if self._operator.sharded is not None:
+            self.events.add_count(
+                "HaloValuesPerMatvec",
+                self._operator.sharded.comm_values_per_matvec())
         if self.verbosity:
             print(f"[fsp] box operator: capacity {tuple(self._space.shape)}"
                   f" ({float(np.prod(self._space.shape)):.3g} elems)",
@@ -299,9 +340,22 @@ class FspSolverMultiSinks:
         p = np.zeros(self._space.size, dtype=np.float64)
         p[idx] = self._init_probs
         self.sinks_ = np.zeros((n_c,), np.float64)
-        return FspVector(
+        return self._place(FspVector(
             p=torch.as_tensor(p, dtype=self.dtype, device=self.device),
-            sinks=torch.zeros(n_c, dtype=self.dtype, device=self.device))
+            sinks=torch.zeros(n_c, dtype=self.dtype, device=self.device)))
+
+    def _place(self, y: FspVector) -> FspVector:
+        """This rank's part of a vector over the whole box: its slab of
+        ``p``, so only the owner of a state holds its mass."""
+        if self.mesh is None:
+            return y
+        return shard_fsp_vector(y, self._space.shape, self.mesh)
+
+    def _global_p(self) -> torch.Tensor:
+        """``p`` over the whole box (gathered from every rank)."""
+        if self.mesh is None:
+            return self._y.p
+        return gather_global(self._y.p, self.mesh)
 
     # -------------------------------------------------------------- solve
     def _make_ode_solver(self, fsp_tol: float, t_final: float):
@@ -358,7 +412,7 @@ class FspSolverMultiSinks:
                 "budget or fill floor; the reference package migrates to "
                 "the compressed (ELL) backend there, which is not ported "
                 "yet (ROADMAP A9)")
-        p_old, sinks_old = self._y.p, self._y.sinks
+        sinks_old = self._y.sinks
         n_before = self._space.num_states
         with self.events.timed(EVT_PARTITION):
             old_shape = self._space.shape
@@ -373,9 +427,11 @@ class FspSolverMultiSinks:
                 self._operator.refresh_data()
         with self.events.timed(EVT_SCATTER):
             if capacity_grew:
-                # within capacity the newly valid states already hold zeros
-                self._y = FspVector(p=self._space.embed_old(p_old, old_shape),
-                                    sinks=sinks_old)
+                # within capacity the newly valid states already hold
+                # zeros; a sharded p is gathered, embedded and re-sliced
+                self._y = self._place(FspVector(
+                    p=self._space.embed_old(self._global_p(), old_shape),
+                    sinks=sinks_old))
         if self.verbosity:
             print(f"[fsp] new state count: {self.num_states}")
 
@@ -407,7 +463,7 @@ class FspSolverMultiSinks:
         growth schedule."""
         t_start = self._t_now
         rapid = 0
-        with self.events.timed(EVT_TOTAL):
+        with self.events.timed(EVT_TOTAL), vo.reductions_over(self.mesh):
             status = STATUS_FSP_STOP
             solver_key = (fsp_tol, t_final)
             if self._ode_solver_key != solver_key:
@@ -519,7 +575,7 @@ class FspSolverMultiSinks:
         with self.events.timed("DistributionExtract"):
             return DiscreteDistribution(
                 t=self._t_now, states=self._space.states(),
-                p=self._space.extract_valid(self._y.p),
+                p=self._space.extract_valid(self._global_p()),
                 bounds=self.constraints.bounds.copy(),
                 sinks=self._y.sinks.cpu().numpy())
 
@@ -531,6 +587,7 @@ class FspSolverMultiSinks:
         return self.events.reduce()
 
     # CamelCase aliases for users coming from the reference
+    SetMesh = set_mesh
     SetModel = set_model
     SetInitialBounds = set_initial_bounds
     SetConstraintFunctions = set_constraint_functions

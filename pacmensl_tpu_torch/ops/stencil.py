@@ -30,16 +30,18 @@ def shift_nd(a: torch.Tensor, shifts: Sequence[int]) -> torch.Tensor:
 
 
 def coord_grid(shape: Tuple[int, ...], device="cpu", start: int = 0,
-               stop=None) -> torch.Tensor:
+               stop=None, origin0: int = 0) -> torch.Tensor:
     """Coordinates of the box's flat C-order indices ``[start, stop)``:
-    [stop - start, ndim] int64 (the whole box by default)."""
+    [stop - start, ndim] int64 (the whole box by default), axis 0 offset
+    by ``origin0`` (a window of axis-0 planes of a larger box)."""
     n = int(np.prod(shape))
     stop = n if stop is None else int(stop)
     idx = torch.arange(int(start), stop, dtype=torch.int64, device=device)
     cols = []
-    for d in range(len(shape) - 1, -1, -1):
+    for d in range(len(shape) - 1, 0, -1):
         cols.append(idx % int(shape[d]))
         idx = idx // int(shape[d])
+    cols.append(idx + int(origin0))
     return torch.stack(cols[::-1], dim=1)
 
 

@@ -10,12 +10,43 @@ pair as one vector.
 Krylov and GMRES bases and the BDF difference array are stored as a pair of
 stacked tensors ``([m, n], [m, n_c])`` (:class:`FspBasis`), allocated once
 per operator capacity and overwritten in place.
+
+Sharded solves (:func:`reductions_over`): ``p`` is the rank's slab and the
+sinks are replicated, so :func:`vdot`, :func:`norm2`, :func:`isfinite`,
+:func:`sum_ranks` and :func:`numel` all-reduce the ``p`` part over the
+ranks and add the sink part once.  Every rank then holds the same bits,
+and the integrators, which decide on the host from these values only,
+take the same steps on every rank.  The axpys and linear combinations
+stay local.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
+
+#: the mesh whose ranks the reductions run over (None: one device)
+_MESH = None
+
+
+@contextmanager
+def reductions_over(mesh):
+    """Within the block, reductions run over ``mesh``'s ranks (a
+    :class:`~..parallel.mesh.StateMesh`, or None for one device)."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield
+    finally:
+        _MESH = prev
+
+
+def sum_ranks(t: torch.Tensor) -> torch.Tensor:
+    """A local partial sum of a ``p`` part, summed over the ranks."""
+    if _MESH is not None:
+        _MESH.all_reduce(t)
+    return t
 
 
 class FspVector(NamedTuple):
@@ -26,7 +57,7 @@ class FspVector(NamedTuple):
 
 def vdot(a: FspVector, b: FspVector) -> torch.Tensor:
     """Inner product over both parts (a 0-d device tensor)."""
-    return torch.dot(a.p, b.p) + torch.dot(a.sinks, b.sinks)
+    return sum_ranks(torch.dot(a.p, b.p)) + torch.dot(a.sinks, b.sinks)
 
 
 def norm2(a: FspVector) -> torch.Tensor:
@@ -56,7 +87,16 @@ def zeros_like(x: FspVector) -> FspVector:
 
 def isfinite(x: FspVector) -> torch.Tensor:
     """Every entry of both parts finite (a 0-d bool device tensor)."""
-    return torch.isfinite(x.p).all() & torch.isfinite(x.sinks).all()
+    ok = torch.isfinite(x.p).all()
+    if _MESH is not None:
+        ok = _MESH.all_reduce(ok.to(torch.float64), op="min") > 0
+    return ok & torch.isfinite(x.sinks).all()
+
+
+def numel(x: FspVector) -> int:
+    """Entries of both parts, ``p`` over every rank."""
+    return (x.p.numel() * (_MESH.size if _MESH is not None else 1)
+            + x.sinks.numel())
 
 
 class FspBasis(NamedTuple):

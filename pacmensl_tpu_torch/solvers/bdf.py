@@ -106,16 +106,14 @@ class BdfSolver:
     def _err_norm_dev(self, err: vo.FspVector,
                       scale_ref: vo.FspVector) -> torch.Tensor:
         """RMS of err / (atol + rtol |ref|) over both parts, divided by the
-        total element count (box capacity plus sinks): a 0-d device
-        tensor."""
-        tot = None
-        n = 0
-        for e, yref in ((err.p, scale_ref.p), (err.sinks, scale_ref.sinks)):
-            scale = self.atol + self.rtol * torch.abs(yref)
-            s = torch.sum((e / scale) ** 2)
-            tot = s if tot is None else tot + s
-            n += e.numel()
-        return torch.sqrt(tot / n)
+        total element count (box capacity plus sinks; the ``p`` sum over
+        every rank in a sharded solve): a 0-d device tensor."""
+        def part(e, yref):
+            return torch.sum((e / (self.atol + self.rtol * torch.abs(yref)))
+                             ** 2)
+        tot = (vo.sum_ranks(part(err.p, scale_ref.p))
+               + part(err.sinks, scale_ref.sinks))
+        return torch.sqrt(tot / vo.numel(err))
 
     # ------------------------------------------------------- D updates
     @staticmethod

@@ -132,7 +132,7 @@ class KrylovSolver:
         t_now, t_final = float(t0), float(t_final)
         n_c = y0.sinks.shape[0]
         M1 = self.m_max + 1
-        nvec_total = y0.p.numel() + y0.sinks.numel()
+        nvec_total = vo.numel(y0)
         q = float(self.q_iop)
         self._basis_storage(y0)
         V = self._V

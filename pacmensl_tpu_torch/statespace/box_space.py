@@ -103,10 +103,17 @@ class BoxStateSpace:
     only the mask."""
 
     def __init__(self, stoichiometry, constraints: ConstraintSet,
-                 init_states, device="cpu"):
+                 init_states, device="cpu", pad_quanta=None):
+        """``pad_quanta``: per-axis size quanta; each capacity axis is
+        rounded up to a multiple of its quantum (a sharded solve makes
+        axis 0 divisible by its rank count, reference
+        ``box_space.py:122-162``)."""
         self.stoich = np.atleast_2d(np.asarray(stoichiometry, dtype=np.int64))
         self.constraints = constraints
         self.device = torch.device(device)
+        self.pad_quanta = (np.ones(self.stoich.shape[1], np.int64)
+                           if pad_quanta is None
+                           else np.asarray(pad_quanta, np.int64).reshape(-1))
         self.init_states = np.atleast_2d(
             np.asarray(init_states, dtype=np.int64))
         if self.init_states.shape[1] != self.num_species:
@@ -193,14 +200,17 @@ class BoxStateSpace:
 
         if self._shape is None or \
                 any(int(s) > c for s, c in zip(raw_shape, self._shape)):
-            new_shape = [max(_round_capacity(int(s)), c) for s, c in zip(
-                raw_shape, self._shape or (0,) * len(raw_shape))]
+            new_shape = [max(_round_capacity(int(s), int(q)), c)
+                         for s, c, q in zip(raw_shape, self._shape or
+                                            (0,) * len(raw_shape),
+                                            self.pad_quanta)]
             # The reference package snaps a minor extent in (94, 128] to 128
             # (a TPU lane group) instead of the ladder's 141; kept so both
             # packages run at the same capacity, whose size feeds the
             # Krylov cost model.
             if len(new_shape) >= 2 and int(raw_shape[-1]) <= 128 \
-                    < int(new_shape[-1]) <= 141:
+                    < int(new_shape[-1]) <= 141 \
+                    and 128 % int(self.pad_quanta[-1]) == 0:
                 new_shape[-1] = max(128, (self._shape or [0])[-1])
             new_shape = tuple(new_shape)
             new_size = int(np.prod(np.asarray(new_shape, np.float64)))

@@ -7,7 +7,9 @@ kernel's ``dp`` rounds as its plain version's does and must equal it
 bitwise; its sinks are summed in another order, hence rtol 1e-12 /
 atol 1e-13.  Two launches of the kernel must agree bitwise, and on a box
 whose mask is constraint-only the synthesized-mask mode (K3) must give
-the mask-reading mode's (K1) ``dp`` and sinks bitwise."""
+the mask-reading mode's (K1) ``dp`` and sinks bitwise.  The sharded mode
+(K4) on slabs of a box gives the whole box's ``dp`` bitwise.  A
+one-rank mesh on the card uses NCCL."""
 import math
 
 import numpy as np
@@ -19,6 +21,8 @@ torch.set_num_threads(2)
 import pacmensl_tpu_torch as pt  # noqa: E402
 from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
 from pacmensl_tpu_torch.ops import box_operator as bo  # noqa: E402
+from pacmensl_tpu_torch.parallel.halo_box import (  # noqa: E402
+    halo_width, window_rows)
 from pacmensl_tpu_torch.statespace.constraints import (  # noqa: E402
     coord, product)
 
@@ -197,6 +201,126 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         bk.box_action_synth(c, p.float(), op.prop_fields, op.data().bounds,
                             op.geom)
+
+
+def _slab_windows(op, p, mask, viol, slabs=4):
+    """The box of ``op`` cut into ``slabs`` axis-0 slabs, each with the
+    halo planes of its neighbours as the exchange delivers them: (K4
+    geometry, p, mask, fields, violation bits) of each window."""
+    shape, g0 = op.shape, op.shape[0]
+    w0 = halo_width(op.model.stoichiometry)
+    cuts = np.linspace(0, g0, slabs + 1).astype(int)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        o, rows = int(lo) - w0, int(hi - lo) + 2 * w0
+        geom = bk.BoxGeometry((rows,) + shape[1:], op.model.stoichiometry,
+                              op.geom.nc, op.geom.form, origin0=o, g0=g0,
+                              out_rows=(w0, w0 + int(hi - lo)))
+
+        def win(t):
+            return window_rows(t.reshape(shape), o, rows).reshape(-1)
+        yield (geom, win(p), win(mask),
+               torch.stack([win(f) for f in op.prop_fields]),
+               torch.stack([win(v) for v in viol]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name,bounds,t", CASES)
+def test_cuda_sharded_kernel_matches_plain_version_and_whole_box(
+        name, bounds, t, wide):
+    """K4 in both modes on 4 slabs: each slab's dp bitwise its plain
+    version's, the assembled dp bitwise the whole box's K1 and K3, the
+    summed sinks within TOL; ``wide`` forces the int64 forms."""
+    _needs_cuda()
+    b, op = _operator(name, bounds, "cuda")
+    mask, viol = _k1_data(op)
+    bounds_now = op.data().bounds
+    rng = np.random.default_rng(13)
+    p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
+    c = b.model.coefficients(t)
+    k1 = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    k3 = bk.box_action_synth(c, p, op.prop_fields, bounds_now, op.geom)
+    got = {"mask": ([], 0), "synth": ([], 0)}
+    n0 = dict(bk.KERNEL.launches)
+    for geom, wp, wm, wa, wv in _slab_windows(op, p, mask, viol):
+        if wide:
+            geom.narrow = lambda bounds: False
+        for mode, run, plain in (
+                ("mask", lambda: bk.box_action(c, wp, wm, wa, wv, geom),
+                 lambda: bk.box_action_reference(c, wp, wm, wa, wv, geom)),
+                ("synth", lambda: bk.box_action_synth(c, wp, wa, bounds_now,
+                                                      geom),
+                 lambda: bk.box_action_synth_reference(c, wp, wa,
+                                                       bounds_now, geom))):
+            kp, ks = run()
+            kp2, ks2 = run()
+            rp, rs = plain()
+            torch.cuda.synchronize()
+            assert torch.equal(kp, rp) and torch.equal(kp, kp2), mode
+            assert torch.equal(ks, ks2), mode
+            np.testing.assert_allclose(ks.cpu().numpy(), rs.cpu().numpy(),
+                                       **TOL)
+            dps, sk = got[mode]
+            got[mode] = (dps + [kp], sk + ks)
+    assert bk.KERNEL.launches["sharded_mask"] == n0["sharded_mask"] + 8
+    assert bk.KERNEL.launches["sharded_synth"] == n0["sharded_synth"] + 8
+    for mode, (dps, sk) in got.items():
+        dp = torch.cat(dps)
+        assert torch.equal(dp, k1[0]) and torch.equal(dp, k3[0]), mode
+        np.testing.assert_allclose(sk.cpu().numpy(), k1[1].cpu().numpy(),
+                                   **TOL)
+
+
+def test_sharded_window_rejected():
+    """The wrappers take a window only where every source an output row
+    reads lies in it or outside the box, and the output rows in the
+    box."""
+    stoich = np.array([[2, 0], [-1, 1], [0, -1]])    # sources 2 up, 1 down
+
+    def geom(rows, origin0, out, g0=40):
+        return bk.BoxGeometry((rows, 5), stoich, 0, origin0=origin0, g0=g0,
+                              out_rows=out)
+    g = geom(14, 7, (3, 11))
+    assert g.sharded and g.n_out == 8 * 5 and g.mode_key("synth") == \
+        "sharded_synth"
+    geom(12, -1, (1, 11))          # rows above the box are not read
+    geom(10, 30, (2, 10))          # nor rows below it
+    for rows, origin0, out in [
+            (14, 7, (1, 11)),      # row 1 reads row -1 of the window
+            (14, 7, (3, 14)),      # row 13 reads row 14
+            (14, 7, (3, 15)),      # past the window
+            (14, -4, (3, 11)),     # output row -1 (global)
+            (14, 30, (3, 11)),     # output row 40 (global)
+            (14, 7, (9, 8))]:      # reversed
+        with pytest.raises(ValueError, match="window"):
+            geom(rows, origin0, out)
+    assert not bk.BoxGeometry((14, 5), stoich, 0).sharded
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_solve_runs_k4():
+    """A one-rank NCCL mesh: the Poisson oracle through the sharded path,
+    every matvec on K4."""
+    _needs_cuda()
+    pt.environment.init(backend="nccl")
+    try:
+        b = pt.models.poisson(2.0)
+        s = pt.FspSolverMultiSinks(odes_type="krylov", mesh=pt.make_mesh())
+        s.set_model(b.model)
+        s.set_initial_bounds(b.bounds)
+        s.set_expansion_factors([0.5])
+        s.set_initial_distribution(b.x0, b.p0)
+        bk.KERNEL.reset_counts()
+        d = s.solve(10.0, 1.0e-6)
+        assert bk.KERNEL.launches["sharded_synth"] > 0
+        assert bk.KERNEL.launches["synth"] == 0
+        assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
+        k = d.states[:, 0]
+        pmf = np.exp(k * math.log(20.0) - 20.0
+                     - np.array([math.lgamma(v + 1.0) for v in k]))
+        assert np.abs(d.p - pmf).sum() <= 1e-6
+    finally:
+        pt.environment.finalize()
 
 
 @pytest.mark.cuda
