@@ -65,12 +65,32 @@ Phases (each check that fails ends the run with a nonzero exit):
    In 7b and 7c one matvec of the final operator, with the halos the
    ranks exchange, must give the whole box's dp bitwise and its sinks
    within 1e-12 relative.
+8. The probes (``csrc/probes.cu``): the stream copy K5 and the probes
+   K6-K8 of the box kernel's memory path.  Their path is the port's two
+   measurement entry points, ``ops.probes.stream_bandwidth()`` (K5 at 2^26
+   float64 elements, 537 MB per buffer) and
+   ``python -m pacmensl_tpu_torch.tools.bw_probe --tiles 96``; the
+   measured stream must not exceed 1.05 x 3.35 TB/s.  Then each kernel in
+   float32 and float64 at the reference's shape (G = 6 blocks of 4096 x
+   128, 12.6 MB per float32 buffer, which the L2 holds), at G = 96 (201
+   MB, device memory), at an odd size that leaves a scalar tail and at
+   the 128^3 box as one block with a plane of halo on each side: its
+   output bitwise its plain version's and two launches bitwise equal, K7
+   and K8 with random nonzero halos; K5 also so at 2^26 float64.  Timed
+   beside the plain versions and the library calls (``copy_`` for K5,
+   ``torch.mul`` for K6 and K7; none computes K8), at the reference's
+   shape also as a CUDA graph of 100 calls (the device's time without the
+   host's per-call cost).  Then K1's, K3's and K4's roofline fractions
+   against the measured stream beside the data sheet's, and K8 in float64
+   at the 128^3 box with its strides, the p reads of K1 and K3 without
+   their propensity work, L2-resident and after a read that evicts L2.
 
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5 and 6, K4 in phases 7b and 7c (over
-all ranks).  ``bound_ms`` is the compulsory bytes of each timed call over
-the H100's 3.35 TB/s (the larger bound: the float64 operations over its
-34 TFLOP/s are far less).
+all ranks), K5-K8 in phase 8's two entry points.  ``bound_ms`` is the
+compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
+bound: the float operations over its 34 TFLOP/s in float64 and 67 in
+float32 are far less).
 
 The last two lines of standard output are the card's name and power
 limit, then ``{"ok": true, "device": {...}}``; the line before them is the
@@ -104,8 +124,22 @@ TR6_T_FINAL, TR6_TOL = 30.0, 1.0e-4
 GLOO_T_FINAL = 2.0
 #: slabs the box is cut into in phase 7a
 SLABS = 4
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float64 FLOP/s
-HBM_RATE, F64_RATE = 3.35e12, 34e12
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float64 and float32
+#: FLOP/s outside the tensor cores
+HBM_RATE, F64_RATE, F32_RATE = 3.35e12, 34e12, 67e12
+#: phase 8: a measured stream above this is impossible (an L2-resident or
+#: elided probe)
+STREAM_LIMIT = 1.05 * HBM_RATE
+#: phase 8's shapes (G blocks, T rows, H halo rows, L lanes, edge of the
+#: box whose strides K8 shifts by): the reference's (tools/bw_probe.py:39),
+#: the device-memory one, an odd one that leaves a scalar tail, and the
+#: BENCH_EDGE^3 box as one block with a plane of halo on each side (K8
+#: there reads p as K1 and K3 do, without their propensity work)
+PROBE_SHAPES = {"reference": (6, 4096, 160, 128, 141),
+                "hbm": (96, 4096, 160, 128, 141),
+                "odd": (3, 37, 5, 33, 7),
+                "box": (1, BENCH_EDGE ** 3 // 128, BENCH_EDGE ** 2 // 128,
+                        128, BENCH_EDGE)}
 #: seconds a phase-7 rank may take before the script stops every rank
 RANK_TIMEOUT = 300
 
@@ -141,19 +175,53 @@ def free_port():
         return s.getsockname()[1]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, rate=F64_RATE):
     """(bound_ms, bound_by): the least time the card takes to move
-    ``nbytes`` and do ``flops`` float64 operations."""
-    tb, tf = nbytes / HBM_RATE, flops / F64_RATE
+    ``nbytes`` and do ``flops`` operations at ``rate`` FLOP/s."""
+    tb, tf = nbytes / HBM_RATE, flops / rate
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-def action_bytes(n_in, n_out, R, synth):
-    """Compulsory bytes of one box action over ``n_in`` input elements
-    and ``n_out`` outputs: p and R propensity values read (K1 also the
-    mask byte and R violation words), dp written."""
-    per_in = 8 + 8 * R + (0 if synth else 1 + 4 * R)
-    return n_in * per_in + 8 * n_out
+def time_ms(fn, reps=100):
+    """ms per call of ``fn``: CUDA events around ``reps`` back-to-back
+    calls after 5 warm-up calls."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps=100):
+    """ms per call of ``fn`` replayed from a CUDA graph of ``reps`` calls:
+    the device's time without the host's cost per call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def generator_csr(c, mask, a, viol, shape, stoich, nc):
@@ -295,6 +363,231 @@ def run_ranks(world, backend, t_final, tol):
     return [out[r] for r in range(world)]
 
 
+def probe_phase(dev, smi, roofs):
+    """Phase 8: the probes K5-K8 on their path (the stream measurement and
+    the probe tool, counters set to 0 just before), then each kernel
+    against its plain version and timed.  ``roofs`` maps a box kernel
+    mode to (ms per matvec, compulsory bytes).  Returns the probes'
+    entries of the ``kernels`` record."""
+    import numpy as np
+    import torch
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.tools import bw_probe
+
+    # the path: the two measurement entry points
+    torch.cuda.synchronize()
+    pr.PROBES.reset_counts()
+    bw = pr.stream_bandwidth()
+    bw_probe.main(["--tiles", str(PROBE_SHAPES["hbm"][0])])
+    torch.cuda.synchronize()
+    launches = dict(pr.PROBES.launches)
+    m = pr.stream_elems()
+    print(f"[8] stream_bandwidth(): {bw / 1e9:.1f} GB/s over 2 x {m} "
+          f"float64 ({m * 8 / 1e6:.0f} MB per buffer), "
+          f"{bw / HBM_RATE:.3f} of the data sheet's "
+          f"{HBM_RATE / 1e12:.2f} TB/s; launches on the path {launches}; "
+          f"{smi}", flush=True)
+    check(bw <= STREAM_LIMIT, f"the measured stream {bw / 1e9:.1f} GB/s "
+                              f"exceeds {STREAM_LIMIT / 1e9:.1f} GB/s: the "
+                              "probe was L2-resident or elided")
+    check(all(v > 0 for v in launches.values()),
+          f"a probe kernel was not launched on its path: {launches}")
+
+    def inputs(shape, dtype, seed):
+        G, T, H, L, E = PROBE_SHAPES[shape]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def rand(rows):
+            return torch.rand((rows, L), generator=gen, device=dev,
+                              dtype=dtype) + 0.5
+        c = float(np.random.default_rng(seed).uniform(0.5, 2.0))
+        return dict(c=c, x=rand(G * T), prev=rand(G * H), next_=rand(G * H),
+                    tiles=G, shifts=bw_probe.box_shifts(E))
+
+    def call(name, a, plain=False, out=None):
+        fn = getattr(pr, name + ("_reference" if plain else ""))
+        if name in ("stream_copy", "scaled_copy"):
+            return fn(a["x"], out=out)
+        if name == "window_copy":
+            return fn(a["c"], a["x"], a["prev"], a["next_"], a["tiles"],
+                      out=out)
+        return fn(a["c"], a["x"], a["prev"], a["next_"], a["tiles"],
+                  a["shifts"], out=out)
+
+    def library(name, a, out):
+        if name == "stream_copy":
+            return lambda: out.copy_(a["x"])
+        if name == "scaled_copy":
+            return lambda: torch.mul(a["x"], pr.SCALED_COPY_FACTOR, out=out)
+        if name == "window_copy":
+            return lambda: torch.mul(a["x"], a["c"], out=out)
+        return None                    # no single torch call computes K8
+
+    def compulsory(name, a):
+        """(bytes, operations): x read and out written; K8 also the halo
+        elements its shifts reach, and two operations a shift."""
+        n, size = a["x"].numel(), a["x"].element_size()
+        if name != "roll_window":
+            return 2 * n * size, (0 if name == "stream_copy" else n)
+        ks = a["shifts"]
+        reach = max(max(ks), 0) + max(-min(ks), 0)
+        return (2 * n + a["tiles"] * reach) * size, 2 * len(ks) * n
+
+    # each kernel bitwise its plain version
+    err = dict.fromkeys(pr.NAMES, 0.0)
+    for dtype in (torch.float32, torch.float64):
+        for shape in PROBE_SHAPES:
+            a = inputs(shape, dtype, seed=8)
+            for name in pr.NAMES:
+                got = call(name, a)
+                again = call(name, a)
+                want = call(name, a, plain=True)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                err[name] = max(err[name], e)
+                check(bool(torch.isfinite(got).all()),
+                      f"{name} {shape} {dtype}: non-finite output")
+                check(torch.equal(got, want),
+                      f"{name} {shape} {dtype}: not bitwise the plain "
+                      f"version's (max abs {e:.3e})")
+                check(torch.equal(got, again),
+                      f"{name} {shape} {dtype}: two launches differ")
+                del got, again, want
+            print(f"[8] {shape} {tuple(a['x'].shape)} {dtype}: "
+                  + ", ".join(pr.NAMES) + " bitwise their plain versions, "
+                  "two launches bitwise equal", flush=True)
+            del a
+            torch.cuda.empty_cache()
+
+    # times: kernel / plain / library in an interleaved order
+    order = ["kernel", "plain", "library", "library", "plain", "kernel"]
+    timed = {}
+    cases = [(name, shape, dt) for dt in (torch.float32, torch.float64)
+             for shape in ("reference", "hbm") for name in pr.NAMES]
+    for name, shape, dt in cases:
+        a = inputs(shape, dt, seed=9)
+        out = torch.empty_like(a["x"])
+        runs = {"kernel": lambda: call(name, a, out=out),
+                "plain": lambda: call(name, a, plain=True, out=out),
+                "library": library(name, a, out)}
+        t = {k: [] for k in runs if runs[k] is not None}
+        for k in order:
+            if k in t:
+                t[k].append(time_ms(runs[k]))
+        res = {k: float(np.mean(v)) for k, v in t.items()}
+        if shape == "reference":
+            res["graph"] = graph_ms(runs["kernel"])
+            if runs["library"] is not None:
+                res["graph_library"] = graph_ms(runs["library"])
+        nbytes, ops = compulsory(name, a)
+        res["bound"] = bound(nbytes, ops, F32_RATE if dt == torch.float32
+                             else F64_RATE)
+        timed[name, shape, dt] = res
+        lab = "L2-resident" if shape == "reference" else "device memory"
+        print(f"[8] {name:<11} {shape:<9} ({lab}) {str(dt)[6:]}: "
+              + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+                          for k, vs in t.items())
+              + " us"
+              + (f"; from a CUDA graph: kernel {res['graph'] * 1e3:.1f} us"
+                 if "graph" in res else "")
+              + (f", library {res['graph_library'] * 1e3:.1f} us"
+                 if "graph_library" in res else "")
+              + f"; bound {res['bound'][0] * 1e3:.1f} us "
+                f"({res['bound'][1]}; {nbytes / 1e6:.1f} MB)", flush=True)
+        del a, out, runs
+        torch.cuda.empty_cache()
+    # K5 at the stream measurement's own size: checked, then timed
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.rand(m, generator=gen, device=dev, dtype=torch.float64) + 0.5
+    got, again = pr.stream_copy(x), pr.stream_copy(x)
+    want = pr.stream_copy_reference(x)
+    torch.cuda.synchronize()
+    err["stream_copy"] = max(err["stream_copy"],
+                             float((got - want).abs().max()))
+    check(torch.equal(got, want), "stream_copy at 2^26 float64: not "
+                                  "bitwise the plain version's")
+    check(torch.equal(got, again), "stream_copy at 2^26 float64: two "
+                                   "launches differ")
+    del got, again, want
+    print(f"[8] stream_copy at 2^26 float64 (random input): bitwise its "
+          f"plain version, two launches bitwise equal", flush=True)
+    out = torch.empty_like(x)
+    runs = {"kernel": lambda: pr.stream_copy(x, out=out),
+            "plain": lambda: pr.stream_copy_reference(x, out=out),
+            "library": lambda: out.copy_(x)}
+    t = {k: [] for k in runs}
+    for k in order:
+        t[k].append(time_ms(runs[k]))
+    k5 = {k: float(np.mean(v)) for k, v in t.items()}
+    k5["bound"] = bound(2 * m * 8, 0)
+    print(f"[8] stream_copy at 2^26 float64: " + ", ".join(
+        f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+        for k, vs in t.items()) + f" us; bound {k5['bound'][0] * 1e3:.1f} "
+        f"us; {smi}", flush=True)
+    del x, out
+    torch.cuda.empty_cache()
+    ref = timed["stream_copy", "reference", torch.float32]
+    g6 = PROBE_SHAPES["reference"]
+    n6 = g6[0] * g6[1] * g6[3]
+    print(f"[8] the reference shape's stream (L2-resident, no limit "
+          f"applies): {2 * n6 * 4 / ref['kernel'] / 1e6:.1f} GB/s per "
+          f"launch, {2 * n6 * 4 / ref['graph'] / 1e6:.1f} GB/s from a CUDA "
+          f"graph", flush=True)
+    for mode, (ms, nbytes) in roofs.items():
+        print(f"[8] {mode} roofline fraction at {BENCH_EDGE}^3: "
+              f"{nbytes / bw / (ms * 1e-3):.3f} of the measured stream "
+              f"({bw / 1e9:.1f} GB/s), {nbytes / HBM_RATE / (ms * 1e-3):.3f} "
+              f"of the data sheet's ({nbytes / 1e6:.1f} MB in "
+              f"{ms * 1e3:.1f} us)", flush=True)
+    # K8 in float64 at the box's shape and strides: what reading p at six
+    # offsets costs K1 and K3, back to back (x and out stay in L2) and
+    # after a read of 4x the L2 (x comes from device memory; the read's
+    # own time subtracted)
+    a = inputs("box", torch.float64, seed=11)
+    out = torch.empty_like(a["x"])
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    evict = torch.ones(4 * l2 // 8, dtype=torch.float64, device=dev)
+    total = torch.empty((), dtype=torch.float64, device=dev)
+
+    def k8():
+        call("roll_window", a, out=out)
+
+    def read():
+        torch.sum(evict, dim=0, out=total)
+
+    def read_k8():
+        read()
+        k8()
+    box = {"launch": time_ms(k8), "graph": graph_ms(k8),
+           "cold": graph_ms(read_k8) - graph_ms(read)}
+    print(f"[8] roll_window float64 at the {BENCH_EDGE}^3 box (shifts "
+          f"{a['shifts']}, x {a['x'].numel() * 8 / 1e6:.1f} MB): per launch "
+          f"{box['launch'] * 1e3:.1f} us, from a CUDA graph "
+          f"{box['graph'] * 1e3:.1f} us (L2-resident), after a read that "
+          f"evicts L2 {box['cold'] * 1e3:.1f} us (from a graph); beside "
+          + ", ".join(f"{k} {ms * 1e3:.1f} us" for k, (ms, _) in
+                      roofs.items()) + f"; {smi}", flush=True)
+    del a, out, evict, total
+    torch.cuda.empty_cache()
+
+    replaces = {"stream_copy": "bench.py:170",
+                "scaled_copy": "tools/bw_probe.py:57",
+                "window_copy": "tools/bw_probe.py:75",
+                "roll_window": "tools/bw_probe.py:104"}
+    entries = []
+    for name in pr.NAMES:
+        r = k5 if name == "stream_copy" else timed[name, "hbm",
+                                                   torch.float32]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "pacmensl_tpu_torch/csrc/probes.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": r["kernel"],
+            "plain_ms": r["plain"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r.get("library")})
+    return entries
+
+
 def main():
     import numpy as np
     import torch
@@ -314,13 +607,20 @@ def main():
         check=True).stdout.strip()
     print(f"[1] card: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    # every library of the port at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+    from pacmensl_tpu_torch.ops import probes as pr
     t0 = time.perf_counter()
-    bk.KERNEL.load()
-    print(f"[1] box kernel: built in {bk.KERNEL.build_seconds:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s) -> "
-          f"{bk.KERNEL.path.name}", flush=True)
-    if bk.KERNEL.build_log:
-        print(bk.KERNEL.build_log, file=sys.stderr, flush=True)
+    libs = {"box kernel": bk.KERNEL, "probe kernels": pr.PROBES}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        for f in [ex.submit(lib.load) for lib in libs.values()]:
+            f.result()
+    for name, lib in libs.items():
+        print(f"[1] {name}: built in {lib.build_seconds:.2f} s -> "
+              f"{lib.path.name}", flush=True)
+        if lib.build_log:
+            print(lib.build_log, file=sys.stderr, flush=True)
+    print(f"[1] both loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
@@ -463,19 +763,6 @@ def main():
                 bench_bounds, geom, k1)
     del k1
 
-    def time_ms(fn, reps=100):
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     run = {
         "plain": lambda: bk.box_action_reference(c, p, mask, a, viol, geom),
         "plain_synth": lambda: bk.box_action_synth_reference(
@@ -517,8 +804,8 @@ def main():
     k1 = bk.box_action(c, p, mask, a, viol, geom)
     lib_ms = library("2", c, p, mask, a, viol, shape, 3, k1)
     flops = 2 * (2 * R + 1) * n
-    bounds_ms = {"K1": bound(action_bytes(n, n, R, False), flops),
-                 "K3": bound(action_bytes(n, n, R, True), flops)}
+    roof_bytes = {"K1": pr.box_action_bytes(n, n, R, False),
+                  "K3": pr.box_action_bytes(n, n, R, True)}
     del k1, run
     torch.cuda.empty_cache()
 
@@ -828,7 +1115,8 @@ def main():
     ms4 = time_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, bench_bounds,
                   geom, win128, with_plain=True)
     n_win = sum(w[0].n for w in win128)
-    bounds_ms["K4"] = bound(action_bytes(n_win, n, R, True), flops)
+    roof_bytes["K4"] = pr.box_action_bytes(n_win, n, R, True)
+    bounds_ms = {k: bound(v, flops) for k, v in roof_bytes.items()}
     del win128, a, viol, mask, p, geom
     torch.cuda.empty_cache()
     # 7a: the repressilator's final operator and solution of phase 4
@@ -933,6 +1221,11 @@ def main():
           f"one-device solve's {d1.num_states}")
     check(l1 <= 2 * SLICE_TOL, f"7c: L1 to the one-device solve {l1:.3e}")
 
+    # ---------------------------------------------------------- phase 8
+    probe_entries = probe_phase(dev, smi, {
+        "K1": (ms["K1"], roof_bytes["K1"]), "K3": (ms["K3"], roof_bytes["K3"]),
+        "K4": (ms4["K4_synth"], roof_bytes["K4"])})
+
     paths = (launch4, launch5, launch6)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
@@ -958,7 +1251,7 @@ def main():
          "max_abs_err": max_err["sharded"],
          "ms": ms4["K4_synth"], "plain_ms": ms4["plain_K4_synth"],
          "bound_ms": bounds_ms["K4"][0], "bound_by": bounds_ms["K4"][1],
-         "library_ms": lib_ms}]}), flush=True)
+         "library_ms": lib_ms}] + probe_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

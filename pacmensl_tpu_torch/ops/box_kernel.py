@@ -2,11 +2,9 @@
 
 Counterpart of ``pacmensl_tpu/ops/pallas_box.py`` (``PallasBoxKernel``).
 The kernel (``csrc/box_action.cu``, see its header for what it computes and
-what bounds it) is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, cached under
-``pacmensl_tpu_torch/_build/`` by a hash of the source and flags, and
-loaded with ``ctypes``.  A failed build or launch raises; there is no
-fallback.
+what bounds it) is built and loaded at first use by :mod:`.cuda_build`
+(``nvcc`` for ``sm_90a``, a plain C interface, ``ctypes``).  A failed build
+or launch raises; there is no fallback.
 
 It has two modes, each with a wrapper that dispatches on the device of
 its tensors (CUDA tensors launch the kernel, CPU tensors run the plain
@@ -26,13 +24,6 @@ window's global origin, the global axis-0 extent and the rows it owns.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,19 +31,10 @@ import torch
 
 from ..statespace.box_space import EVAL_CHUNK
 from ..statespace.constraints import form_values
-from ..sys.errors import PacmenslError
+from .cuda_build import CSRC, CudaLibrary, KernelError
 from .stencil import coord_grid, shift_nd
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "box_action.cu"
-BUILD_DIR = _PKG / "_build"
-#: ``-fmad=false``: no multiply-add contraction, so the kernel rounds every
-#: product and sum as its plain version does and ``dp`` is bitwise equal to
-#: it.  The slice's expansion trajectory is a discrete outcome that
-#: rounding-level differences select (PERF.md, Findings).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCE = CSRC / "box_action.cu"
 
 # Fixed maxima of the kernel's parameter struct (csrc/box_action.cu).
 MAX_R, MAX_S, MAX_NC = 32, 8, 32
@@ -69,10 +51,6 @@ MODES = ("mask", "synth", "sharded_mask", "sharded_synth")
 #: grid gives every card the same sink reduction order, so the sinks are
 #: bitwise reproducible across cards as well as across launches.
 GRID_BLOCKS = 1056
-
-
-class KernelError(PacmenslError):
-    """The CUDA kernel failed to build, load or launch."""
 
 
 class _BoxForm(ctypes.Structure):
@@ -273,71 +251,21 @@ class BoxGeometry:
         return prm
 
 
-class BoxActionKernel:
+class BoxActionKernel(CudaLibrary):
     """The compiled library, built and loaded at first launch, and the
     launch counters, one per mode (``"mask"``, ``"synth"``).  ``launches``
     counts kernel launches; ``plain_cuda_calls`` counts calls of the plain
     versions on CUDA tensors (the solve path makes none)."""
 
     def __init__(self):
-        self.lib = None
-        self.path: Optional[Path] = None
-        self.build_seconds: Optional[float] = None
-        self.build_log = ""
+        super().__init__(SOURCE)
         self.reset_counts()
 
     def reset_counts(self) -> None:
         self.launches = dict.fromkeys(MODES, 0)
         self.plain_cuda_calls = dict.fromkeys(MODES, 0)
 
-    # ------------------------------------------------------------ build
-    @staticmethod
-    def _nvcc() -> str:
-        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-            or "/usr/local/cuda"
-        cand = os.path.join(home, "bin", "nvcc")
-        if os.path.exists(cand):
-            return cand
-        found = shutil.which("nvcc")
-        if found:
-            return found
-        raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on "
-                          "PATH); the box kernel cannot be built")
-
-    def build(self) -> Path:
-        """Compile the kernel unless a build of this exact source exists;
-        the library is written to a temporary file and renamed into place
-        atomically."""
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        out = BUILD_DIR / f"box_action_{tag}.so"
-        if out.exists():
-            self.build_seconds = 0.0
-            return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-        os.close(fd)
-        cmd = [self._nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelError(
-                    f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        self.build_seconds = time.perf_counter() - t0
-        return out
-
-    def load(self):
-        if self.lib is not None:
-            return self.lib
-        path = self.build()
-        lib = ctypes.CDLL(str(path))
+    def bind(self, lib) -> None:
         lib.box_action_params_size.argtypes = []
         lib.box_action_params_size.restype = ctypes.c_int
         lib.box_action_threads.argtypes = []
@@ -361,8 +289,6 @@ class BoxActionKernel:
                               f"{size} B, wrapper "
                               f"{ctypes.sizeof(_BoxParams)} B")
         self.threads = lib.box_action_threads()
-        self.lib, self.path = lib, path
-        return lib
 
     # ----------------------------------------------------------- launch
     def _outputs(self, p, a, c, geom: BoxGeometry, out):

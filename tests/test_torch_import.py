@@ -20,6 +20,8 @@ def test_port_imports_with_jax_absent():
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         "import pacmensl_tpu_torch as pt\n"
         "import pacmensl_tpu_torch.ops.box_kernel\n"
+        "import pacmensl_tpu_torch.ops.probes\n"
+        "import pacmensl_tpu_torch.tools.bw_probe\n"
         "assert 'pacmensl_tpu' not in sys.modules\n"
         "b = pt.models.poisson()\n"
         "s = pt.FspSolverMultiSinks(odes_type='krylov', device='cpu')\n"
@@ -35,9 +37,11 @@ def test_port_imports_with_jax_absent():
 
 
 def test_no_jax_import_in_port_sources():
+    """Neither the port nor the script that drives it on a card."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pacmensl_tpu)\b",
                      re.M)
-    hits = [str(f.relative_to(ROOT)) for f in PKG.rglob("*.py")
+    files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    hits = [str(f.relative_to(ROOT)) for f in files
             if pat.search(f.read_text())]
     assert not hits, hits
 
