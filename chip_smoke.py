@@ -7,7 +7,7 @@ Phases (each check that fails ends the run with a nonzero exit):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; build (or
    load) the box kernel from ``pacmensl_tpu_torch/csrc`` and print the
-   build time.
+   build time and each instantiation's registers and spills (``ptxas``).
 2. Both modes of the kernel (mask-reading K1, synthesized-mask K3) vs
    their plain PyTorch versions, in float64, on the box shapes of the
    bundled models at small bounds (hog1p_3d at t = 0, 30, 120, hog1p_5d at
@@ -19,7 +19,12 @@ Phases (each check that fails ends the run with a nonzero exit):
    every box whose mask is constraint-only, K3's ``dp`` and sinks are
    bitwise K1's, with the forms evaluated in int32 (as the wrapper
    chooses for these boxes) and in int64; transcr_reg_6d (not
-   constraint-only) selects K1.
+   constraint-only) selects K1.  The kernels read the operators' own
+   propensities: every reaction on a table (transcr_reg_6d's reactions 4
+   and 6 on field rows), checked and printed with their bytes.  Also the
+   host time per launch of K1 and K3 (1,000 calls without a
+   synchronisation, on the small hog1p_5d box) and the new compulsory
+   bytes beside the field-reading kernel's model.
 3. Poisson oracle: the transient solve of ``models.poisson()`` to t = 10
    on the GPU against the Poisson(2t) pmf.
 4. Repressilator with its custom constraints, t = 10, fsp_tol = 1e-4,
@@ -49,8 +54,9 @@ Phases (each check that fails ends the run with a nonzero exit):
       the plain K4's; the summed sinks lie within 1e-12 relative of the
       whole box's; two launches are bitwise equal.  Timed per slab and
       per sweep of the 4 slabs beside K1 and K3, and against one
-      ``torch.mv`` of the same generator as a CSR matrix with the sink
-      rows appended (the library yardstick; the port never calls it).
+      ``torch.mv`` of each slab's rows of the same generator as a CSR
+      matrix with the slab's sink rows appended (the library yardstick,
+      per slab and per sweep; the port never calls it).
    b. The repressilator solve of phase 4 sharded over one rank per
       visible card (NCCL, ``torch.multiprocessing`` spawn): phase 4's
       checks, and L1 <= 2 * fsp_tol to phase 4's distribution.
@@ -64,7 +70,9 @@ Phases (each check that fails ends the run with a nonzero exit):
 
    In 7b and 7c one matvec of the final operator, with the halos the
    ranks exchange, must give the whole box's dp bitwise and its sinks
-   within 1e-12 relative.
+   within 1e-12 relative, and every matvec of the solve makes exactly one
+   box launch on one rank (no halo in flight) and two with halos (the
+   interior rows, then both edge strips), sinks reduced in the launch.
 8. The probes (``csrc/probes.cu``): the stream copy K5 and the probes
    K6-K8 of the box kernel's memory path.  Their path is the port's two
    measurement entry points, ``ops.probes.stream_bandwidth()`` (K5 at 2^26
@@ -224,14 +232,17 @@ def graph_ms(fn, reps=100):
     return e0.elapsed_time(e1) / reps
 
 
-def generator_csr(c, mask, a, viol, shape, stoich, nc):
+def generator_csr(c, mask, a, viol, shape, stoich, nc, out_range=None):
     """The truncated generator at coefficients ``c`` as a CSR matrix of
     ``n + nc`` rows, the sink rows last: the function the box kernel
-    computes (``A @ p`` = dp and sinks).  The library yardstick only."""
+    computes (``A @ p`` = dp and sinks).  With ``out_range = (lo, hi)``, flat
+    output elements, only their rows and the sinks of transitions from
+    them: the function of one K4 slab.  The library yardstick only."""
     import numpy as np
     import torch
     dev = a.device
     n = int(np.prod(shape))
+    lo, hi = out_range if out_range is not None else (0, n)
     strides = torch.tensor([int(np.prod(shape[d + 1:]))
                             for d in range(len(shape))], device=dev)
     ext = torch.tensor(shape, device=dev)
@@ -257,9 +268,36 @@ def generator_csr(c, mask, a, viol, shape, stoich, nc):
             cols.append(x[sel])
             vals.append(rate[sel])
     vals.insert(0, diag)
+    r, cl, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    sink = r >= n
+    keep = torch.where(sink, (cl >= lo) & (cl < hi), (r >= lo) & (r < hi))
+    r = torch.where(sink, r - n + (hi - lo), r - lo)[keep]
     return torch.sparse_coo_tensor(
-        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
-        (n + nc, n)).coalesce().to_sparse_csr()
+        torch.stack([r, cl[keep]]), v[keep],
+        (hi - lo + nc, n)).coalesce().to_sparse_csr()
+
+
+def ptxas_lines(log):
+    """One line per box kernel instantiation from ``nvcc -Xptxas -v``'s
+    output: its template arguments, registers and spills."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z17box_action_kernelILi"
+                      r"(\d+)ELb(\d)E(\w)Lb(\d)E", line)
+        if m:
+            name = (f"NCM={m.group(1)} "
+                    f"{'synth' if m.group(2) == '1' else 'mask'} "
+                    f"F={'int32' if m.group(3) == 'i' else 'int64'} "
+                    f"{'grouped' if m.group(4) == '1' else 'one'} rows")
+            continue
+        if name and "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.append(f"{name}: {m.group(1)} registers; {spill}")
+            name = None
+    return out
 
 
 def rank_solve(rank, world, port, backend, t_final, tol, queue):
@@ -275,6 +313,14 @@ def rank_solve(rank, world, port, backend, t_final, tol, queue):
                         init_method=f"tcp://127.0.0.1:{port}",
                         timeout=RANK_TIMEOUT)
     try:
+        from pacmensl_tpu_torch.parallel import halo_box
+        calls = [0]
+        action = halo_box.ShardedBoxAction.__call__
+
+        def counted(self, *args, **kw):
+            calls[0] += 1
+            return action(self, *args, **kw)
+        halo_box.ShardedBoxAction.__call__ = counted
         mesh = pt.make_mesh("cuda")
         rep = pt.models.repressilator()
         s = pt.FspSolverMultiSinks(backend="box", odes_type="krylov",
@@ -293,6 +339,7 @@ def rank_solve(rank, world, port, backend, t_final, tol, queue):
         ev = s.get_event_log().events
         tr = s.step_trace
         out = {"rank": rank, "device": str(mesh.device), "wall": wall,
+               "matvecs": calls[0],
                "launches": dict(bk.KERNEL.launches),
                "plain": dict(bk.KERNEL.plain_cuda_calls),
                "epochs": ev["ODESolve"].count,
@@ -621,6 +668,8 @@ def main():
         if lib.build_log:
             print(lib.build_log, file=sys.stderr, flush=True)
     print(f"[1] both loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in ptxas_lines(bk.KERNEL.build_log):
+        print(f"[1] ptxas, box kernel {line}", flush=True)
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
@@ -698,11 +747,26 @@ def main():
             p = torch.where(mask != 0, p,
                             torch.zeros((), device=dev, dtype=p.dtype))
         c = op.model.coefficients(t)
-        k1 = check_mask(phase, label, c, p, mask, op.prop_fields, viol,
-                        op.geom)
+        k1 = check_mask(phase, label, c, p, mask, op.props, viol, op.geom)
         if op.synth_mask:
-            check_synth(phase, label, c, p, op.prop_fields,
-                        op.data().bounds, op.geom, k1)
+            check_synth(phase, label, c, p, op.props, op.data().bounds,
+                        op.geom, k1)
+
+    def tables(phase, label, op, field_rows=()):
+        """Checks and prints how ``op`` holds its propensities: the
+        reactions ``field_rows`` on field rows, every other on a table."""
+        pp = op.props
+        rows = tuple(r for r, ax in enumerate(pp.axis) if ax == bk.FIELD_ROW)
+        print(f"[{phase}] {label}: propensity table axes {pp.axis} "
+              f"({bk.FIELD_ROW}: field row, {bk.CONST_AXIS}: constant), "
+              f"{pp.table_bytes()} B of tables, {pp.field_bytes()} B of "
+              f"field rows (a field per reaction would be "
+              f"{8 * pp.num_reactions * pp.n} B); [R, n] fields held: "
+              f"{op._prop_fields is not None}", flush=True)
+        check(rows == tuple(field_rows),
+              f"{label}: field rows {rows}, expected {tuple(field_rows)}")
+        check(op._prop_fields is None,
+              f"{label}: the operator holds [R, n] propensity fields")
 
     def operator(bundle, bounds):
         cs = pt.ConstraintSet(bundle.constraint, bounds,
@@ -724,8 +788,12 @@ def main():
         ("transcr_reg_6d", m.transcription_regulation_6d(),
          [10, 6, 2, 3, 2, 4], [0.0, 600.0]),
     ]
+    host_op = None
     for name, bundle, bounds, ts in cases:
         op = operator(bundle, np.asarray(bounds))
+        tables(2, name, op, (4, 6) if name == "transcr_reg_6d" else ())
+        if name == "hog1p_5d":
+            host_op = op
         if name == "transcr_reg_6d":
             check(not op.space.mask_is_constraint_only and not op.synth_mask,
                   "transcr_reg_6d: expected the mask-reading kernel")
@@ -752,7 +820,8 @@ def main():
     bench_bounds = np.array([BENCH_EDGE - 1] * 3)
     cs = pt.ConstraintSet(None, bench_bounds, None, 3)
     geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3, cs.form)
-    a = bo.propensity_fields(rep.model, shape, dev)
+    a = bo.propensity_tables(rep.model, shape, dev)
+    check(a.num_field_rows == 0, "128^3: a reaction is not on a table")
     viol = bo.violation_bits(cs, rep.model.stoichiometry, shape, dev)
     mask = torch.ones(n, dtype=torch.uint8, device=dev)
     p = torch.as_tensor(rng.random(n), device=dev)
@@ -785,8 +854,8 @@ def main():
     def library(label, c, p, mask, a, viol, shape, nc, k1, reps=100):
         """One torch.mv of the generator as CSR on ``p``, checked against
         K1's (dp, sinks) ``k1``; its time in ms over ``reps`` calls."""
-        A = generator_csr(c, mask, a, viol, shape, rep.model.stoichiometry,
-                          nc)
+        A = generator_csr(c, mask, a.dense(), viol, shape,
+                          rep.model.stoichiometry, nc)
         y = torch.mv(A, p)
         scale = float(k1[0].abs().max())
         err = max(float((y[:-nc] - k1[0]).abs().max()),
@@ -804,9 +873,67 @@ def main():
     k1 = bk.box_action(c, p, mask, a, viol, geom)
     lib_ms = library("2", c, p, mask, a, viol, shape, 3, k1)
     flops = 2 * (2 * R + 1) * n
-    roof_bytes = {"K1": pr.box_action_bytes(n, n, R, False),
-                  "K3": pr.box_action_bytes(n, n, R, True)}
-    del k1, run
+    tb = a.table_bytes()
+    roof_bytes = {"K1": pr.box_action_bytes(n, n, R, False, table_bytes=tb),
+                  "K3": pr.box_action_bytes(n, n, R, True, table_bytes=tb)}
+    for k, v in roof_bytes.items():
+        old = pr.field_box_action_bytes(n, n, R, k == "K3")
+        print(f"[2] {k} at {BENCH_EDGE}^3: {v / n:.2f} B/element "
+              f"({v / 1e6:.1f} MB, bound {bound(v, flops)[0] * 1e3:.1f} us); "
+              f"the field-reading kernel's model {old / n:.0f} B/element "
+              f"({bound(old, flops)[0] * 1e3:.1f} us)", flush=True)
+    print(f"[2] {BENCH_EDGE}^3: K3 {ms['K3'] * 1e3:.1f} us, K1 "
+          f"{ms['K1'] * 1e3:.1f} us; K3 no slower than K1: "
+          f"{ms['K3'] <= ms['K1']}", flush=True)
+
+    def host_us(fn, calls=1000):
+        """Host microseconds per call of ``fn`` over ``calls`` calls
+        without a synchronisation (on a box small enough that the device
+        keeps up)."""
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t2 - t1) * 1e6 / calls
+
+    hmask, hviol = k1_data(host_op)
+    hp = torch.where(hmask != 0, torch.ones((), device=dev, dtype=torch.float64),
+                     torch.zeros((), device=dev, dtype=torch.float64))
+    hc = host_op.model.coefficients(60.0)
+    host = {"K1": host_us(lambda: bk.box_action(
+                hc, hp, hmask, host_op.props, hviol, host_op.geom)),
+            "K3": host_us(lambda: bk.box_action_synth(
+                hc, hp, host_op.props, host_op.data().bounds,
+                host_op.geom))}
+    print(f"[2] host time per launch (hog1p_5d box {host_op.shape}, 1000 "
+          f"calls without a synchronisation): K1 {host['K1']:.1f} us, K3 "
+          f"{host['K3']:.1f} us", flush=True)
+    # What a K3 launch's host time is made of.  The bare C launch writes
+    # into the outputs of the wrapper call kept in ``keep``.
+    import ctypes
+    hg, hb = host_op.geom, host_op.data().bounds
+    keep = bk.box_action_synth(hc, hp, host_op.props, hb, hg)
+    lib, hprm = bk.KERNEL.load(), hg.params(hc, hb, host_op.props)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    narrow, tiny = int(hg.narrow(hb)), torch.zeros(16, device=dev)
+    parts = {
+        "the C launch through ctypes": lambda: lib.box_action_launch(
+            ctypes.byref(hprm), ctypes.byref(hg._ptrs), hg.nblocks, 1,
+            narrow, dev.index, stream),
+        "a trivial ctypes call": lib.box_action_threads,
+        "one tiny PyTorch kernel": lambda: tiny.add_(1.0),
+        "torch.empty": lambda: torch.empty(hg.n_out + hg.nc,
+                                           dtype=torch.float64, device=dev),
+        "BoxGeometry.params": lambda: hg.params(hc, hb, host_op.props),
+        "model.coefficients(t)": lambda: host_op.model.coefficients(60.0)}
+    print(f"[2] host time of a K3 launch's parts (us per call, parameter "
+          f"struct {ctypes.sizeof(hprm)} B): " + ", ".join(
+              f"{k} {host_us(f):.2f}" for k, f in parts.items()), flush=True)
+    del k1, run, keep
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -906,6 +1033,7 @@ def main():
     d4, launch4, _ = run_solve(4, f"repressilator t={SLICE_T_FINAL:g} "
                                   f"tol={SLICE_TOL:g}", s, SLICE_T_FINAL,
                                SLICE_TOL, lambda k: 1.0e-8)
+    tables(4, "repressilator final operator", s._operator)
     final_operator(4, "repressilator", s, SLICE_T_FINAL)
     op4, p4 = s._operator, s._y.p      # for phase 7a
     del s
@@ -964,6 +1092,7 @@ def main():
     print(f"[5] GMRES iterations {ev['RHSEvaluation'].count - n_solves} "
           f"(RHS evaluations less one per step and one per epoch)",
           flush=True)
+    tables(5, "hog1p_5d final operator", s._operator)
     final_operator(5, "hog1p_5d", s, HOG_T_FINAL)
     del s
     torch.cuda.empty_cache()
@@ -1005,8 +1134,23 @@ def main():
     n0 = int(np.prod(np.asarray(tr6.bounds) + 1))
     check(d6.num_states > n0, f"transcr_reg_6d: {d6.num_states} states, "
                               f"no expansion beyond the initial {n0}")
+    tables(6, "transcr_reg_6d final operator", s._operator, (4, 6))
     final_operator(6, "transcr_reg_6d", s, TR6_T_FINAL, synth=False)
-    del s
+    # K1 where the rows of the last axis are short and two reactions read
+    # field rows
+    op6 = s._operator
+    m6, v6 = k1_data(op6)
+    c6 = op6.model.coefficients(TR6_T_FINAL)
+    t6 = {k: [] for k in ("K1", "plain")}
+    for k in ("plain", "K1", "K1", "plain"):
+        fn = bk.box_action if k == "K1" else bk.box_action_reference
+        t6[k].append(time_ms(lambda: fn(c6, s._y.p, m6, op6.props, v6,
+                                        op6.geom), reps=20))
+    print(f"[6] K1 on the final operator {op6.shape} (rows of "
+          f"{op6.shape[-1]}): " + ", ".join(
+              f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+              for k, vs in t6.items()) + f" us; {smi}", flush=True)
+    del s, op6, m6, v6
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 7
@@ -1015,7 +1159,7 @@ def main():
     def slab_windows(geom, p, mask, a, viol):
         """``geom``'s box cut into SLABS axis-0 slabs, each window holding
         its neighbours' halo planes as the exchange delivers them: a list
-        of (K4 geometry, p, mask, fields, violation bits)."""
+        of (K4 geometry, p, mask, propensities, violation bits)."""
         shape, g0 = geom.shape, geom.shape[0]
         w0 = halo_width(geom.stoich)
         cuts = np.linspace(0, g0, SLABS + 1).astype(int)
@@ -1028,8 +1172,7 @@ def main():
 
             def win(t):
                 return window_rows(t.reshape(shape), o, rows).reshape(-1)
-            out.append((g, win(p), win(mask),
-                        torch.stack([win(f) for f in a]),
+            out.append((g, win(p), win(mask), a.window(o, rows),
                         torch.stack([win(v) for v in viol])))
         return out
 
@@ -1108,39 +1251,94 @@ def main():
               + f"; {smi}", flush=True)
         return {k: float(np.mean(v)) for k, v in t.items()}
 
+    def library_k4(label, c, p, mask, a, viol, geom, windows, k4, reps=100):
+        """One torch.mv per slab of the generator's CSR rows of that slab
+        (the function of one K4 launch), each checked against the slab's
+        K4 (dp, sinks) in ``k4``; ms per slab and per sweep."""
+        plane = geom.plane
+        per = []
+        for w, (kp, ks) in zip(windows, k4):
+            g = w[0]
+            lo = (g.origin0 + g.out_lo) * plane
+            A = generator_csr(c, mask, a.dense(), viol, geom.shape,
+                              geom.stoich, geom.nc, (lo, lo + g.n_out))
+            y = torch.mv(A, p)
+            scale = float(kp.abs().max())
+            err = max(float((y[:g.n_out] - kp).abs().max()),
+                      float((y[g.n_out:] - ks).abs().max()))
+            check(err <= 1e-9 * scale, f"{label}: a slab's CSR rows differ "
+                                       f"from K4 by {err:.3e}")
+            per.append(min(time_ms(lambda: torch.mv(A, p), reps)
+                           for _ in range(2)))
+            del A, y
+        print(f"[7a] {label} library: torch.mv of each slab's CSR rows "
+              + " / ".join(f"{t * 1e3:.1f}" for t in per)
+              + f" us, a sweep {sum(per) * 1e3:.1f} us", flush=True)
+        return sum(per)
+
     # 7a: the 128^3 box of phase 2
     win128 = slab_windows(geom, p, mask, a, viol)
     check_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, bench_bounds, geom,
              win128)
     ms4 = time_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, bench_bounds,
                   geom, win128, with_plain=True)
-    n_win = sum(w[0].n for w in win128)
-    roof_bytes["K4"] = pr.box_action_bytes(n_win, n, R, True)
+    lib4_ms = library_k4(f"{BENCH_EDGE}^3 box", c, p, mask, a, viol, geom,
+                         win128, [k4_launch("synth", c, bench_bounds, w)
+                                  for w in win128])
+    # p is read at the valid elements of the rows that the slab's rows and
+    # their sources span (one span each: the windows have no gap)
+    roof_bytes["K4"] = sum(
+        pr.box_action_bytes(w[0].n, w[0].n_out, R, True, n_valid=sum(
+            int((w[2][a * w[0].plane:b * w[0].plane] != 0).sum())
+            for a, b in w[0].read_spans), table_bytes=tb)
+        for w in win128)
     bounds_ms = {k: bound(v, flops) for k, v in roof_bytes.items()}
+    print(f"[7a] K4 sweep at {BENCH_EDGE}^3: {roof_bytes['K4'] / 1e6:.1f} MB, "
+          f"bound {bounds_ms['K4'][0] * 1e3:.1f} us", flush=True)
+    hw = slab_windows(host_op.geom, hp, hmask, host_op.props, hviol)
+    hb = host_op.data().bounds
+    host["K4"] = host_us(lambda: k4_launch("synth", hc, hb, hw[1]))
+    host["K4 mask"] = host_us(lambda: k4_launch("mask", hc, hb, hw[1]))
+    print(f"[7a] host time per K4 launch (a slab of the hog1p_5d box "
+          f"{host_op.shape}): synthesized {host['K4']:.1f} us, mask-reading "
+          f"{host['K4 mask']:.1f} us", flush=True)
+    del hw
     del win128, a, viol, mask, p, geom
     torch.cuda.empty_cache()
     # 7a: the repressilator's final operator and solution of phase 4
     mask4, viol4 = k1_data(op4)
     c4 = op4.model.coefficients(SLICE_T_FINAL)
     b4 = op4.data().bounds
-    win4 = slab_windows(op4.geom, p4, mask4, op4.prop_fields, viol4)
+    win4 = slab_windows(op4.geom, p4, mask4, op4.props, viol4)
     k1_4 = check_k4(f"repressilator final {op4.shape}", c4, p4, mask4,
-                    op4.prop_fields, viol4, b4, op4.geom, win4)
-    time_k4(f"repressilator final {op4.shape}", c4, p4, mask4,
-            op4.prop_fields, viol4, b4, op4.geom, win4, with_plain=False)
-    library("7a", c4, p4, mask4, op4.prop_fields, viol4, op4.shape,
+                    op4.props, viol4, b4, op4.geom, win4)
+    ms4f = time_k4(f"repressilator final {op4.shape}", c4, p4, mask4,
+                   op4.props, viol4, b4, op4.geom, win4, with_plain=False)
+    print(f"[7a] repressilator final {op4.shape}: K3 {ms4f['K3'] * 1e3:.1f} "
+          f"us, K1 {ms4f['K1'] * 1e3:.1f} us; K3 no slower than K1: "
+          f"{ms4f['K3'] <= ms4f['K1']}", flush=True)
+    library("7a", c4, p4, mask4, op4.props, viol4, op4.shape,
             op4.geom.nc, k1_4, reps=10)
     del win4, k1_4, mask4, viol4, op4, p4
     torch.cuda.empty_cache()
 
-    def rank_checks(phase, label, res, tol):
-        """The checks of a sharded solve's ranks: every matvec on K4, the
-        same steps and sinks on every rank, and phase 4's output checks
-        on the distribution; returns the distribution and K4 launches."""
+    def rank_checks(phase, label, res, tol, per_matvec):
+        """The checks of a sharded solve's ranks: every matvec on K4 with
+        ``per_matvec`` box launches, the same steps and sinks on every
+        rank, and phase 4's output checks on the distribution; returns the
+        distribution and K4 launches."""
         d = res[0]
         launches = sum(r["launches"]["sharded_mask"]
                        + r["launches"]["sharded_synth"] for r in res)
         for r in res:
+            k4 = r["launches"]["sharded_mask"] + r["launches"]["sharded_synth"]
+            print(f"[{phase}] rank {r['rank']}: {r['matvecs']} matvecs, "
+                  f"{k4} box launches, {k4 / max(r['matvecs'], 1):.3f} per "
+                  f"matvec (expected {per_matvec}), no sink-reduce launch",
+                  flush=True)
+            check(k4 == per_matvec * r["matvecs"],
+                  f"{label}: rank {r['rank']} made {k4} box launches for "
+                  f"{r['matvecs']} matvecs, not {per_matvec} each")
             check(r["launches"]["sharded_synth"] > 0,
                   f"{label}: rank {r['rank']} launched no K4")
             check(r["launches"]["mask"] + r["launches"]["synth"] == 0
@@ -1190,7 +1388,8 @@ def main():
     d7b, launch7b = rank_checks(
         "7b", f"sharded repressilator t={SLICE_T_FINAL:g} "
               f"tol={SLICE_TOL:g} over NCCL",
-        run_ranks(world, "nccl", SLICE_T_FINAL, SLICE_TOL), SLICE_TOL)
+        run_ranks(world, "nccl", SLICE_T_FINAL, SLICE_TOL), SLICE_TOL,
+        1 if world == 1 else 2)
     l1 = l1_by_state(d7b, d4)
     same = (np.array_equal(d7b.states, d4.states)
             and np.array_equal(d7b.p, d4.p))
@@ -1204,7 +1403,7 @@ def main():
     d7c, launch7c = rank_checks(
         "7c", f"sharded repressilator t={GLOO_T_FINAL:g} tol={SLICE_TOL:g}"
               " over gloo", run_ranks(2, "gloo", GLOO_T_FINAL, SLICE_TOL),
-        SLICE_TOL)
+        SLICE_TOL, 2)
     s = solver_for(rep, "krylov")
     t0 = time.perf_counter()
     d1 = s.solve(GLOO_T_FINAL, SLICE_TOL)
@@ -1251,7 +1450,7 @@ def main():
          "max_abs_err": max_err["sharded"],
          "ms": ms4["K4_synth"], "plain_ms": ms4["plain_K4_synth"],
          "bound_ms": bounds_ms["K4"][0], "bound_by": bounds_ms["K4"][1],
-         "library_ms": lib_ms}] + probe_entries}), flush=True)
+         "library_ms": lib4_ms}] + probe_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,11 @@ as the reference package chooses them (``box_operator.py:189-198``):
 
 Operator data, by lifetime:
 
-* per box capacity (construction): the propensity fields ``a [R, n]``,
-  evaluated once by the model's torch propensity;
+* per box capacity (construction): the propensities
+  (:func:`propensity_tables`): for each reaction a table along the one
+  axis its propensity varies on, checked bitwise against the model's
+  torch propensity over the whole box, or where that fails (a propensity
+  of two or more axes) a field row ``[n]``;
 * per expansion epoch (:meth:`refresh_data`): the constraint bounds; in
   the mask-reading mode also the validity mask as uint8 and the
   violation bits ``viol [R, n]`` (bit c = f_c(x + s_r) > b_c);
@@ -33,7 +36,7 @@ Operator data, by lifetime:
 
 With a ``mesh`` (:mod:`..parallel.mesh`) the box is split into axis-0
 slabs over its ranks, every rank holding the whole state space: the
-operator's fields, mask and violation bits cover the rank's window of
+operator's field rows, mask and violation bits cover the rank's window of
 ``L0 + 2 w0`` planes at global coordinates, vectors cover its slab, and
 :meth:`action` runs :class:`~..parallel.halo_box.ShardedBoxAction` (the
 kernel's sharded mode K4 behind a halo exchange).  The mode is chosen
@@ -54,7 +57,8 @@ from ..statespace.box_space import BoxStateSpace, EVAL_CHUNK, constraint_ok
 from ..statespace.constraints import ConstraintSet
 from ..sys.errors import StateSpaceError
 from ..parallel.halo_box import ShardedBoxAction, window_rows
-from .box_kernel import (BoxGeometry, MAX_NC, box_action, box_action_synth,
+from .box_kernel import (CONST_AXIS, FIELD_ROW, BoxGeometry, MAX_NC,
+                         PropTables, box_action, box_action_synth,
                          form_fits_kernel, pack_bits)
 from .stencil import coord_grid
 from .vecops import FspVector
@@ -77,21 +81,73 @@ def _in_box(shape, origin0: int, g0) -> range:
 
 
 def propensity_fields(model: Model, shape, device, dtype=torch.float64,
-                      origin0: int = 0, g0=None) -> torch.Tensor:
-    """a_r over the box (unmasked), [R, n]: coordinates are handed to the
-    propensity as float64, as in the reference package.  For a window of
-    a box of ``g0`` rows, at global coordinates, and 0 on rows outside
-    the box."""
+                      origin0: int = 0, g0=None,
+                      reactions=None) -> torch.Tensor:
+    """a_r over the box (unmasked), [R, n] (the rows of ``reactions``
+    only, where given): coordinates are handed to the propensity as
+    float64, as in the reference package.  For a window of a box of
+    ``g0`` rows, at global coordinates, and 0 on rows outside the box."""
     n = int(np.prod(shape))
-    R = model.num_reactions
-    a = torch.zeros((R, n), dtype=dtype, device=device)
+    rs = list(range(model.num_reactions) if reactions is None
+              else reactions)
+    a = torch.zeros((len(rs), n), dtype=dtype, device=device)
     span = _in_box(shape, origin0, g0)
     for lo in range(span.start, span.stop, EVAL_CHUNK):
         hi = min(span.stop, lo + EVAL_CHUNK)
         x = coord_grid(shape, device, lo, hi, origin0).to(dtype)
-        for r in range(R):
-            a[r, lo:hi] = torch.as_tensor(model.propensity(x, r)).to(dtype)
+        for k, r in enumerate(rs):
+            a[k, lo:hi] = torch.as_tensor(model.propensity(x, r)).to(dtype)
     return a
+
+
+def propensity_tables(model: Model, shape, device, dtype=torch.float64,
+                      origin0: int = 0, g0=None) -> PropTables:
+    """The propensities over the box (a window of a box of ``g0`` rows,
+    at global coordinates) as the kernel reads them.  For each reaction,
+    1-D slices of ``model.propensity`` through the origin (axis 0 over the
+    global rows) find the axes it varies along.  Where that is one axis d
+    (or none: a constant, one entry), the slice along d is its table,
+    kept only if, chunk by chunk over the box, the field equals
+    ``table[x_d]`` bitwise; otherwise (two or more axes, a NaN, any
+    mismatch) the reaction keeps a field row ``[n]``, 0 on window rows
+    outside the box."""
+    shape = tuple(int(s) for s in shape)
+    S, R = len(shape), model.num_reactions
+    G0 = shape[0] if g0 is None else int(g0)
+    ext = (G0,) + shape[1:]
+    span = _in_box(shape, origin0, g0)
+    axis, tables = [], []
+    for r in range(R):
+        lines = []
+        for d in range(S):
+            x = torch.zeros((ext[d], S), dtype=dtype, device=device)
+            x[:, d] = torch.arange(ext[d], dtype=dtype, device=device)
+            lines.append(torch.as_tensor(model.propensity(x, r)).to(dtype)
+                         .reshape(-1))
+        varying = [d for d in range(S)
+                   if not bool((lines[d] == lines[d][:1]).all())]
+        ax, tab = FIELD_ROW, None
+        if len(varying) <= 1:
+            ax = varying[0] if varying else CONST_AXIS
+            tab = lines[ax] if varying else lines[0][:1].clone()
+            for lo in range(span.start, span.stop, EVAL_CHUNK):
+                hi = min(span.stop, lo + EVAL_CHUNK)
+                xc = coord_grid(shape, device, lo, hi, origin0)
+                got = torch.as_tensor(model.propensity(xc.to(dtype), r)
+                                      ).to(dtype).reshape(-1)
+                want = (tab[xc[:, ax]] if varying
+                        else tab.expand(hi - lo))
+                if not torch.equal(got, want):
+                    ax, tab = FIELD_ROW, None
+                    break
+        axis.append(ax)
+        tables.append(tab)
+    fields = None
+    rows = [r for r in range(R) if axis[r] == FIELD_ROW]
+    if rows:
+        fields = propensity_fields(model, shape, device, dtype, origin0, g0,
+                                   reactions=rows)
+    return PropTables(shape, axis, tables, fields, origin0, G0)
 
 
 def violation_bits(constraints: ConstraintSet, stoichiometry, shape,
@@ -159,13 +215,27 @@ class BoxOperator:
             sh = self.sharded
             self._window = (sh.window_shape, sh.origin0, self.shape[0])
             self.local_n = sh.L0 * sh.plane
-        self.prop_fields = propensity_fields(
+        #: the propensities over the window, as the kernel reads them
+        self.props = propensity_tables(
             model, self._window[0], self.device, dtype,
             origin0=self._window[1], g0=self._window[2])
+        self._prop_fields = None
         #: the kernel mode: True = synthesized mask, False = mask-reading
         self.synth_mask = self._synth_applies()
         self._data = None
         self.refresh_data()
+
+    @property
+    def prop_fields(self) -> torch.Tensor:
+        """The ``[R, n]`` propensity fields over the window, evaluated by
+        the model's torch propensity at first use (for comparisons; the
+        action reads :attr:`props`)."""
+        if self._prop_fields is None:
+            shape, origin0, g0 = self._window
+            self._prop_fields = propensity_fields(
+                self.model, shape, self.device, self.dtype, origin0=origin0,
+                g0=g0)
+        return self._prop_fields
 
     def _synth_applies(self) -> bool:
         if not (USE_SYNTH_MASK and self.geom.form is not None
@@ -219,14 +289,14 @@ class BoxOperator:
         d = self._data
         c = self.model.coefficients(t, self.dtype)
         if self.sharded is not None:
-            dp, dsinks = self.sharded(c, y.p, self.prop_fields, d.mask,
-                                      d.viol, d.bounds)
+            dp, dsinks = self.sharded(c, y.p, self.props, d.mask, d.viol,
+                                      d.bounds)
         elif d.mask is None:
-            dp, dsinks = box_action_synth(c, y.p, self.prop_fields,
-                                          d.bounds, self.geom)
+            dp, dsinks = box_action_synth(c, y.p, self.props, d.bounds,
+                                          self.geom)
         else:
-            dp, dsinks = box_action(c, y.p, d.mask, self.prop_fields,
-                                    d.viol, self.geom)
+            dp, dsinks = box_action(c, y.p, d.mask, self.props, d.viol,
+                                    self.geom)
         return FspVector(p=dp, sinks=dsinks)
 
     def diagonal(self, t=0.0) -> torch.Tensor:
@@ -234,18 +304,18 @@ class BoxOperator:
         slab with a mesh)."""
         c = self.model.coefficients(t, self.dtype).tolist()
         m = self.space.mask.reshape(-1)
-        a = self.prop_fields
+        cols = slice(0, self._n)
         if self.sharded is not None:
             sh = self.sharded
             own = slice((sh.origin0 + sh.w0) * sh.plane,
                         (sh.origin0 + sh.w0 + sh.L0) * sh.plane)
             m = m[own]
-            a = a[:, sh.w0 * sh.plane:(sh.w0 + sh.L0) * sh.plane]
+            cols = slice(sh.w0 * sh.plane, (sh.w0 + sh.L0) * sh.plane)
         out = torch.zeros(self.local_n, dtype=self.dtype, device=self.device)
         for r in range(self.model.num_reactions):
             out = out - c[r] * torch.where(
-                m, a[r], torch.zeros((), dtype=self.dtype,
-                                     device=self.device))
+                m, self.props.field(r)[cols],
+                torch.zeros((), dtype=self.dtype, device=self.device))
         return out
 
     # ------------------------------------------------------------- misc

@@ -324,12 +324,31 @@ def stream_bandwidth(n: Optional[int] = None, dtype=torch.float64,
     return 2.0 * m * a.element_size() / seconds
 
 
-def box_action_bytes(n_in: int, n_out: int, R: int, synth: bool) -> int:
+def box_action_bytes(n_in: int, n_out: int, R: int, synth: bool,
+                     n_valid: Optional[int] = None, table_bytes: int = 0,
+                     field_rows: int = 0) -> int:
     """Compulsory float64 bytes of one box action over ``n_in`` input
-    elements and ``n_out`` outputs: ``p`` and ``R`` propensity values
-    read per input element (the mask-reading mode also the mask byte and
-    ``R`` violation words), ``dp`` written; 89 B per element for K1 and 64
-    for K3 at R = 6.  The port's counterpart of bench's traffic model
+    elements (``n_valid`` of them valid, all by default) and ``n_out``
+    outputs, as the kernel takes its inputs: ``p`` and the ``field_rows``
+    propensity rows read at valid elements, the propensity tables
+    (``table_bytes``) once, ``dp`` written; the mask-reading mode also
+    reads the mask byte of every input element and ``R`` violation words
+    at each valid one.  At R = 6 with every reaction on a table and every
+    element valid: 41 B per element for K1 and 16 for K3, plus the
+    tables.  The port's counterpart of bench's traffic model
     (``bench.py:198-206``)."""
+    nv = n_in if n_valid is None else int(n_valid)
+    per_valid = 8 + 8 * field_rows + (0 if synth else 4 * R)
+    return (nv * per_valid + (0 if synth else n_in) + table_bytes
+            + 8 * n_out)
+
+
+def field_box_action_bytes(n_in: int, n_out: int, R: int,
+                           synth: bool) -> int:
+    """The traffic model of the kernel that read ``R`` propensity fields
+    at every element (``p`` and the fields per input element, the
+    mask-reading mode also the mask byte and ``R`` violation words;
+    ``dp`` written): 89 B per element for K1 and 64 for K3 at R = 6.
+    Kept so that roofline fractions stated against it stay readable."""
     per_in = 8 + 8 * R + (0 if synth else 1 + 4 * R)
     return n_in * per_in + 8 * n_out

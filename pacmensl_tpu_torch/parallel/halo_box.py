@@ -16,12 +16,21 @@ mask), so the mask and the violation bits of its window are sliced from
 its own data, where the reference exchanges the mask too
 (``halo_box.py:140, 162-165``).
 
-Overlap split (reference ``:149-193``), where ``L0 >= 2 w0`` and
-``PACMENSL_HALO_OVERLAP`` is not ``"0"``: the exchange starts first, the
-interior rows ``[w0, L0 - w0)``, which need no remote planes, run on the
-local slab while it is in flight, and then two strips of ``3 w0`` planes
-compute the first and the last ``w0`` rows.  Else one launch on the
-``L0 + 2 w0`` window computes the slab after the exchange.
+The kernel reads the window's ``p`` through three base pointers (the halo
+above, the rank's slab, the halo below), so no window is ever
+concatenated, and the halos are received into buffers allocated once.
+
+* One rank (no neighbour on either side): one launch on the slab, with no
+  halos (the rows they would hold lie outside the box), and no
+  collective.
+* Halos in flight, where ``L0 >= 2 w0`` and ``PACMENSL_HALO_OVERLAP`` is
+  not ``"0"`` (reference ``:149-193``): the exchange starts first, one
+  launch computes the interior rows ``[w0, L0 - w0)``, which need no
+  remote planes, while it is in flight, and one launch computes both edge
+  strips (the first and the last ``w0`` rows) from the received halos.
+  The second launch sums both launches' sink partials: one reduction per
+  matvec.
+* Else one launch on the window after the exchange.
 """
 from __future__ import annotations
 
@@ -72,56 +81,60 @@ class ShardedBoxAction:
                 f"slabs of {L0} axis-0 planes ({self.shape[0]} over "
                 f"{mesh.size} ranks) are thinner than the halo of "
                 f"w0 = {w0} planes; use fewer ranks")
-        self.plane = int(np.prod(self.shape[1:]))
+        self.plane = P = int(np.prod(self.shape[1:]))
         self.origin0 = lo - w0
         self.window_shape = (L0 + 2 * w0,) + self.shape[1:]
 
-        def geom(rows, origin0, out):
-            return BoxGeometry((rows,) + self.shape[1:], stoichiometry,
-                               num_constraints, form, origin0=origin0,
-                               g0=self.shape[0], out_rows=out)
+        def geom(out, gap=None, follows=None):
+            return BoxGeometry(self.window_shape, stoichiometry,
+                               num_constraints, form, origin0=lo - w0,
+                               g0=self.shape[0], out_rows=out, gap=gap,
+                               halo_rows=(w0, L0), follows=follows)
 
-        self.overlap = (os.environ.get("PACMENSL_HALO_OVERLAP", "1") != "0"
-                        and L0 >= 2 * w0)
+        #: whether a halo crosses ranks; without, no exchange and no
+        #: collective
+        self.halos = mesh.size > 1
+        self.overlap = (self.halos and L0 >= 2 * w0
+                        and os.environ.get("PACMENSL_HALO_OVERLAP", "1")
+                        != "0")
         if self.overlap:
-            self.geom_int = geom(L0, lo, (w0, L0 - w0))
-            self.geom_top = geom(3 * w0, lo - w0, (w0, 2 * w0))
-            self.geom_bot = geom(3 * w0, lo + L0 - 2 * w0, (w0, 2 * w0))
+            self.geom_int = geom((2 * w0, L0))
+            self.geom_edge = geom((w0, w0 + L0), gap=(2 * w0, L0),
+                                  follows=self.geom_int)
         else:
-            self.geom = geom(L0 + 2 * w0, lo - w0, (w0, w0 + L0))
+            self.geom = geom((w0, w0 + L0))
+        self._up = self._dn = None
+        if self.halos:
+            self._up = torch.zeros(w0 * P, dtype=torch.float64,
+                                   device=mesh.device)
+            self._dn = torch.zeros(w0 * P, dtype=torch.float64,
+                                   device=mesh.device)
 
-    def _run(self, geom, c, p, a, mask, viol, bounds, row0, out=None):
-        """The kernel on ``geom``, a window of the operator's data from
-        its row ``row0``."""
-        P = self.plane
-        cols = slice(row0 * P, row0 * P + geom.n)
+    def _run(self, geom, c, p, a, mask, viol, bounds, out=None, halos=None):
+        """The kernel on ``geom``, a window of the operator's data."""
         if mask is None:
-            return box_action_synth(c, p, a[:, cols], bounds, geom, out)
-        return box_action(c, p, mask[cols], a[:, cols], viol[:, cols],
-                          geom, out)
+            return box_action_synth(c, p, a, bounds, geom, out, halos)
+        return box_action(c, p, mask, a, viol, geom, out, halos)
 
     def __call__(self, c, p, a, mask: Optional[torch.Tensor],
                  viol: Optional[torch.Tensor], bounds
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         w0, L0, P = self.w0, self.L0, self.plane
-        ex = self.mesh.halo_start(p[:w0 * P], p[(L0 - w0) * P:])
+        if not self.halos:
+            return self._run(self.geom, c, p, a, mask, viol, bounds)
+        ex = self.mesh.halo_start(p[:w0 * P], p[(L0 - w0) * P:], self._up,
+                                  self._dn)
         if self.overlap:
             dp = torch.empty_like(p)
-            _, ks = self._run(self.geom_int, c, p, a, mask, viol, bounds,
-                              w0, dp[w0 * P:(L0 - w0) * P])
-            up, dn = ex.wait()
-            _, ks_top = self._run(self.geom_top, c,
-                                  torch.cat([up, p[:2 * w0 * P]]), a, mask,
-                                  viol, bounds, 0, dp[:w0 * P])
-            _, ks_bot = self._run(self.geom_bot, c,
-                                  torch.cat([p[(L0 - 2 * w0) * P:], dn]), a,
-                                  mask, viol, bounds, L0 - w0,
-                                  dp[(L0 - w0) * P:])
-            ks = ks + ks_top + ks_bot
+            self._run(self.geom_int, c, p, a, mask, viol, bounds,
+                      dp[w0 * P:(L0 - w0) * P])
+            halos = ex.wait()
+            _, ks = self._run(self.geom_edge, c, p, a, mask, viol, bounds,
+                              dp, halos)
         else:
-            up, dn = ex.wait()
-            dp, ks = self._run(self.geom, c, torch.cat([up, p, dn]), a,
-                               mask, viol, bounds, 0)
+            halos = ex.wait()
+            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds,
+                               halos=halos)
         if ks.numel():
             self.mesh.all_reduce(ks)
         return dp, ks

@@ -78,26 +78,31 @@ class StateMesh:
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts).to(t.device)
 
-    def halo_start(self, first: torch.Tensor, last: torch.Tensor
-                   ) -> "HaloExchange":
+    def halo_start(self, first: torch.Tensor, last: torch.Tensor,
+                   up: Optional[torch.Tensor] = None,
+                   dn: Optional[torch.Tensor] = None) -> "HaloExchange":
         """Start the exchange of boundary planes: ``first`` (this slab's
         first planes) goes to rank - 1 and ``last`` (its last planes) to
         rank + 1; :meth:`HaloExchange.wait` returns ``(up, dn)``, the last
-        planes of rank - 1 and the first planes of rank + 1, zeros at the
-        ends of the box."""
-        return HaloExchange(self, first, last)
+        planes of rank - 1 and the first planes of rank + 1, received into
+        the buffers ``up`` and ``dn`` where given (a halo at an end of the
+        box is left as the buffer holds it: zeros in a new one)."""
+        return HaloExchange(self, first, last, up, dn)
 
 
 class HaloExchange:
     """A halo exchange in flight (:meth:`StateMesh.halo_start`)."""
 
-    def __init__(self, mesh: StateMesh, first, last):
+    def __init__(self, mesh: StateMesh, first, last, up=None, dn=None):
         self.device = first.device
+        self.out = (up if up is not None else torch.zeros_like(last),
+                    dn if dn is not None else torch.zeros_like(first))
         staged = mesh._staged(first)
         if staged:
             first, last = first.cpu(), last.cpu()
-        self.up = torch.zeros_like(last)
-        self.dn = torch.zeros_like(first)
+            self.up, self.dn = self.out[0].cpu(), self.out[1].cpu()
+        else:
+            self.up, self.dn = self.out
         ops = []
         if mesh.rank > 0:
             peer = mesh._peer(mesh.rank - 1)
@@ -116,7 +121,10 @@ class HaloExchange:
         for q in self._reqs:
             q.wait()
         self._reqs, self._sent = [], None
-        return self.up.to(self.device), self.dn.to(self.device)
+        for buf, got in zip(self.out, (self.up, self.dn)):
+            if got is not buf:
+                buf.copy_(got)
+        return self.out
 
 
 def make_mesh(device="cuda", group=None) -> StateMesh:

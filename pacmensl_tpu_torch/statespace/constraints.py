@@ -49,6 +49,14 @@ class ConstraintForm(NamedTuple):
             out.append(self.gate[0])
         return tuple(out)
 
+    @property
+    def monotone(self) -> bool:
+        """Every weight and product coefficient is >= 0 and there is no
+        gate: on the box (coordinates >= 0) the score is nondecreasing
+        along every axis."""
+        return (self.gate is None and all(w >= 0 for _, w in self.weights)
+                and all(u >= 0 for u, _, _ in self.products))
+
 
 def coord(d: int) -> ConstraintForm:
     """f(x) = x_d."""

@@ -8,8 +8,10 @@ bitwise; its sinks are summed in another order, hence rtol 1e-12 /
 atol 1e-13.  Two launches of the kernel must agree bitwise, and on a box
 whose mask is constraint-only the synthesized-mask mode (K3) must give
 the mask-reading mode's (K1) ``dp`` and sinks bitwise.  The sharded mode
-(K4) on slabs of a box gives the whole box's ``dp`` bitwise.  A
-one-rank mesh on the card uses NCCL."""
+(K4) on slabs of a box gives the whole box's ``dp`` bitwise.  Every case
+runs on the operators' propensity tables (``tables``) and on their
+``[R, n]`` fields read as field rows.  A one-rank mesh on the card uses
+NCCL."""
 import math
 
 import numpy as np
@@ -23,6 +25,7 @@ from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
 from pacmensl_tpu_torch.ops import box_operator as bo  # noqa: E402
 from pacmensl_tpu_torch.parallel.halo_box import (  # noqa: E402
     halo_width, window_rows)
+from pacmensl_tpu_torch.parallel.mesh import StateMesh  # noqa: E402
 from pacmensl_tpu_torch.statespace.constraints import (  # noqa: E402
     coord, product)
 
@@ -125,22 +128,30 @@ CASES = [
     ("hog1p_3d", [3, 8, 8, 4, 12, 12, 12], 30.0),
     ("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], 60.0),
 ]
+#: K1 only: reachability prunes its mask, and reactions 4 and 6 keep field
+#: rows beside the tables
+MIXED = [("transcr_reg_6d", [10, 6, 2, 3, 2, 4], 600.0)]
+
+
+def _props(op, tables):
+    return op.props if tables else op.prop_fields
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,bounds,t", CASES)
-def test_cuda_kernel_matches_plain_version(name, bounds, t):
+@pytest.mark.parametrize("tables", [True, False])
+@pytest.mark.parametrize("name,bounds,t", CASES + MIXED)
+def test_cuda_kernel_matches_plain_version(name, bounds, t, tables):
     _needs_cuda()
     b, op = _operator(name, bounds, "cuda")
     mask, viol = _k1_data(op)
+    a = _props(op, tables)
     rng = np.random.default_rng(11)
     p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
     c = b.model.coefficients(t)
     n0 = bk.KERNEL.launches["mask"]
-    kp, ks = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
-    kp2, ks2 = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
-    rp, rs = bk.box_action_reference(c, p, mask, op.prop_fields, viol,
-                                     op.geom)
+    kp, ks = bk.box_action(c, p, mask, a, viol, op.geom)
+    kp2, ks2 = bk.box_action(c, p, mask, a, viol, op.geom)
+    rp, rs = bk.box_action_reference(c, p, mask, a, viol, op.geom)
     torch.cuda.synchronize()
     assert bk.KERNEL.launches["mask"] == n0 + 2
     assert torch.equal(kp, rp)
@@ -149,13 +160,15 @@ def test_cuda_kernel_matches_plain_version(name, bounds, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tables", [True, False])
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("name,bounds,t", CASES)
 def test_cuda_synth_kernel_matches_plain_version_and_k1(name, bounds, t,
-                                                        wide):
+                                                        wide, tables):
     """``wide`` forces the int64 form arithmetic where int32 would do."""
     _needs_cuda()
     b, op = _operator(name, bounds, "cuda")
+    a = _props(op, tables)
     assert op.synth_mask
     assert op.geom.narrow(op.data().bounds)
     if wide:
@@ -166,12 +179,10 @@ def test_cuda_synth_kernel_matches_plain_version_and_k1(name, bounds, t,
     p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
     c = b.model.coefficients(t)
     n0 = bk.KERNEL.launches["synth"]
-    kp, ks = bk.box_action_synth(c, p, op.prop_fields, bounds_now, op.geom)
-    kp2, ks2 = bk.box_action_synth(c, p, op.prop_fields, bounds_now,
-                                   op.geom)
-    rp, rs = bk.box_action_synth_reference(c, p, op.prop_fields, bounds_now,
-                                           op.geom)
-    k1p, k1s = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
+    kp, ks = bk.box_action_synth(c, p, a, bounds_now, op.geom)
+    kp2, ks2 = bk.box_action_synth(c, p, a, bounds_now, op.geom)
+    rp, rs = bk.box_action_synth_reference(c, p, a, bounds_now, op.geom)
+    k1p, k1s = bk.box_action(c, p, mask, a, viol, op.geom)
     torch.cuda.synchronize()
     assert bk.KERNEL.launches["synth"] == n0 + 2
     assert torch.equal(kp, rp)
@@ -203,10 +214,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
                             op.geom)
 
 
-def _slab_windows(op, p, mask, viol, slabs=4):
+def _slab_windows(op, p, mask, viol, slabs=4, tables=True):
     """The box of ``op`` cut into ``slabs`` axis-0 slabs, each with the
     halo planes of its neighbours as the exchange delivers them: (K4
-    geometry, p, mask, fields, violation bits) of each window."""
+    geometry, p, mask, propensities, violation bits) of each window."""
     shape, g0 = op.shape, op.shape[0]
     w0 = halo_width(op.model.stoichiometry)
     cuts = np.linspace(0, g0, slabs + 1).astype(int)
@@ -219,15 +230,17 @@ def _slab_windows(op, p, mask, viol, slabs=4):
         def win(t):
             return window_rows(t.reshape(shape), o, rows).reshape(-1)
         yield (geom, win(p), win(mask),
-               torch.stack([win(f) for f in op.prop_fields]),
+               (op.props.window(o, rows) if tables
+                else torch.stack([win(f) for f in op.prop_fields])),
                torch.stack([win(v) for v in viol]))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tables", [True, False])
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("name,bounds,t", CASES)
 def test_cuda_sharded_kernel_matches_plain_version_and_whole_box(
-        name, bounds, t, wide):
+        name, bounds, t, wide, tables):
     """K4 in both modes on 4 slabs: each slab's dp bitwise its plain
     version's, the assembled dp bitwise the whole box's K1 and K3, the
     summed sinks within TOL; ``wide`` forces the int64 forms."""
@@ -238,11 +251,12 @@ def test_cuda_sharded_kernel_matches_plain_version_and_whole_box(
     rng = np.random.default_rng(13)
     p = torch.as_tensor(rng.random(op.geom.n), device="cuda") * mask
     c = b.model.coefficients(t)
-    k1 = bk.box_action(c, p, mask, op.prop_fields, viol, op.geom)
-    k3 = bk.box_action_synth(c, p, op.prop_fields, bounds_now, op.geom)
+    k1 = bk.box_action(c, p, mask, op.props, viol, op.geom)
+    k3 = bk.box_action_synth(c, p, op.props, bounds_now, op.geom)
     got = {"mask": ([], 0), "synth": ([], 0)}
     n0 = dict(bk.KERNEL.launches)
-    for geom, wp, wm, wa, wv in _slab_windows(op, p, mask, viol):
+    for geom, wp, wm, wa, wv in _slab_windows(op, p, mask, viol,
+                                              tables=tables):
         if wide:
             geom.narrow = lambda bounds: False
         for mode, run, plain in (
@@ -269,6 +283,58 @@ def test_cuda_sharded_kernel_matches_plain_version_and_whole_box(
         assert torch.equal(dp, k1[0]) and torch.equal(dp, k3[0]), mode
         np.testing.assert_allclose(sk.cpu().numpy(), k1[1].cpu().numpy(),
                                    **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("synth", [True, False])
+def test_cuda_one_rank_sharded_matvec_is_one_launch(synth, monkeypatch):
+    """One rank: one K4 launch per matvec, no exchange, no collective, no
+    second launch for the sinks; dp and sinks bitwise the whole box's."""
+    _needs_cuda()
+    monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
+    b, one = _operator("repressilator", [31, 7, 7, 99, 21, 99], "cuda")
+    mesh = StateMesh(None, 0, 1, "cuda")
+    mesh.halo_start = mesh.all_reduce = None     # never called
+    sh = pt.BoxOperator(b.model, one.space, mesh=mesh)
+    rng = np.random.default_rng(2)
+    p = (torch.as_tensor(rng.random(one.geom.n), device="cuda")
+         * one.space.mask.reshape(-1))
+    y = pt.FspVector(p=p, sinks=torch.zeros(6, dtype=torch.float64,
+                                            device="cuda"))
+    want = one.action(0.0, y)
+    n0 = dict(bk.KERNEL.launches)
+    got = sh.action(0.0, y)
+    torch.cuda.synchronize()
+    key = "sharded_synth" if synth else "sharded_mask"
+    assert bk.KERNEL.launches[key] == n0[key] + 1
+    assert sum(bk.KERNEL.launches.values()) == sum(n0.values()) + 1
+    assert torch.equal(got.p, want.p) and torch.equal(got.sinks, want.sinks)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_at_the_bench_box():
+    """The fixed-bounds 128^3 repressilator box: K1 and K3 on the tables
+    bitwise their plain versions and each other."""
+    _needs_cuda()
+    rep = pt.models.repressilator()
+    shape = (128,) * 3
+    bnd = np.array([127] * 3)
+    cs = pt.ConstraintSet(None, bnd, None, 3)
+    geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3, cs.form)
+    props = bo.propensity_tables(rep.model, shape, "cuda")
+    assert props.num_field_rows == 0
+    mask, viol = bk.form_mask_and_bits(geom, bnd, "cuda")
+    p = torch.as_tensor(np.random.default_rng(3).random(geom.n),
+                        device="cuda")
+    c = rep.model.coefficients(0.0)
+    k1 = bk.box_action(c, p, mask, props, viol, geom)
+    k3 = bk.box_action_synth(c, p, props, bnd, geom)
+    r1 = bk.box_action_reference(c, p, mask, props, viol, geom)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], r1[0])
+    np.testing.assert_allclose(k1[1].cpu().numpy(), r1[1].cpu().numpy(),
+                               **TOL)
+    assert torch.equal(k3[0], k1[0]) and torch.equal(k3[1], k1[1])
 
 
 def test_sharded_window_rejected():

@@ -58,6 +58,7 @@ def _work_matvec(pt, mesh):
     """Sharded and single-device actions on seeded vectors, every mode
     and both the overlap split and the monolithic path."""
     import torch
+    from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
     from pacmensl_tpu_torch.parallel.mesh import gather_global
     from pacmensl_tpu_torch.sys.errors import SetupError
@@ -79,7 +80,10 @@ def _work_matvec(pt, mesh):
                 key = f"{name}_{int(synth)}_{overlap}"
                 lo, hi = sh.origin0 + sh.w0, sh.origin0 + sh.w0 + sh.L0
                 loc = p.reshape(space.shape)[lo:hi].reshape(-1)
+                n0 = sum(bk.KERNEL.plain_calls.values())
                 d = op.action(0.3, pt.FspVector(p=loc, sinks=y.sinks))
+                out[key + "_calls"] = np.array(
+                    sum(bk.KERNEL.plain_calls.values()) - n0)
                 out[key + "_dp"] = gather_global(d.p, mesh).numpy()
                 out[key + "_sinks"] = d.sinks.numpy()
                 out[key + "_dp1"] = one.p.numpy()
@@ -237,6 +241,20 @@ def test_sharded_matvec_matches_single_device(matvec_run):
                                           o[key + "_sinks"]), key
     # the repressilator's slabs are thick enough for the overlap split
     assert o["repressilator_1_1_mode"][1]
+
+
+def test_sharded_matvec_calls_per_matvec(matvec_run):
+    """With halos in flight a matvec is two calls of the box action (the
+    interior rows while the exchange runs, then both edge strips, which
+    sum the sinks of both), or one without the overlap split."""
+    world, outs, _ = matvec_run
+    for o in outs:
+        for name, _, _ in MATVEC_CASES:
+            for synth in (1, 0):
+                for overlap in ("1", "0"):
+                    key = f"{name}_{synth}_{overlap}"
+                    split = bool(o[key + "_mode"][1])
+                    assert int(o[key + "_calls"]) == (2 if split else 1), key
 
 
 def test_thin_or_ragged_slabs_raise(matvec_run):

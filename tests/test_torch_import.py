@@ -22,6 +22,7 @@ def test_port_imports_with_jax_absent():
         "import pacmensl_tpu_torch.ops.box_kernel\n"
         "import pacmensl_tpu_torch.ops.probes\n"
         "import pacmensl_tpu_torch.tools.bw_probe\n"
+        "import pacmensl_tpu_torch.tools.time_k1\n"
         "assert 'pacmensl_tpu' not in sys.modules\n"
         "b = pt.models.poisson()\n"
         "s = pt.FspSolverMultiSinks(odes_type='krylov', device='cpu')\n"

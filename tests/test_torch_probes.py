@@ -215,8 +215,16 @@ def test_stream_size_rule_and_box_bytes():
     big = 141 ** 3 * 40
     assert pr.stream_elems(big) == (big // 128 // 4096) * 4096 * 128
     n = 128 ** 3
-    assert pr.box_action_bytes(n, n, 6, False) == 89 * n
-    assert pr.box_action_bytes(n, n, 6, True) == 64 * n
+    assert pr.field_box_action_bytes(n, n, 6, False) == 89 * n
+    assert pr.field_box_action_bytes(n, n, 6, True) == 64 * n
+    tab = 6 * 128 * 8
+    assert pr.box_action_bytes(n, n, 6, False, table_bytes=tab) == \
+        41 * n + tab
+    assert pr.box_action_bytes(n, n, 6, True, table_bytes=tab) == \
+        16 * n + tab
+    # K3 at a box of which a tenth is valid, one reaction on a field row
+    assert pr.box_action_bytes(10 * n, 10 * n, 6, True, n_valid=n,
+                               field_rows=1) == 16 * n + 80 * n
 
 
 def test_measurements_refuse_the_cpu():

@@ -52,11 +52,13 @@ class _LocalMesh(StateMesh):
     def all_reduce(self, t, op="sum"):
         return t
 
-    def halo_start(self, first, last):
+    def halo_start(self, first, last, up=None, dn=None):
         w0 = first.numel() // int(np.prod(self.p_box.shape[1:]))
         L0 = self.p_box.shape[0] // RANKS
-        up = window_rows(self.p_box, self.rank * L0 - w0, w0).reshape(-1)
-        dn = window_rows(self.p_box, (self.rank + 1) * L0, w0).reshape(-1)
+        got = (window_rows(self.p_box, self.rank * L0 - w0, w0).reshape(-1),
+               window_rows(self.p_box, (self.rank + 1) * L0, w0).reshape(-1))
+        up, dn = [g if b is None else b.copy_(g)
+                  for g, b in zip(got, (up, dn))]
 
         class _Done:
             def wait(self):
@@ -166,8 +168,10 @@ def test_overlap_split_matches_monolithic(monkeypatch):
 
 
 def test_window_geometry():
-    """The window fields of the slabs and the strips: global origins,
-    output rows and the halo width of the reference."""
+    """The window fields of the slabs' two launches: the interior rows,
+    then both edge strips with the interior as their gap, over the rank's
+    window at global origin ``r L0 - w0``, with the halo width of the
+    reference."""
     _, _, _, tb, tsp = _spaces("repressilator",
                                np.array([31, 7, 7, 99, 21, 99]), custom=True)
     p_box = _seeded_p(tsp).reshape(tsp.shape)
@@ -177,11 +181,19 @@ def test_window_geometry():
         L0, w0 = sh.L0, sh.w0
         assert w0 == int(np.abs(tb.model.stoichiometry[:, 0]).max()) + 1
         assert sh.origin0 == r * L0 - w0
-        assert (sh.geom_int.origin0, sh.geom_int.out_lo,
-                sh.geom_int.out_hi) == (r * L0, w0, L0 - w0)
-        assert (sh.geom_top.origin0, sh.geom_bot.origin0) == (
-            r * L0 - w0, r * L0 + L0 - 2 * w0)
+        gi, ge = sh.geom_int, sh.geom_edge
+        assert (gi.origin0, gi.out_lo, gi.out_hi) == (r * L0 - w0, 2 * w0,
+                                                      L0)
+        assert (ge.origin0, ge.out_lo, ge.out_hi, ge.gap) == (
+            r * L0 - w0, w0, w0 + L0, (2 * w0, L0))
+        assert gi.halo_rows == ge.halo_rows == (w0, L0)
+        assert gi.leads and ge.follows is gi
+        assert ge.part_total == gi.nslots + ge.nslots
+        assert ge.ticket_total == gi.nblocks + ge.nblocks
+        assert ge.reads_halo == (r > 0, r < RANKS - 1)
+        assert not any(gi.reads_halo)
         assert op.prop_fields.shape[1] == (L0 + 2 * w0) * sh.plane
+        assert op.props.shape == sh.window_shape
         assert sh.comm_values_per_matvec() == 2 * w0 * sh.plane * (RANKS - 1)
 
 
