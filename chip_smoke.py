@@ -92,10 +92,33 @@ Phases (each check that fails ends the run with a nonzero exit):
    against the measured stream beside the data sheet's, and K8 in float64
    at the 128^3 box with its strides, the p reads of K1 and K3 without
    their propensity work, L2-resident and after a read that evicts L2.
+9. Forward sensitivities (``SensFspSolverMultiSinks``):
+
+   a. The batched launch K9 (the box kernel on nb vectors at once, the
+      counterpart of the reference package's ``vmap`` over the
+      sensitivities) in both modes at the 128^3 box with nb = 2 and 4,
+      and on hog1p_5d_sens's final operator with the solve's own
+      sensitivities: dp bitwise its plain version's and nb single
+      launches', sinks bitwise the single launches' and within 1e-12 of
+      the plain version's (relative to each vector's largest), two
+      launches bitwise equal.  Timed with CUDA events beside nb single K3
+      launches, the plain version and one ``torch.sparse.mm`` of the
+      generator as CSR with the ``[n, nb]`` block.
+   b. hog1p_5d_sens with its custom constraints, t = 180, fsp_tol =
+      1e-4, ``"auto"`` -> BDF, every operator on K3 and on tables:
+      phase 5's output checks, one K9 and three K3 launches per action,
+      finite ``dp``, L1 of p to phase 5's distribution <= 2 * fsp_tol,
+      and the FIM finite, symmetric to 1e-12 relative, its eigenvalues
+      >= -1e-10 times the largest.
+   c. The reference package's oracle (tests/test_sensfsp.py:225-277):
+      hog1p_5d_sens to t = 3 at fsp_tol 1e-6 and ODE tolerances (1e-9,
+      1e-14), dP/d(trans) against a central difference of two hog1p_5d
+      solves at trans = 0.01 +/- 0.001: relative L1 below 5e-2.
 
 The ``kernels`` record counts each kernel's launches in the paths' own
-solves only: K1 and K3 in phases 4, 5 and 6, K4 in phases 7b and 7c (over
-all ranks), K5-K8 in phase 8's two entry points.  ``bound_ms`` is the
+solves only: K1 and K3 in phases 4, 5, 6 and 9b, K4 in phases 7b and 7c
+(over all ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b.
+``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
 bound: the float operations over its 34 TFLOP/s in float64 and 67 in
 float32 are far less).
@@ -150,6 +173,13 @@ PROBE_SHAPES = {"reference": (6, 4096, 160, 128, 141),
                         128, BENCH_EDGE)}
 #: seconds a phase-7 rank may take before the script stops every rank
 RANK_TIMEOUT = 300
+#: phase 9a: the batches the batched launch K9 is checked and timed at
+BATCHES = (2, 4)
+#: phase 9c: the reference package's finite-difference oracle
+#: (tests/test_sensfsp.py:225-277): t, fsp_tol, BDF's rtol and atol, the
+#: step in trans, and the limit on the relative L1 of dP/d(trans)
+FD_T_FINAL, FD_TOL, FD_RTOL, FD_ATOL = 3.0, 1.0e-6, 1.0e-9, 1.0e-14
+FD_EPS, FD_LIMIT = 1.0e-3, 5.0e-2
 
 
 def fail(msg):
@@ -284,12 +314,13 @@ def ptxas_lines(log):
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z17box_action_kernelILi"
-                      r"(\d+)ELb(\d)E(\w)Lb(\d)E", line)
+                      r"(\d+)ELb(\d)E(\w)Lb(\d)ELb(\d)E", line)
         if m:
             name = (f"NCM={m.group(1)} "
                     f"{'synth' if m.group(2) == '1' else 'mask'} "
                     f"F={'int32' if m.group(3) == 'i' else 'int64'} "
-                    f"{'grouped' if m.group(4) == '1' else 'one'} rows")
+                    f"{'grouped' if m.group(4) == '1' else 'one'} rows"
+                    f"{', batched' if m.group(5) == '1' else ''}")
             continue
         if name and "spill" in line:
             spill = line.strip()
@@ -635,6 +666,290 @@ def probe_phase(dev, smi, roofs):
     return entries
 
 
+def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
+    """Phase 9c: hog1p_5d_sens's dP/d(trans) at ``t_final`` against a
+    central difference of two plain hog1p_5d solves at trans = 0.01 +/-
+    ``eps`` (the reference package's own oracle,
+    tests/test_sensfsp.py:225-277, on the box backend).  Returns (relative
+    L1 of the difference, states, sensitivity wall)."""
+    import torch
+    import pacmensl_tpu_torch as pt
+
+    def setup(s, bundle):
+        s.set_model(bundle.model)
+        s.set_constraint_functions(bundle.constraint)
+        s.set_initial_bounds(bundle.bounds)
+        s.set_expansion_factors(bundle.expansion_factors)
+        s.set_initial_distribution(bundle.x0, bundle.p0)
+        s.set_ode_tolerances(rtol, atol)
+        return s
+
+    hs = pt.models.hog1p_5d_sens()
+    t0 = time.perf_counter()
+    sd = setup(pt.SensFspSolverMultiSinks(odes_type="auto", device=dev),
+               hs).solve(t_final, tol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def plain(trans):
+        base = pt.models.hog1p_5d()
+        prop0 = base.model.propensity
+
+        def prop(x, r):
+            if r in (5, 6):
+                xf = x if x.is_floating_point() else x.to(torch.float64)
+                return trans * xf[:, 1 if r == 5 else 2]
+            return prop0(x, r)
+        base.model = pt.Model(base.model.stoichiometry, prop,
+                              base.model.t_coeff, tv_reactions=(2,))
+        return setup(pt.FspSolverMultiSinks(odes_type="auto", device=dev),
+                     base).solve(t_final, tol)
+
+    dp, dm = plain(0.01 + eps), plain(0.01 - eps)
+    keyd = {tuple(x): float(v) for x, v in zip(dp.states, dp.p)}
+    keym = {tuple(x): float(v) for x, v in zip(dm.states, dm.p)}
+    num = den = 0.0
+    for x, g in zip(sd.states, sd.dp[0]):
+        k = tuple(x)
+        fd = (keyd.get(k, 0.0) - keym.get(k, 0.0)) / (2 * eps)
+        num += abs(g - fd)
+        den += abs(fd)
+    return num / max(den, 1e-300), sd.num_states, wall
+
+
+def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
+               max_err):
+    """Phase 9: forward sensitivities.  (a) The batched launch K9 in both
+    modes against its plain version and against nb single launches, at
+    the 128^3 box with nb in BATCHES and on hog1p_5d_sens's final
+    operator; timed beside nb single K3 launches, the plain version and
+    one torch.sparse.mm of the generator as CSR with the [n, nb] block.
+    (b) hog1p_5d_sens, t = 180, fsp_tol = 1e-4, "auto" -> BDF, K3: the
+    output checks of the other solves, the launches of each matvec, L1 of
+    p to phase 5's distribution, and the FIM.  (c) The reference
+    package's finite-difference oracle.  Returns the solve's launches and
+    K9's record at 128^3 and nb = 2."""
+    import numpy as np
+    import torch
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import box_operator as bo
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.ops.sens_operator import SensOperator
+
+    def check_batched(label, c, P, a, geom, bounds=None, mask=None,
+                      viol=None):
+        """K9 (launched twice; K3 where ``bounds`` are given, else K1)
+        against its plain version and against nb single launches: dp
+        bitwise both, sinks bitwise the single launches' and within 1e-12
+        of each vector's largest plain sink."""
+        nb, synth = P.shape[0], bounds is not None
+        if synth:
+            def run():
+                return bk.box_action_synth_batched(c, P, a, bounds, geom)
+            plain = bk.box_action_synth_batched_reference(c, P, a, bounds,
+                                                          geom)
+            one = [bk.box_action_synth(c, P[i], a, bounds, geom)
+                   for i in range(nb)]
+        else:
+            def run():
+                return bk.box_action_batched(c, P, mask, a, viol, geom)
+            plain = bk.box_action_batched_reference(c, P, mask, a, viol,
+                                                    geom)
+            one = [bk.box_action(c, P[i], mask, a, viol, geom)
+                   for i in range(nb)]
+        mode = "K3" if synth else "K1"
+        kp, ks = same_twice(f"{label} K9 ({mode})", run)
+        rp, rs = plain
+        err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
+        check(torch.equal(kp, rp), f"{label} K9 ({mode}): dp is not bitwise "
+                                   f"the plain version's (max abs {err:.3e})")
+        scale = rs.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+        rel = float(((ks - rs).abs() / scale).max())
+        check(rel <= 1e-12, f"{label} K9 ({mode}): sinks {rel:.3e} from the "
+                            "plain version's, relative")
+        check(torch.equal(kp, torch.stack([o[0] for o in one]))
+              and torch.equal(ks, torch.stack([o[1] for o in one])),
+              f"{label} K9 ({mode}): not bitwise {nb} single launches")
+        max_err["batched"] = max(max_err["batched"], err)
+        print(f"[9a] K9 ({mode}) {label}: nb={nb}, shape={geom.shape}; dp "
+              f"bitwise the plain version's and {nb} single launches', "
+              f"sinks bitwise the single launches' and within {rel:.3e} of "
+              f"the plain version's (relative), max_abs_err {err:.3e}",
+              flush=True)
+
+    def timed(label, runs, order, reps):
+        t = {k: [] for k in runs}
+        for k in order:
+            t[k].append(time_ms(runs[k], reps=reps.get(k, 100)))
+        print(f"[9a] {label} (us; order {' '.join(order)}): " + ", ".join(
+            f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+            for k, vs in t.items()) + f"; {smi}", flush=True)
+        return {k: float(np.mean(v)) for k, v in t.items()}
+
+    # (a) the 128^3 repressilator box of phase 2
+    rep = pt.models.repressilator()
+    shape = (BENCH_EDGE,) * 3
+    n = int(np.prod(shape))
+    stoich = rep.model.stoichiometry
+    R = stoich.shape[0]
+    bb = np.array([BENCH_EDGE - 1] * 3)
+    cs = pt.ConstraintSet(None, bb, None, 3)
+    geom = bk.BoxGeometry(shape, stoich, 3, cs.form)
+    a = bo.propensity_tables(rep.model, shape, dev)
+    viol = bo.violation_bits(cs, stoich, shape, dev)
+    mask = torch.ones(n, dtype=torch.uint8, device=dev)
+    c = rep.model.coefficients(0.0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    k9 = None
+    for nb in BATCHES:
+        P = torch.rand((nb, n), generator=gen, device=dev,
+                       dtype=torch.float64)
+        label = f"{BENCH_EDGE}^3 repressilator box"
+        check_batched(label, c, P, a, geom, bounds=bb)
+        check_batched(label, c, P, a, geom, mask=mask, viol=viol)
+        A = generator_csr(c, mask, a.dense(), viol, shape, stoich, 3)
+        Pt = P.T.contiguous()
+        y = torch.sparse.mm(A, Pt)
+        kp, ks = bk.box_action_synth_batched(c, P, a, bb, geom)
+        lerr = max(float((y[:n].T - kp).abs().max()),
+                   float((y[n:].T - ks).abs().max()))
+        check(lerr <= 1e-9 * float(kp.abs().max()),
+              f"128^3 nb={nb}: the CSR generator differs from K9 by "
+              f"{lerr:.3e}")
+        runs = {
+            "plain": lambda: bk.box_action_synth_batched_reference(
+                c, P, a, bb, geom),
+            "single": lambda: [bk.box_action_synth(c, P[i], a, bb, geom)
+                               for i in range(nb)],
+            "K9": lambda: bk.box_action_synth_batched(c, P, a, bb, geom),
+            "K9_K1": lambda: bk.box_action_batched(c, P, mask, a, viol,
+                                                   geom),
+            "library": lambda: torch.sparse.mm(A, Pt)}
+        ms = timed(f"{label} nb={nb} per call: K9 (K3), {nb} single K3 "
+                   f"launches, K9 (K1), plain, torch.sparse.mm of the CSR "
+                   f"generator ({A.values().numel()} nonzeros) with the "
+                   f"[n, {nb}] block", runs,
+                   ["plain", "single", "K9", "K9_K1", "library", "library",
+                    "K9_K1", "K9", "single", "plain"], {"plain": 10})
+        tb = a.table_bytes()
+        nbytes = nb * pr.box_action_bytes(n, n, R, True) + tb
+        bnd = bound(nbytes, nb * 2 * (2 * R + 1) * n)
+        print(f"[9a] {label} nb={nb}: K9 {ms['K9'] * 1e3:.1f} us against "
+              f"{nb} single K3 launches {ms['single'] * 1e3:.1f} us; one "
+              f"batched launch no slower: {ms['K9'] <= ms['single']}; bound "
+              f"{bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: {nb} x K3's "
+              f"bytes, the tables once), {bnd[0] / ms['K9']:.3f} of it",
+              flush=True)
+        if k9 is None:
+            k9 = {"ms": ms["K9"], "plain_ms": ms["plain"], "bound": bnd,
+                  "library_ms": ms["library"]}
+        del A, Pt, y, P, kp, ks, runs
+        torch.cuda.empty_cache()
+    del a, viol, mask, geom
+    torch.cuda.empty_cache()
+
+    # (b) hog1p_5d_sens, the path
+    hs = pt.models.hog1p_5d_sens()
+    s = pt.SensFspSolverMultiSinks(odes_type="auto", device=dev)
+    s.set_model(hs.model)
+    s.set_constraint_functions(hs.constraint)
+    s.set_initial_bounds(hs.bounds)
+    s.set_expansion_factors(hs.expansion_factors)
+    s.set_initial_distribution(hs.x0, hs.p0)
+    actions = [0]
+    action = SensOperator.action
+
+    def counted(self, t, y):
+        actions[0] += 1
+        return action(self, t, y)
+    SensOperator.action = counted
+    try:
+        d9, launch9, wall9 = run_solve(
+            9, f"hog1p_5d_sens t={HOG_T_FINAL:g} tol={HOG_TOL:g}", s,
+            HOG_T_FINAL, HOG_TOL, mass_tol)
+    finally:
+        SensOperator.action = action
+    check(isinstance(s._ode_solver, pt.BdfSolver),
+          "hog1p_5d_sens did not run the BDF integrator")
+    sop = s._operator
+    subs = [o for o in sop.cxdA if o is not None]
+    per = 1 + len(subs)
+    for i, op in enumerate(sop.sub_ops()):
+        check(op.synth_mask, f"hog1p_5d_sens operator {i}: not on K3")
+        tables(9, f"hog1p_5d_sens final operator {i} (reactions "
+                  f"{op.enable_reactions})", op)
+    rhs = s.get_event_log().events["RHSEvaluation"].count
+    print(f"[9b] {actions[0]} sensitivity actions, {rhs} RHS evaluations "
+          f"(GMRES's residual matvecs are not counted as RHS evaluations); "
+          f"per action {launch9['batched_synth'] / actions[0]:.3f} batched "
+          f"launch and {launch9['synth'] / actions[0]:.3f} K3 launches "
+          f"(expected 1 and {per}); per RHS evaluation "
+          f"{sum(launch9.values()) / rhs:.3f} launches", flush=True)
+    check(launch9["batched_synth"] == actions[0]
+          and launch9["synth"] == per * actions[0]
+          and launch9["mask"] + launch9["batched_mask"] == 0,
+          f"hog1p_5d_sens: {launch9} for {actions[0]} actions")
+    check(d9.dp.shape == (2, d9.num_states) and np.isfinite(d9.dp).all(),
+          "hog1p_5d_sens: dp not finite or of the wrong shape")
+    l1 = l1_by_state(d9, d5)
+    print(f"[9b] L1 of p to phase 5's distribution {l1:.3e} (limit "
+          f"{2 * HOG_TOL:g}); {d9.num_states} states against "
+          f"{d5.num_states}; wall {wall9:.2f} s; sum(dp) "
+          f"{d9.dp.sum(axis=1).tolist()}", flush=True)
+    check(l1 <= 2 * HOG_TOL, f"hog1p_5d_sens: L1 to phase 5 {l1:.3e}")
+    fim = d9.compute_fim()
+    fmax = float(np.abs(fim).max())
+    asym = float(np.abs(fim - fim.T).max()) / max(fmax, 1e-300)
+    eig = np.linalg.eigvalsh(0.5 * (fim + fim.T))
+    print(f"[9b] FIM {fim.tolist()}, relative asymmetry {asym:.3e}, "
+          f"eigenvalues {eig.tolist()}", flush=True)
+    check(np.isfinite(fim).all(), "hog1p_5d_sens: non-finite FIM")
+    check(asym <= 1e-12, f"hog1p_5d_sens: FIM asymmetry {asym:.3e}")
+    check(eig.min() >= -1e-10 * eig.max(),
+          f"hog1p_5d_sens: FIM eigenvalues {eig.tolist()}")
+
+    # (a) on the final operator and the solve's own sensitivities
+    op = sop.base
+    nf = op.geom.n
+    P = s._y.p.view(3, nf)[1:].clone()
+    del s, sop, subs
+    torch.cuda.empty_cache()
+    c = op.coefficients(HOG_T_FINAL)
+    hb = op.data().bounds
+    label = f"hog1p_5d_sens final {op.shape}"
+    check_batched(label, c, P, op.props, op.geom, bounds=hb)
+    fviol = bo.violation_bits(op.space.constraints, op.stoichiometry,
+                              op.shape, dev)
+    check_batched(label, c, P, op.props, op.geom, mask=op.space.mask_bytes(),
+                  viol=fviol)
+    del fviol
+    runs = {"plain": lambda: bk.box_action_synth_batched_reference(
+                c, P, op.props, hb, op.geom),
+            "single": lambda: [bk.box_action_synth(c, P[i], op.props, hb,
+                                                   op.geom)
+                               for i in range(2)],
+            "K9": lambda: bk.box_action_synth_batched(c, P, op.props, hb,
+                                                      op.geom)}
+    timed(f"{label} nb=2 per call: K9 (K3), 2 single K3 launches, plain",
+          runs, ["plain", "single", "K9", "K9", "single", "plain"],
+          {"plain": 3, "single": 20, "K9": 20})
+    del P, op, runs
+    torch.cuda.empty_cache()
+
+    # (c) the reference package's oracle
+    rel, nst, wall = fd_trans_oracle(dev, FD_T_FINAL, FD_TOL, FD_RTOL,
+                                     FD_ATOL, FD_EPS)
+    print(f"[9c] hog1p_5d_sens t={FD_T_FINAL:g} tol={FD_TOL:g} (ODE "
+          f"{FD_RTOL:g}, {FD_ATOL:g}): {nst} states, {wall:.2f} s; "
+          f"dP/d(trans) against the central difference of two hog1p_5d "
+          f"solves at trans = 0.01 +/- {FD_EPS:g}: relative L1 {rel:.3e} "
+          f"(limit {FD_LIMIT:g})", flush=True)
+    check(rel < FD_LIMIT, f"hog1p_5d_sens finite-difference oracle: "
+                          f"relative L1 {rel:.3e}")
+    return launch9, k9
+
+
 def main():
     import numpy as np
     import torch
@@ -673,7 +988,7 @@ def main():
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
-    max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0}
+    max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0, "batched": 0.0}
     TOL = dict(rtol=1e-12, atol=1e-13)
 
     def same_twice(label, run):
@@ -1425,7 +1740,11 @@ def main():
         "K1": (ms["K1"], roof_bytes["K1"]), "K3": (ms["K3"], roof_bytes["K3"]),
         "K4": (ms4["K4_synth"], roof_bytes["K4"])})
 
-    paths = (launch4, launch5, launch6)
+    # ---------------------------------------------------------- phase 9
+    launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_solve, tables,
+                             same_twice, max_err)
+
+    paths = (launch4, launch5, launch6, launch9)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",
@@ -1450,7 +1769,15 @@ def main():
          "max_abs_err": max_err["sharded"],
          "ms": ms4["K4_synth"], "plain_ms": ms4["plain_K4_synth"],
          "bound_ms": bounds_ms["K4"][0], "bound_by": bounds_ms["K4"][1],
-         "library_ms": lib4_ms}] + probe_entries}), flush=True)
+         "library_ms": lib4_ms},
+        {"name": "box_action_batched", "route": "cuda",
+         "source": "pacmensl_tpu_torch/csrc/box_action.cu",
+         "replaces": "pacmensl_tpu/ops/sens_operator.py:151",
+         "launches": launch9["batched_synth"] + launch9["batched_mask"],
+         "max_abs_err": max_err["batched"],
+         "ms": k9["ms"], "plain_ms": k9["plain_ms"],
+         "bound_ms": k9["bound"][0], "bound_by": k9["bound"][1],
+         "library_ms": k9["library_ms"]}] + probe_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,17 @@ ones (``odes_type="auto"`` picks)::
     s.set_initial_distribution(h.x0, h.p0)
     dist = s.solve(t_final=180.0, fsp_tol=1e-4)
 
+Forward sensitivities (a ``SensModel``; BDF by default), the Fisher
+information and the smFISH likelihood gradient::
+
+    hs = pt.models.hog1p_5d_sens()      # parameters (trans, gamma1)
+    s = pt.SensFspSolverMultiSinks(device="cuda")
+    ...                                 # as above, with hs
+    sd = s.solve(t_final=180.0, fsp_tol=1e-4)   # sd.p, sd.dp [2, n]
+    fim = sd.compute_fim()
+    data = pt.SmFishSnapshot(observed_counts)   # [cells, species]
+    grad = pt.smfish_gradient(data, sd, measured_species=[1, 2])
+
 Pass ``device="cpu"`` to run on the host, where the box kernel's plain
 PyTorch version takes the kernel's place.
 
@@ -49,7 +60,7 @@ from .sys import errors  # noqa: F401
 from .sys.errors import (  # noqa: F401
     PacmenslError, SetupError, StateSpaceError, IntegratorError)
 from .sys.events import EventLog, StepTrace  # noqa: F401
-from .models.model import Model  # noqa: F401
+from .models.model import Model, SensModel  # noqa: F401
 from .models import library as models  # noqa: F401
 from .statespace.constraints import ConstraintSet  # noqa: F401
 from .statespace.box_space import BoxStateSpace  # noqa: F401
@@ -60,6 +71,11 @@ from .solvers.krylov import KrylovSolver  # noqa: F401
 from .solvers.bdf import BdfSolver  # noqa: F401
 from .fsp.distribution import DiscreteDistribution  # noqa: F401
 from .fsp.solver import FspSolverMultiSinks  # noqa: F401
+from .sensfsp.sens_distribution import SensDiscreteDistribution  # noqa: F401
+from .sensfsp.sens_solver import SensFspSolverMultiSinks  # noqa: F401
+from .smfish.snapshot import (  # noqa: F401
+    SmFishSnapshot, smfish_loglikelihood, smfish_gradient)
+from .pdo.pdo import Pdo  # noqa: F401
 from .sys import environment  # noqa: F401
 from .sys.environment import Environment  # noqa: F401
 from .parallel.mesh import StateMesh, make_mesh  # noqa: F401

@@ -41,7 +41,19 @@
 //     (up_rows rows), the rank's slab (mid_rows rows) and the halo below,
 //     so no concatenated window is built.  Sinks come only from the rows
 //     the kernel writes, so a sum over the ranks counts each transition
-//     once.  K1 and K3 are the window that is the whole box.
+//     once.  K1 and K3 are the window that is the whole box;
+//   * batched (K9, the jax.vmap of the box action over the sensitivity
+//     vectors, pacmensl_tpu/ops/sens_operator.py:150-153, which batches
+//     the Pallas call with a leading grid axis): K1 or K3 on nb vectors
+//     in one launch with one set of coefficients, tables and mask or
+//     bounds.  blockIdx.y is the vector: each vector gets the grid a
+//     single launch would get, its own dp rows and its own slot array,
+//     and the ticket counts the blocks of every vector, so the last block
+//     sums each vector's slots in the single launch's order.  dp and the
+//     sinks are bitwise nb single launches'.  The batch index is a grid
+//     axis and not folded into the grid-stride loop so that a vector's
+//     units, slots and reduction order stay those of a single launch, and
+//     so that the tables are staged once per block as before.
 //
 // For every C-order box index x:
 //
@@ -90,6 +102,11 @@
 //     launches (K4's interior rows, then its two edge strips) add their
 //     slots to one array and the last block of the last launch sums them
 //     all, so a matvec reduces its sinks once.
+//   * K9's compulsory bytes are nb times a single launch's less the
+//     tables, which count once (each block stages them once; K1's mask
+//     and violation words are read per vector).  One launch saves nb - 1
+//     launches' fixed host and device cost and fills the card with nb
+//     times the blocks.
 //
 // The slots make the sinks independent of the grid, so they are bitwise
 // the same in both modes, from run to run and from card to card.  The kernel selects rather
@@ -194,9 +211,16 @@ struct BoxParams {
     int part_total;                    // partial rows the last block sums
     int ticket_total;                  // blocks of the launches chained
     int group;                         // rows a warp takes at a time (G)
+    // Batched mode (K9): vectors of one launch (blockIdx.y), and the
+    // elements between consecutive vectors of p and of dp
+    int nb;
+    long long p_bstride;
+    long long dp_bstride;
 };
 
-// Device pointers of one launch (mirrored in ops/box_kernel.py).
+// Device pointers of one launch (mirrored in ops/box_kernel.py).  In the
+// batched mode p, dp, part and sinks hold nb vectors: vector b's at
+// b * p_bstride, b * dp_bstride, b * part_total * nc and b * nc.
 struct BoxPtrs {
     const double* p_up;
     const double* p;
@@ -270,8 +294,11 @@ __device__ __forceinline__ void violated_on_row(const BoxForm& f,
 
 // NCM: a compile-time bound on the constraint count; SYNTH: the mode; F:
 // the type the synthesized-mask mode evaluates the forms in; GRP: units of
-// prm.group short rows (else of one row).
-template <int NCM, bool SYNTH, typename F, bool GRP>
+// prm.group short rows (else of one row); BAT: the batched launch (K9),
+// an instantiation of its own so that a single launch computes no batch
+// offsets (they cost K1 and K3 about 3% at the repressilator's final
+// capacity on an H100 80GB HBM3 at 700 W, PERF.md).
+template <int NCM, bool SYNTH, typename F, bool GRP, bool BAT>
 __global__ void __launch_bounds__(BOX_THREADS, BOX_MIN_BLOCKS)
 box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
 {
@@ -304,6 +331,8 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int R = prm.R, S = prm.S, nc = prm.nc, last = S - 1;
+    // the vector of the batch this block works on (0 outside K9)
+    const long long bat = BAT ? (long long)blockIdx.y : 0;
 
     const double* tab = ptr.tab;
     if (prm.tab_smem) {
@@ -404,9 +433,11 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                 crd[0] = (int)(wr + prm.origin0);
             }
             const long long row_idx = wr * prm.plane + (long long)pr * E;
-            const double* p_row = ptr.p + (wr - prm.up_rows) * prm.plane
+            const double* p_row = ptr.p + bat * prm.p_bstride
+                                  + (wr - prm.up_rows) * prm.plane
                                   + (long long)pr * E;
-            double* dp_row = ptr.dp + (wr - prm.out_lo) * prm.plane
+            double* dp_row = ptr.dp + bat * prm.dp_bstride
+                             + (wr - prm.out_lo) * prm.plane
                              + (long long)pr * E;
             __syncwarp();   // the previous unit's shared values are read
             if (xl0 == 0 && sub < G) {
@@ -480,7 +511,8 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                 const double* base =
                     srow < prm.up_rows ? ptr.p_up + srow * prm.plane
                     : srow < prm.up_rows + prm.mid_rows
-                        ? ptr.p + (srow - prm.up_rows) * prm.plane
+                        ? ptr.p + bat * prm.p_bstride
+                          + (srow - prm.up_rows) * prm.plane
                         : ptr.p_dn + (srow - prm.up_rows - prm.mid_rows)
                           * prm.plane;
                 w_src[warp][g][r] =
@@ -637,7 +669,8 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                 for (int o = 16; o > 0; o >>= 1)
                     v += __shfl_down_sync(0xffffffffu, v, o);
                 if (lane == 0)
-                    ptr.part[(long long)(prm.part_base + s) * nc + c] = v;
+                    ptr.part[(bat * prm.part_total + prm.part_base + s) * nc
+                             + c] = v;
             }
         }
     }
@@ -651,20 +684,24 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     __syncthreads();
     if (!s_last) return;
     // The last block: sinks[c] = sum_b part[b, c] over every partial row
-    // of the chain, in a fixed order (strided per thread, then a tree).
+    // of the chain, in a fixed order (strided per thread, then a tree);
+    // in the batched mode for each vector in turn, each in that order.
     __threadfence();
-    for (int c = 0; c < nc; ++c) {
-        double sm = 0.0;
-        for (int b = threadIdx.x; b < prm.part_total; b += BOX_THREADS)
-            sm += __ldcg(ptr.part + (long long)b * nc + c);
-        red[threadIdx.x] = sm;
-        __syncthreads();
-        for (int w = BOX_THREADS / 2; w > 0; w >>= 1) {
-            if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    for (int v = 0; v < (BAT ? prm.nb : 1); ++v) {
+        const double* part = ptr.part + (long long)v * prm.part_total * nc;
+        for (int c = 0; c < nc; ++c) {
+            double sm = 0.0;
+            for (int b = threadIdx.x; b < prm.part_total; b += BOX_THREADS)
+                sm += __ldcg(part + (long long)b * nc + c);
+            red[threadIdx.x] = sm;
+            __syncthreads();
+            for (int w = BOX_THREADS / 2; w > 0; w >>= 1) {
+                if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+                __syncthreads();
+            }
+            if (threadIdx.x == 0) ptr.sinks[v * nc + c] = red[0];
             __syncthreads();
         }
-        if (threadIdx.x == 0) ptr.sinks[c] = red[0];
-        __syncthreads();
     }
     if (threadIdx.x == 0) *ptr.ticket = 0u;
 }
@@ -705,7 +742,13 @@ static bool window_ok(const BoxParams* prm, int nblocks)
         && prm->group >= 1 && prm->group <= BOX_GROUP
         && (prm->group == 1 || prm->group * E <= 32)
         && prm->ntab >= 0 && nblocks >= 1 && prm->part_base >= 0
-        && nblocks <= prm->ticket_total;
+        && prm->nb >= 1 && prm->nb <= 65535
+        && (prm->nb == 1 || (prm->part_base == 0 && prm->up_rows == 0
+                             && prm->mid_rows == prm->shape[0]
+                             && prm->p_bstride >= prm->mid_rows * prm->plane
+                             && prm->dp_bstride >= (prm->out_hi - prm->out_lo)
+                                                   * prm->plane))
+        && (long long)nblocks * prm->nb <= prm->ticket_total;
     for (int r = 0; ok && r < prm->R; ++r) {
         const int ax = prm->tab_axis[r];
         ok = ax == BOX_FIELD_ROW || ax == BOX_CONST_AXIS
@@ -714,11 +757,11 @@ static bool window_ok(const BoxParams* prm, int nblocks)
     return ok;
 }
 
-template <int NCM, bool SYNTH, typename F, bool GRP>
+template <int NCM, bool SYNTH, typename F, bool GRP, bool BAT>
 static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
                                  int nblocks, cudaStream_t st)
 {
-    auto kern = box_action_kernel<NCM, SYNTH, F, GRP>;
+    auto kern = box_action_kernel<NCM, SYNTH, F, GRP, BAT>;
     // Dynamic shared memory beyond 48 KB must be asked for, once per
     // kernel: all that the card lets a block have beside the static part.
     static int max_dyn = -1;
@@ -743,9 +786,19 @@ static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
         + (SYNTH ? (size_t)BOX_WARPS * prm->group * prm->ntask
                      * sizeof(int2) : 0);
     if (dyn > (size_t)max_dyn) return cudaErrorInvalidValue;
-    box_action_kernel<NCM, SYNTH, F, GRP><<<nblocks, BOX_THREADS, dyn, st>>>(
-        *prm, *ptr);
+    box_action_kernel<NCM, SYNTH, F, GRP, BAT>
+        <<<dim3(nblocks, BAT ? prm->nb : 1), BOX_THREADS, dyn, st>>>(*prm,
+                                                                   *ptr);
     return cudaGetLastError();
+}
+
+template <int NCM, bool SYNTH, typename F, bool GRP>
+static cudaError_t launch_rows(const BoxParams* prm, const BoxPtrs* ptr,
+                               int nblocks, cudaStream_t st)
+{
+    return prm->nb > 1
+        ? launch_kernel<NCM, SYNTH, F, GRP, true>(prm, ptr, nblocks, st)
+        : launch_kernel<NCM, SYNTH, F, GRP, false>(prm, ptr, nblocks, st);
 }
 
 template <int NCM, bool SYNTH, typename F>
@@ -753,8 +806,8 @@ static cudaError_t launch(const BoxParams* prm, const BoxPtrs* ptr,
                           int nblocks, cudaStream_t st)
 {
     return prm->group > 1
-        ? launch_kernel<NCM, SYNTH, F, true>(prm, ptr, nblocks, st)
-        : launch_kernel<NCM, SYNTH, F, false>(prm, ptr, nblocks, st);
+        ? launch_rows<NCM, SYNTH, F, true>(prm, ptr, nblocks, st)
+        : launch_rows<NCM, SYNTH, F, false>(prm, ptr, nblocks, st);
 }
 
 // Launches the box kernel on ``stream`` of CUDA device ``device``: the

@@ -368,8 +368,10 @@ class FspSolverMultiSinks:
                 # budget pro-rated by t/t_final.  ``forgiven`` subtracts
                 # the excess already lost when the epoch started: growing
                 # the space cannot reclaim it, so re-tripping on it would
-                # stop every resumed epoch on its first step.
-                sinks = y.sinks.cpu().numpy()            # host sync
+                # stop every resumed epoch on its first step.  p's sinks
+                # lead y's (the closure holds no reference to the driver,
+                # so a dropped solver is freed at once)
+                sinks = y.sinks[:n_sinks].cpu().numpy()      # host sync
                 excess = sinks * n_sinks - fsp_tol * (t / t_final)
                 if forgiven is not None:
                     excess = excess - forgiven
@@ -383,11 +385,11 @@ class FspSolverMultiSinks:
                                 m_min=self.krylov_dim_range[0],
                                 m_max=self.krylov_dim_range[1],
                                 rhs_cost=self._operator.local_mv_flops(),
-                                stop_check=stop_check)
+                                stop_check=stop_check, n_sinks=n_sinks)
         if odes == ODESolverType.CVODE:
             return BdfSolver(self._operator.action,
                              rtol=self.ode_rtol, atol=self.ode_atol,
-                             stop_check=stop_check)
+                             stop_check=stop_check, n_sinks=n_sinks)
         raise SetupError(
             f"ODE solver {odes.value!r} is not ported yet (RK/CN: ROADMAP "
             "A8)")
@@ -412,7 +414,6 @@ class FspSolverMultiSinks:
                 "budget or fill floor; the reference package migrates to "
                 "the compressed (ELL) backend there, which is not ported "
                 "yet (ROADMAP A9)")
-        sinks_old = self._y.sinks
         n_before = self._space.num_states
         with self.events.timed(EVT_PARTITION):
             old_shape = self._space.shape
@@ -428,12 +429,24 @@ class FspSolverMultiSinks:
         with self.events.timed(EVT_SCATTER):
             if capacity_grew:
                 # within capacity the newly valid states already hold
-                # zeros; a sharded p is gathered, embedded and re-sliced
-                self._y = self._place(FspVector(
-                    p=self._space.embed_old(self._global_p(), old_shape),
-                    sinks=sinks_old))
+                # zeros
+                self._y = self._embed_old(old_shape)
         if self.verbosity:
             print(f"[fsp] new state count: {self.num_states}")
+
+    def _embed_old(self, old_shape) -> FspVector:
+        """The solution zero-padded from the box of ``old_shape`` into
+        the grown one; a sharded p is gathered, embedded and re-sliced."""
+        return self._place(FspVector(
+            p=self._space.embed_old(self._global_p(), old_shape),
+            sinks=self._y.sinks))
+
+    def _base_sinks(self, y: FspVector) -> torch.Tensor:
+        """The sinks of the probability part of ``y``, the ones the
+        stop-check and the expansion read: its leading ``n_c`` sinks (all
+        of them in a transient solve; a sensitivity solve's stacked
+        vector holds the sensitivities' after them)."""
+        return y.sinks[:self.constraints.num_constraints]
 
     def _escalate_if_stuck(self, n_before: int, to_expand) -> None:
         """If growing the flagged bounds added no states, grow all bounds
@@ -485,7 +498,7 @@ class FspSolverMultiSinks:
                     n_sinks = self.constraints.num_constraints
                     sinks_now = (np.asarray(self.sinks_, np.float64)
                                  if self.sinks_ is not None else
-                                 self._y.sinks.cpu().numpy())
+                                 self._base_sinks(self._y).cpu().numpy())
                     excess_now = (sinks_now * n_sinks -
                                   fsp_tol * (self._t_now / t_final))
                     eps = float(torch.finfo(self.dtype).eps)
@@ -508,7 +521,7 @@ class FspSolverMultiSinks:
                 self._y = res.y
                 self._t_now = float(res.t)
                 with self.events.timed("HostFetch"):
-                    self.sinks_ = res.y.sinks.cpu().numpy()
+                    self.sinks_ = self._base_sinks(res.y).cpu().numpy()
                 self.step_trace.record_epoch(
                     res.stats.n_steps,
                     res.trace.arrays() if res.trace is not None else None,

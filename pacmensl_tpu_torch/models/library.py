@@ -12,9 +12,9 @@ factors and initial conditions:
   (``src/Models/transcription_regulation_6d_model.h``)
 
 plus the analytic-oracle models of the reference test-suite (Poisson
-pure-birth, birth-death, telegraph).  The sensitivity bundles are not
-ported yet; ``telegraph`` is the plain model of the reference's telegraph
-fixture.
+pure-birth, birth-death, telegraph) and the sensitivity bundles
+(:class:`~.model.SensModel`): ``poisson_sens``, ``telegraph`` (a
+SensModel in its four rates), ``hog1p_3d_sens`` and ``hog1p_5d_sens``.
 
 Propensities are batched torch functions over ``states[n, S]``; the
 arithmetic follows the reference package operation by operation, so the
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..statespace.constraints import coord, gated, linear, product
-from .model import Model
+from .model import Model, SensModel
 
 
 def _f(x):
@@ -426,10 +426,39 @@ def birth_death(birth: float = 1.0, death: float = 0.1) -> BundledModel:
     )
 
 
+def poisson_sens(rate: float = 2.0) -> BundledModel:
+    """Poisson model as a SensModel in one parameter (the rate), with the
+    rate carried by the time coefficient (tests/test_sensfsp_solver.cpp)."""
+    stoich = np.array([[1]])
+
+    def prop(x, r):
+        return torch.full_like(_f(x)[:, 0], 1.0)
+
+    def t_coeff(t):
+        return torch.tensor([rate], dtype=torch.float64)
+
+    def d_t_coeff(j, t):
+        return torch.tensor([1.0], dtype=torch.float64)
+
+    m = SensModel(stoich, prop, t_coeff, tv_reactions=(0,),
+                  num_parameters=1,
+                  d_t_coeff=d_t_coeff, dtcoef_sparsity=((0,),),
+                  d_propensity=None, dprop_sparsity=())
+    return BundledModel(
+        model=m, constraint=None,
+        bounds=np.array([5]), expansion_factors=np.array([0.1]),
+        x0=np.array([[0]]), p0=np.array([1.0]),
+        name="poisson_sens",
+    )
+
+
 def telegraph(k01: float = 1.0e-2, k10: float = 1.0e-1,
               kr: float = 10.0, gamma: float = 1.0) -> BundledModel:
-    """Telegraph (bursting gene) model: gene off/on + mRNA.
-    Species: (g_off, g_on, rna)."""
+    """Telegraph (bursting gene) model: gene off/on + mRNA
+    (tests/test_sensfsp_solver.cpp telegraph fixture).
+
+    Species: (g_off, g_on, rna).  As a SensModel in (k01, k10, kr, gamma).
+    """
     stoich = np.array([
         [-1, 1, 0], [1, -1, 0], [0, 0, 1], [0, 0, -1],
     ])
@@ -446,12 +475,89 @@ def telegraph(k01: float = 1.0e-2, k10: float = 1.0e-1,
             return gamma * xf[:, 2]
         raise ValueError(r)
 
+    def d_prop(x, j, r):
+        xf = _f(x)
+        if j == 0 and r == 0:
+            return xf[:, 0]
+        if j == 1 and r == 1:
+            return xf[:, 1]
+        if j == 2 and r == 2:
+            return xf[:, 1]
+        if j == 3 and r == 3:
+            return xf[:, 2]
+        return torch.zeros_like(xf[:, 0])
+
+    m = SensModel(stoich, prop,
+                  num_parameters=4,
+                  d_propensity=d_prop,
+                  dprop_sparsity=((0,), (1,), (2,), (3,)),
+                  d_t_coeff=None, dtcoef_sparsity=())
     return BundledModel(
-        model=Model(stoich, prop), constraint=None,
+        model=m, constraint=None,
         bounds=np.array([2, 2, 1]),
         expansion_factors=np.array([0.25, 0.25, 0.25]),
         x0=np.array([[1, 0, 0]]), p0=np.array([1.0]),
         name="telegraph",
+    )
+
+
+def hog1p_3d_sens() -> BundledModel:
+    """hog1p_3d as a SensModel in (trans, gamma): the translation rate
+    (reaction 4) and the mRNA degradation rate (reactions 5 and 6)."""
+    base = hog1p_3d()
+
+    def d_prop(x, j, r):
+        xf = _f(x)
+        if j == 0 and r == 4:          # d/d trans [trans * x1]
+            return xf[:, 1]
+        if j == 1 and r == 5:          # d/d gamma [gamma * x1]
+            return xf[:, 1]
+        if j == 1 and r == 6:          # d/d gamma [gamma * x2]
+            return xf[:, 2]
+        return torch.zeros_like(xf[:, 0])
+
+    m = SensModel(base.model.stoichiometry, base.model.propensity,
+                  base.model.t_coeff, tv_reactions=(2,),
+                  num_parameters=2,
+                  d_propensity=d_prop,
+                  dprop_sparsity=((4,), (5, 6)),
+                  d_t_coeff=None, dtcoef_sparsity=())
+    return BundledModel(
+        model=m, constraint=base.constraint,
+        bounds=base.bounds, expansion_factors=base.expansion_factors,
+        x0=base.x0, p0=base.p0, name="hog1p_3d_sens",
+    )
+
+
+def hog1p_5d_sens() -> BundledModel:
+    """hog1p_5d as a SensModel in (trans, gamma1): the translation rate
+    (reactions 5 and 6) and the first mRNA degradation rate (reaction 7);
+    BASELINE.json config 4, forward-sensitivity FSP on hog1p, at the
+    transient config's protocol (examples/hog1p.cpp:150-158: t = 180,
+    fsp_tol 1e-4).  Every derivative propensity varies along one axis
+    (x1, x2, x3), so the box kernel reads each from a table."""
+    base = hog1p_5d()
+
+    def d_prop(x, j, r):
+        xf = _f(x)
+        if j == 0 and r == 5:          # d/d trans [trans * x1]
+            return xf[:, 1]
+        if j == 0 and r == 6:          # d/d trans [trans * x2]
+            return xf[:, 2]
+        if j == 1 and r == 7:          # d/d gamma1 [gamma1 * x3]
+            return xf[:, 3]
+        return torch.zeros_like(xf[:, 0])
+
+    m = SensModel(base.model.stoichiometry, base.model.propensity,
+                  base.model.t_coeff, tv_reactions=(2,),
+                  num_parameters=2,
+                  d_propensity=d_prop,
+                  dprop_sparsity=((5, 6), (7,)),
+                  d_t_coeff=None, dtcoef_sparsity=())
+    return BundledModel(
+        model=m, constraint=base.constraint,
+        bounds=base.bounds, expansion_factors=base.expansion_factors,
+        x0=base.x0, p0=base.p0, name="hog1p_5d_sens",
     )
 
 
@@ -464,4 +570,6 @@ ALL_MODELS = {
     "poisson": poisson,
     "birth_death": birth_death,
     "telegraph": telegraph,
+    "hog1p_3d_sens": hog1p_3d_sens,
+    "hog1p_5d_sens": hog1p_5d_sens,
 }

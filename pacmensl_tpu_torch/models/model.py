@@ -1,7 +1,8 @@
 """Reaction-network model descriptions.
 
-Counterpart of ``pacmensl_tpu/models/model.py`` (reference ``Model``,
-``src/Models/Model.h:63-99``).
+Counterpart of ``pacmensl_tpu/models/model.py`` (reference ``Model`` and
+``SensModel``, ``src/Models/Model.h:63-99``,
+``src/Models/SensModel.h:58-97``).
 
 Propensities factorize as ``a_r(t, x) = c_r(t) * d_r(x)`` where the time
 coefficient ``c_r(t)`` applies only to reactions listed in
@@ -76,3 +77,49 @@ class Model:
         cols = [torch.as_tensor(self.propensity(states, r)).to(dtype)
                 .reshape(-1) for r in range(self.num_reactions)]
         return torch.stack(cols, dim=1)
+
+
+@dataclass
+class SensModel(Model):
+    """Model with parameter sensitivities (reference ``SensModel``,
+    SensModel.h:58-97).
+
+    The derivative of the generator w.r.t. parameter j splits as
+    ``d_j A = (d_j c)·A_r  +  c·(d_j A_r)``, captured by:
+
+    * ``d_t_coeff(j, t) -> [n_reactions]`` derivatives of the time
+      coefficients, restricted to ``dtcoef_sparsity[j]``;
+    * ``d_propensity(states, j, r) -> rates[n]`` derivatives of the state
+      factors, restricted to ``dprop_sparsity[j]``.
+
+    Sparsity lists name the reactions with a structurally nonzero
+    derivative for each parameter (reference ``dprop_x_sp_`` /
+    ``dprop_t_sp_``).
+    """
+
+    num_parameters: int = 0
+    d_t_coeff: Optional[Callable] = None        # (j, t) -> [n_reactions]
+    dtcoef_sparsity: Sequence[Sequence[int]] = ()
+    d_propensity: Optional[Callable] = None     # (states, j, r) -> [n]
+    dprop_sparsity: Sequence[Sequence[int]] = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.num_parameters <= 0:
+            raise ModelError("SensModel requires num_parameters > 0")
+        self.dtcoef_sparsity = tuple(tuple(int(r) for r in s)
+                                     for s in self.dtcoef_sparsity)
+        self.dprop_sparsity = tuple(tuple(int(r) for r in s)
+                                    for s in self.dprop_sparsity)
+        if self.d_t_coeff is not None and \
+                len(self.dtcoef_sparsity) != self.num_parameters:
+            raise ModelError("dtcoef_sparsity must have one entry per "
+                             "parameter")
+        if self.d_propensity is not None and \
+                len(self.dprop_sparsity) != self.num_parameters:
+            raise ModelError("dprop_sparsity must have one entry per "
+                             "parameter")
+
+    def base_model(self) -> Model:
+        return Model(self.stoichiometry, self.propensity, self.t_coeff,
+                     self.tv_reactions, self.species_names)

@@ -17,6 +17,11 @@ reference package and ``chip_smoke.py`` compares the kernel with):
   epoch's bounds (K3, ``synth_mask=True``); plain version
   :func:`box_action_synth_reference`.
 
+:func:`box_action_batched` and :func:`box_action_synth_batched` launch
+either mode on ``nb`` vectors at once (K9, the counterpart of the
+reference package's ``vmap`` of the action over the sensitivity vectors);
+their plain versions run the single plain versions over the leading axis.
+
 Either mode runs on a window of a box split into axis-0 slabs (K4, the
 TPU kernel's sharded mode) when its :class:`BoxGeometry` is built with the
 window's global origin, the global axis-0 extent and the rows it owns.
@@ -48,9 +53,10 @@ MAX_FORM_NC, MAX_PROD = 16, 2
 #: box elements: the kernel decodes indices in 32-bit arithmetic
 MAX_ELEMS = 2 ** 31 - 1
 _I32 = 2 ** 31
-#: the kernel's modes, keys of the launch counters: K1, K3, and K4 in
-#: either of them
-MODES = ("mask", "synth", "sharded_mask", "sharded_synth")
+#: the kernel's modes, keys of the launch counters: K1, K3, K4 in either
+#: of them, and the batched launch K9 in either of them
+MODES = ("mask", "synth", "sharded_mask", "sharded_synth", "batched_mask",
+         "batched_synth")
 #: threads of a block, and its warps (one unit of rows of the last axis
 #: each)
 THREADS, WARPS = 256, 8
@@ -115,7 +121,10 @@ class _BoxParams(ctypes.Structure):
                 ("part_base", ctypes.c_int),
                 ("part_total", ctypes.c_int),
                 ("ticket_total", ctypes.c_int),
-                ("group", ctypes.c_int)]
+                ("group", ctypes.c_int),
+                ("nb", ctypes.c_int),
+                ("p_bstride", ctypes.c_longlong),
+                ("dp_bstride", ctypes.c_longlong)]
 
 
 class _BoxPtrs(ctypes.Structure):
@@ -454,6 +463,7 @@ class BoxGeometry:
         self._narrow = {}
         self._scratch = {}
         self._pending = None
+        self._nb = 1
         self._synth_plain = None
         self._form_range: Optional[int] = None
         self.masks = (synth_masks(self.form, self.stoich)
@@ -614,6 +624,8 @@ class BoxGeometry:
         prm.part_base, prm.part_total = self.part_base, self.part_total
         prm.ticket_total = self.ticket_total
         prm.group = self.group
+        prm.nb, prm.p_bstride, prm.dp_bstride = 1, self.p_n, self.n_out
+        self._nb = 1
         if self.masks is not None:
             for k, f in enumerate(self.form):
                 pf = prm.form[k]
@@ -630,17 +642,30 @@ class BoxGeometry:
                             for m in ms)
         return prm
 
-    def scratch(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The sink partials and the ticket of this geometry's launches
-        (shared with the geometry it follows) on ``device``."""
+    def scratch(self, device, nb: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sink partials (room for ``nb`` vectors' in a batched
+        launch) and the ticket of this geometry's launches (shared with
+        the geometry it follows) on ``device``."""
         head = self.follows if self.follows is not None else self
         got = head._scratch.get(device)
-        if got is None:
+        need = max(nb * self.part_total * self.nc, 1)
+        if got is None or got[0].numel() < need:
+            # launches on one stream run in order, so a larger array may
+            # replace the one an earlier launch still reads
             got = head._scratch[device] = (
-                torch.empty(max(self.part_total * self.nc, 1),
-                            dtype=torch.float64, device=device),
-                torch.zeros(1, dtype=torch.int32, device=device))
+                torch.empty(need, dtype=torch.float64, device=device),
+                got[1] if got is not None
+                else torch.zeros(1, dtype=torch.int32, device=device))
         return got
+
+    def batch(self, prm: _BoxParams, nb: int) -> None:
+        """Set ``prm`` for a launch over ``nb`` vectors (1: a single
+        launch); the ticket then counts the blocks of every vector."""
+        if nb != self._nb:
+            prm.nb = nb
+            prm.ticket_total = self.ticket_total * nb
+            self._nb = nb
 
 
 class BoxActionKernel(CudaLibrary):
@@ -686,12 +711,26 @@ class BoxActionKernel(CudaLibrary):
                viol=None, bounds=None, out=None, halos=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One launch of ``mode`` ("mask": K1/K2, "synth": K3; K4 on a
-        window).  Returns ``(dp, sinks)``; sinks is None where ``geom``
-        leads a chain (the following launch returns both launches')."""
+        window; K9 where ``p`` is ``[nb, n]``).  Returns ``(dp, sinks)``
+        (``[nb, n]`` and ``[nb, n_c]`` for K9); sinks is None where
+        ``geom`` leads a chain (the following launch returns both
+        launches')."""
         lib = self.lib if self.lib is not None else self.load()
         dev = p.device
         R, n = geom.num_reactions, geom.n
-        _check(p, (geom.p_n,), torch.float64, dev, "p")
+        batched = p.dim() == 2
+        nb = p.shape[0] if batched else 1
+        if batched:
+            if geom.sharded or geom.follows is not None or geom.leads \
+                    or halos is not None:
+                raise ValueError("the batched launch takes a whole box, "
+                                 "not a window or a chain")
+            if not 1 <= nb <= 65535:
+                raise ValueError(f"a batch of {nb} vectors; the batched "
+                                 "launch takes 1 to 65535")
+            _check(p, (nb, geom.p_n), torch.float64, dev, "p")
+        else:
+            _check(p, (geom.p_n,), torch.float64, dev, "p")
         props = as_props(a, geom)
         if props is not geom._props_obj:
             props._check_for(geom, dev)
@@ -707,8 +746,17 @@ class BoxActionKernel(CudaLibrary):
             _check(viol, (R, n), torch.int32, dev, "viol", rows=True)
             prm = geom.params(c, None, props)
             prm.vstride = viol.stride(0) if R > 1 else n
+        geom.batch(prm, nb)
         nsk = 0 if geom.leads else geom.nc
-        if out is None:
+        if batched:
+            if out is None:
+                dp = torch.empty((nb, geom.n_out), dtype=torch.float64,
+                                 device=dev)
+            else:
+                _check(out, (nb, geom.n_out), torch.float64, dev, "out")
+                dp = out
+            sinks = torch.empty((nb, nsk), dtype=torch.float64, device=dev)
+        elif out is None:
             # dp and the sinks in one allocation
             buf = torch.empty(geom.n_out + nsk, dtype=torch.float64,
                               device=dev)
@@ -719,7 +767,7 @@ class BoxActionKernel(CudaLibrary):
             sinks = torch.empty(nsk, dtype=torch.float64, device=dev)
         if geom.leads:
             sinks = None
-        part, ticket = geom.scratch(dev)
+        part, ticket = geom.scratch(dev, nb)
         up, dn = halos if halos is not None else (None, None)
         q = geom._ptrs
         q.p_up = _halo_ptr(up, geom.halo_n()[0], geom.reads_halo[0], dev,
@@ -740,9 +788,11 @@ class BoxActionKernel(CudaLibrary):
             int(synth and geom._narrow_of(bounds)), dev.index,
             torch._C._cuda_getCurrentRawStream(dev.index))
         if rc != 0:
-            raise KernelError(f"box_action launch ({mode}) failed: "
+            raise KernelError(f"box_action launch ({mode}"
+                              f"{', batched' if batched else ''}) failed: "
                               f"cudaError {rc}")
-        self.launches[geom.mode_key(mode)] += 1
+        self.launches["batched_" + mode if batched
+                      else geom.mode_key(mode)] += 1
         return dp, sinks
 
 
@@ -899,15 +949,21 @@ def box_action_synth_reference(c, p, a, bounds, geom: BoxGeometry,
     the violation bits from the form's torch evaluator, then the same
     masked stencil and sink sums."""
     _count_plain(geom, "synth", p)
-    # the synthesized data of the last bounds, kept on the geometry: a
-    # solve calls this many times per epoch with the same bounds
-    key = (np.asarray(bounds, dtype=np.int64).tobytes(), p.device)
+    mask, viol = _synth_data(geom, bounds, p.device)
+    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+
+
+def _synth_data(geom: BoxGeometry, bounds, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`form_mask_and_bits` of the last bounds, kept on the
+    geometry: a solve calls the plain versions many times per epoch with
+    the same bounds."""
+    key = (np.asarray(bounds, dtype=np.int64).tobytes(), device)
     if geom._synth_plain is None or geom._synth_plain[0] != key:
         geom._synth_plain = None
         geom._synth_plain = (key,) + form_mask_and_bits(geom, bounds,
-                                                         p.device)
-    _, mask, viol = geom._synth_plain
-    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+                                                         device)
+    return geom._synth_plain[1:]
 
 
 def box_action(c, p, mask, a, viol, geom: BoxGeometry, out=None, halos=None
@@ -944,4 +1000,71 @@ def box_action_synth(c, p, a, bounds, geom: BoxGeometry, out=None,
                              halos=halos)
     if p.device.type == "cpu":
         return box_action_synth_reference(c, p, a, bounds, geom, out, halos)
+    raise ValueError(f"unsupported device {p.device}")
+
+
+def _batched_plain(mode: str, p, out, one) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """A plain version over the leading axis of ``p [nb, n]``: ``one(row,
+    out_row)`` for each vector, stacked."""
+    if p.dim() != 2:
+        raise ValueError(f"p has shape {tuple(p.shape)}, expected [nb, n]")
+    KERNEL.plain_calls["batched_" + mode] += 1
+    if p.is_cuda:
+        KERNEL.plain_cuda_calls["batched_" + mode] += 1
+    dps, sks = [], []
+    for b in range(p.shape[0]):
+        dp, sk = one(p[b], None if out is None else out[b])
+        dps.append(dp)
+        sks.append(sk)
+    return (out if out is not None else torch.stack(dps)), torch.stack(sks)
+
+
+def box_action_batched_reference(c, p, mask, a, viol, geom: BoxGeometry,
+                                 out=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the batched mask-reading launch: the
+    mask-reading plain version over the leading axis of ``p``."""
+    return _batched_plain("mask", p, out, lambda pb, ob: _masked_stencil(
+        c, pb, mask, a, viol, geom, ob))
+
+
+def box_action_synth_batched_reference(c, p, a, bounds, geom: BoxGeometry,
+                                       out=None
+                                       ) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Plain PyTorch version of the batched synthesized-mask launch: the
+    synthesized-mask plain version over the leading axis of ``p``."""
+    mask, viol = _synth_data(geom, bounds, p.device)
+    return _batched_plain("synth", p, out, lambda pb, ob: _masked_stencil(
+        c, pb, mask, a, viol, geom, ob))
+
+
+def box_action_batched(c, p, mask, a, viol, geom: BoxGeometry, out=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`box_action` on each of the ``nb`` vectors ``p [nb, n]`` in
+    one launch (K9; the reference package ``vmap``s the action over the
+    sensitivity vectors): ``dp [nb, n]`` (written into ``out`` where
+    given) and ``sinks [nb, n_c]``, bitwise ``nb`` single launches'.  The
+    geometry is a whole box.  CUDA tensors launch the kernel; CPU tensors
+    run :func:`box_action_batched_reference`."""
+    if p.device.type == "cuda":
+        return KERNEL.launch("mask", c, p, a, geom, mask=mask, viol=viol,
+                             out=out)
+    if p.device.type == "cpu":
+        return box_action_batched_reference(c, p, mask, a, viol, geom, out)
+    raise ValueError(f"unsupported device {p.device}")
+
+
+def box_action_synth_batched(c, p, a, bounds, geom: BoxGeometry, out=None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`box_action_synth` on each of the ``nb`` vectors ``p [nb,
+    n]`` in one launch (K9), as :func:`box_action_batched`.  CUDA tensors
+    launch the kernel; CPU tensors run
+    :func:`box_action_synth_batched_reference`."""
+    if p.device.type == "cuda":
+        return KERNEL.launch("synth", c, p, a, geom, bounds=bounds, out=out)
+    if p.device.type == "cpu":
+        return box_action_synth_batched_reference(c, p, a, bounds, geom,
+                                                  out)
     raise ValueError(f"unsupported device {p.device}")

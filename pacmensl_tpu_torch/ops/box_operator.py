@@ -58,7 +58,8 @@ from ..statespace.constraints import ConstraintSet
 from ..sys.errors import StateSpaceError
 from ..parallel.halo_box import ShardedBoxAction, window_rows
 from .box_kernel import (CONST_AXIS, FIELD_ROW, BoxGeometry, MAX_NC,
-                         PropTables, box_action, box_action_synth,
+                         PropTables, box_action, box_action_batched,
+                         box_action_synth, box_action_synth_batched,
                          form_fits_kernel, pack_bits)
 from .stencil import coord_grid
 from .vecops import FspVector
@@ -101,9 +102,11 @@ def propensity_fields(model: Model, shape, device, dtype=torch.float64,
 
 
 def propensity_tables(model: Model, shape, device, dtype=torch.float64,
-                      origin0: int = 0, g0=None) -> PropTables:
+                      origin0: int = 0, g0=None,
+                      reactions=None) -> PropTables:
     """The propensities over the box (a window of a box of ``g0`` rows,
-    at global coordinates) as the kernel reads them.  For each reaction,
+    at global coordinates) as the kernel reads them, entry k for reaction
+    ``reactions[k]`` (all reactions by default).  For each reaction,
     1-D slices of ``model.propensity`` through the origin (axis 0 over the
     global rows) find the axes it varies along.  Where that is one axis d
     (or none: a constant, one entry), the slice along d is its table,
@@ -112,12 +115,14 @@ def propensity_tables(model: Model, shape, device, dtype=torch.float64,
     mismatch) the reaction keeps a field row ``[n]``, 0 on window rows
     outside the box."""
     shape = tuple(int(s) for s in shape)
-    S, R = len(shape), model.num_reactions
+    S = len(shape)
+    rs = list(range(model.num_reactions) if reactions is None
+              else reactions)
     G0 = shape[0] if g0 is None else int(g0)
     ext = (G0,) + shape[1:]
     span = _in_box(shape, origin0, g0)
     axis, tables = [], []
-    for r in range(R):
+    for r in rs:
         lines = []
         for d in range(S):
             x = torch.zeros((ext[d], S), dtype=dtype, device=device)
@@ -143,7 +148,7 @@ def propensity_tables(model: Model, shape, device, dtype=torch.float64,
         axis.append(ax)
         tables.append(tab)
     fields = None
-    rows = [r for r in range(R) if axis[r] == FIELD_ROW]
+    rows = [r for k, r in enumerate(rs) if axis[k] == FIELD_ROW]
     if rows:
         fields = propensity_fields(model, shape, device, dtype, origin0, g0,
                                    reactions=rows)
@@ -182,10 +187,22 @@ class BoxOpData(NamedTuple):
 
 
 class BoxOperator:
-    """Truncated CME generator on a :class:`BoxStateSpace`."""
+    """Truncated CME generator on a :class:`BoxStateSpace`.
+
+    ``enable_reactions`` restricts it to a subset of the model's reactions
+    (reference ``enable_reactions``, ``box_operator.py:95-108``): the
+    stoichiometry rows, the propensities, the violation bits, the kernel's
+    form check and its time coefficients cover those reactions only, and
+    the sinks receive only their flow.  The sensitivity operators
+    (:mod:`.sens_operator`) build their derivative operators so."""
 
     def __init__(self, model: Model, space: BoxStateSpace,
-                 dtype=torch.float64, mesh=None):
+                 dtype=torch.float64, mesh=None, enable_reactions=None,
+                 synth_mask=None):
+        """``synth_mask``: the kernel mode, where the caller chooses it
+        for this operator (another operator's on the same space; True
+        takes effect only where the constraints have a form the kernel
+        takes); None chooses it here."""
         if dtype != torch.float64:
             raise TypeError("the box operator computes in float64")
         self.model = model
@@ -194,12 +211,24 @@ class BoxOperator:
         self.device = space.device
         self.shape = tuple(space.shape)
         self._n = int(np.prod(self.shape))
+        self.enable_reactions = tuple(
+            int(r) for r in (range(model.num_reactions)
+                             if enable_reactions is None
+                             else enable_reactions))
+        #: rows of the model's coefficient vector this operator applies
+        #: (None: all of them, in order)
+        self._rows = (None if self.enable_reactions
+                      == tuple(range(model.num_reactions))
+                      else list(self.enable_reactions))
+        #: the stoichiometry of the enabled reactions [R_sub, S]
+        self.stoichiometry = np.atleast_2d(
+            model.stoichiometry[list(self.enable_reactions)])
         if space.num_constraints > MAX_NC:
             raise ValueError(f"at most {MAX_NC} constraints are supported")
         form = space.constraints.form
-        if not form_fits_kernel(form, model.stoichiometry):
+        if not form_fits_kernel(form, self.stoichiometry):
             form = None
-        self.geom = BoxGeometry(self.shape, model.stoichiometry,
+        self.geom = BoxGeometry(self.shape, self.stoichiometry,
                                 space.num_constraints, form)
         #: the sharded action over ``mesh``'s ranks, or None
         self.sharded = None
@@ -210,7 +239,7 @@ class BoxOperator:
                 raise ValueError(f"the mesh's device {mesh.device} is not "
                                  f"the space's {self.device}")
             self.sharded = ShardedBoxAction(
-                self.shape, model.stoichiometry, space.num_constraints,
+                self.shape, self.stoichiometry, space.num_constraints,
                 form, mesh)
             sh = self.sharded
             self._window = (sh.window_shape, sh.origin0, self.shape[0])
@@ -218,12 +247,16 @@ class BoxOperator:
         #: the propensities over the window, as the kernel reads them
         self.props = propensity_tables(
             model, self._window[0], self.device, dtype,
-            origin0=self._window[1], g0=self._window[2])
+            origin0=self._window[1], g0=self._window[2],
+            reactions=self.enable_reactions)
         self._prop_fields = None
         #: the kernel mode: True = synthesized mask, False = mask-reading
-        self.synth_mask = self._synth_applies()
+        self.synth_mask = (self._synth_applies() if synth_mask is None
+                           else bool(synth_mask)
+                           and self.geom.masks is not None)
         self._data = None
-        self.refresh_data()
+        # the mode was chosen just now: no second check of the form
+        self.refresh_data(synth_mask=self.synth_mask)
 
     @property
     def prop_fields(self) -> torch.Tensor:
@@ -234,7 +267,7 @@ class BoxOperator:
             shape, origin0, g0 = self._window
             self._prop_fields = propensity_fields(
                 self.model, shape, self.device, self.dtype, origin0=origin0,
-                g0=g0)
+                g0=g0, reactions=self.enable_reactions)
         return self._prop_fields
 
     def _synth_applies(self) -> bool:
@@ -255,12 +288,17 @@ class BoxOperator:
         return True
 
     # ------------------------------------------------------------- data
-    def refresh_data(self) -> BoxOpData:
+    def refresh_data(self, synth_mask=None) -> BoxOpData:
         """Snapshot the space's current bounds, and in the mask-reading
         mode its mask and violation bits.  Call after every
-        ``space.set_bounds`` within capacity (the driver does)."""
+        ``space.set_bounds`` within capacity (the driver does).
+        ``synth_mask=False`` leaves the synthesized-mask mode where the
+        caller has found that it no longer applies (None: checked
+        here)."""
         bounds = np.asarray(self.space.constraints.bounds).copy()
-        if self.synth_mask and not self._synth_applies():
+        if synth_mask is not None:
+            self.synth_mask = self.synth_mask and bool(synth_mask)
+        elif self.synth_mask and not self._synth_applies():
             # reachability started pruning states: the mask the kernel
             # would synthesize is no longer the space's
             self.synth_mask = False
@@ -268,13 +306,14 @@ class BoxOperator:
             self._data = BoxOpData(mask=None, viol=None, bounds=bounds)
             return self._data
         shape, origin0, g0 = self._window
-        mask = self.space.mask
         if self.sharded is not None:
-            mask = window_rows(mask, origin0, shape[0])
-        mask = mask.reshape(-1).to(torch.uint8)
-        viol = violation_bits(self.space.constraints,
-                              self.model.stoichiometry, shape, self.device,
-                              origin0=origin0, g0=g0)
+            mask = window_rows(self.space.mask, origin0, shape[0])
+            mask = mask.reshape(-1).to(torch.uint8)
+        else:
+            # one copy per epoch, shared by every operator on the space
+            mask = self.space.mask_bytes()
+        viol = violation_bits(self.space.constraints, self.stoichiometry,
+                              shape, self.device, origin0=origin0, g0=g0)
         self._data = BoxOpData(mask=mask, viol=viol, bounds=bounds)
         return self._data
 
@@ -282,27 +321,51 @@ class BoxOperator:
         return self._data
 
     # ------------------------------------------------------------ action
-    def action(self, t, y: FspVector) -> FspVector:
-        """dy/dt = A(t) y (the rank's slab of it with a mesh).  On a CUDA
-        vector this launches the kernel; on a CPU vector it runs the
-        kernel's plain version."""
+    def coefficients(self, t, c=None) -> torch.Tensor:
+        """The enabled reactions' time coefficients at ``t``, from the
+        model's full coefficient vector ``c`` where the caller already
+        holds it."""
+        if c is None:
+            c = self.model.coefficients(t, self.dtype)
+        return c if self._rows is None else c[self._rows]
+
+    def action(self, t, y: FspVector, c=None, out=None) -> FspVector:
+        """dy/dt = A(t) y (the rank's slab of it with a mesh).  ``c``:
+        the model's coefficients at ``t`` where the caller holds them;
+        ``out``: where to write ``dp``.  On a CUDA vector this launches
+        the kernel; on a CPU vector it runs the kernel's plain version."""
         d = self._data
-        c = self.model.coefficients(t, self.dtype)
+        c = self.coefficients(t, c)
         if self.sharded is not None:
             dp, dsinks = self.sharded(c, y.p, self.props, d.mask, d.viol,
                                       d.bounds)
         elif d.mask is None:
             dp, dsinks = box_action_synth(c, y.p, self.props, d.bounds,
-                                          self.geom)
+                                          self.geom, out=out)
         else:
             dp, dsinks = box_action(c, y.p, d.mask, self.props, d.viol,
-                                    self.geom)
+                                    self.geom, out=out)
         return FspVector(p=dp, sinks=dsinks)
+
+    def action_batched(self, t, p: torch.Tensor, c=None, out=None):
+        """``(dp [nb, n], sinks [nb, n_c])`` of A(t) applied to each row
+        of ``p [nb, n]`` in one launch of the batched kernel (K9) on a
+        CUDA tensor, by its plain version on a CPU tensor; one device
+        only."""
+        if self.sharded is not None:
+            raise ValueError("the batched action runs on one device")
+        d = self._data
+        c = self.coefficients(t, c)
+        if d.mask is None:
+            return box_action_synth_batched(c, p, self.props, d.bounds,
+                                            self.geom, out=out)
+        return box_action_batched(c, p, d.mask, self.props, d.viol,
+                                  self.geom, out=out)
 
     def diagonal(self, t=0.0) -> torch.Tensor:
         """diag(A(t)) = -sum_r c_r(t) a_r(x), masked (flat [n], the rank's
         slab with a mesh)."""
-        c = self.model.coefficients(t, self.dtype).tolist()
+        c = self.coefficients(t).tolist()
         m = self.space.mask.reshape(-1)
         cols = slice(0, self._n)
         if self.sharded is not None:
@@ -312,7 +375,7 @@ class BoxOperator:
             m = m[own]
             cols = slice(sh.w0 * sh.plane, (sh.w0 + sh.L0) * sh.plane)
         out = torch.zeros(self.local_n, dtype=self.dtype, device=self.device)
-        for r in range(self.model.num_reactions):
+        for r in range(len(self.enable_reactions)):
             out = out - c[r] * torch.where(
                 m, self.props.field(r)[cols],
                 torch.zeros((), dtype=self.dtype, device=self.device))
@@ -335,9 +398,9 @@ class BoxOperator:
         capacity box (the global one with a mesh).  The Krylov cost model
         consumes it, so it matches the reference package's value
         exactly."""
-        R = self.model.num_reactions
+        R = len(self.enable_reactions)
         return float(2 * (2 * R + 1) * self._n)
 
     def nnz(self) -> int:
         """Structural nonzeros of the equivalent sparse operator."""
-        return (self.model.num_reactions + 1) * self.space.num_states
+        return (len(self.enable_reactions) + 1) * self.space.num_states

@@ -77,8 +77,13 @@ class BdfSolver:
                  gmres_tol: Optional[float] = None,
                  max_steps: int = 10_000_000,
                  stop_check: Optional[StopCheck] = None,
-                 trace_cap: int = 4096):
+                 trace_cap: int = 4096,
+                 n_sinks: Optional[int] = None):
+        """``n_sinks``: entries of the stop-check's excess, the leading
+        sinks of y (default: all of them; a sensitivity solve's stacked
+        vector also holds the sensitivities' sinks)."""
         self.matvec = matvec
+        self.n_sinks = n_sinks
         # float64 defaults (the reference package's f64 values)
         self.rtol = float(rtol if rtol is not None else 1.0e-6)
         self.atol = float(atol)
@@ -178,7 +183,8 @@ class BdfSolver:
         """Integrate from ``t0`` to ``t_final``; ``stop_aux`` is forwarded
         to the stop-check."""
         t, t_final = np.float64(t0), np.float64(t_final)
-        n_c = y0.sinks.shape[0]
+        n_c = (y0.sinks.shape[0] if self.n_sinks is None
+               else int(self.n_sinks))
         mv = self.matvec
 
         def fsp_excess(tt, y):

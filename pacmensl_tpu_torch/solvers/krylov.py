@@ -56,8 +56,13 @@ class KrylovSolver:
                  max_steps: int = 1_000_000,
                  rhs_cost: float = 1.0e4,
                  stop_check: Optional[StopCheck] = None,
-                 trace_cap: int = 4096):
+                 trace_cap: int = 4096,
+                 n_sinks: Optional[int] = None):
+        """``n_sinks``: entries of the stop-check's excess, the leading
+        sinks of y (default: all of them; a sensitivity solve's stacked
+        vector also holds the sensitivities' sinks)."""
         self.matvec = matvec
+        self.n_sinks = n_sinks
         # float64 throughout: the reference's 1e-14 tolerances
         self.abs_tol = float(abs_tol if abs_tol is not None else 1.0e-14)
         self.m_min = int(m_min)
@@ -130,7 +135,8 @@ class KrylovSolver:
         """Integrate from ``t0`` to ``t_final``; ``stop_aux`` is forwarded
         to the stop-check."""
         t_now, t_final = float(t0), float(t_final)
-        n_c = y0.sinks.shape[0]
+        n_c = (y0.sinks.shape[0] if self.n_sinks is None
+               else int(self.n_sinks))
         M1 = self.m_max + 1
         nvec_total = vo.numel(y0)
         q = float(self.q_iop)

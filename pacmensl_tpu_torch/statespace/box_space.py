@@ -124,6 +124,7 @@ class BoxStateSpace:
         self._prev_mask: Optional[torch.Tensor] = None
         self._mask: Optional[torch.Tensor] = None
         self._mask_host: Optional[np.ndarray] = None
+        self._mask_bytes: Optional[torch.Tensor] = None
         self._box_floor = np.zeros(self.num_species, np.int64)
         self.events = None
         self._build()
@@ -241,6 +242,7 @@ class BoxStateSpace:
         self._leaks = self._face_leaks(mask)
         self._mask = mask
         self._mask_host = None
+        self._mask_bytes = None
         self._num_states = int(mask.sum())
         # reachability pruned nothing: the mask is "every constraint
         # holds", which the box kernel can recompute from the bounds
@@ -306,6 +308,14 @@ class BoxStateSpace:
         return out.reshape(-1)
 
     # ---------------------------------------------------------- queries ---
+    def mask_bytes(self) -> torch.Tensor:
+        """The validity mask as flat uint8 on the device, the
+        mask-reading kernel's input: one copy per mask, shared by every
+        operator on the space."""
+        if self._mask_bytes is None:
+            self._mask_bytes = self._mask.reshape(-1).to(torch.uint8)
+        return self._mask_bytes
+
     @property
     def mask_host(self) -> np.ndarray:
         """Host (numpy) copy of the validity mask."""

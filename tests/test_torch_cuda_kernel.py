@@ -428,3 +428,104 @@ def test_cuda_bdf_solve_runs_the_synthesized_mask_kernel():
     assert bk.KERNEL.launches["mask"] == 0
     assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
     assert d.num_states == 350 and d.sum() >= 1.0 - 1.0e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 2, 3])
+@pytest.mark.parametrize("synth", [True, False])
+@pytest.mark.parametrize("name,bounds,t", CASES + MIXED)
+def test_cuda_batched_kernel_matches_plain_and_single_launches(
+        name, bounds, t, synth, nb):
+    """The batched launch (K9): dp bitwise its plain version's, dp and
+    sinks bitwise nb single launches', two launches bitwise equal."""
+    _needs_cuda()
+    b, op = _operator(name, bounds, "cuda")
+    if synth and not op.synth_mask:
+        pytest.skip("the mask is not constraint-only: K1 only")
+    mask, viol = _k1_data(op)
+    rng = np.random.default_rng(21)
+    P = torch.as_tensor(rng.random((nb, op.geom.n)), device="cuda") * mask
+    c, bnd = b.model.coefficients(t), op.data().bounds
+    if synth:
+        def run():
+            return bk.box_action_synth_batched(c, P, op.props, bnd, op.geom)
+        want = bk.box_action_synth_batched_reference(c, P, op.props, bnd,
+                                                     op.geom)
+        one = [bk.box_action_synth(c, P[i], op.props, bnd, op.geom)
+               for i in range(nb)]
+    else:
+        def run():
+            return bk.box_action_batched(c, P, mask, op.props, viol, op.geom)
+        want = bk.box_action_batched_reference(c, P, mask, op.props, viol,
+                                               op.geom)
+        one = [bk.box_action(c, P[i], mask, op.props, viol, op.geom)
+               for i in range(nb)]
+    key = "batched_synth" if synth else "batched_mask"
+    n0 = bk.KERNEL.launches[key]
+    kp, ks = run()
+    kp2, ks2 = run()
+    torch.cuda.synchronize()
+    assert bk.KERNEL.launches[key] == n0 + 2
+    assert kp.shape == (nb, op.geom.n) and ks.shape == (nb, op.geom.nc)
+    assert torch.equal(kp, want[0])
+    np.testing.assert_allclose(ks.cpu().numpy(), want[1].cpu().numpy(),
+                               **TOL)
+    assert torch.equal(kp, torch.stack([o[0] for o in one]))
+    assert torch.equal(ks, torch.stack([o[1] for o in one]))
+    assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
+    _needs_cuda()
+    b, op = _operator("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], "cuda")
+    mask, viol = _k1_data(op)
+    c, bnd = b.model.coefficients(0.0), op.data().bounds
+    P = torch.zeros((2, op.geom.n), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError):
+        bk.box_action_synth_batched(c, P[:, :-1].contiguous(), op.props,
+                                    bnd, op.geom)
+    with pytest.raises(ValueError):
+        bk.box_action_synth_batched(c, P.t().contiguous().t(), op.props,
+                                    bnd, op.geom)
+    g0 = op.shape[0]
+    win = bk.BoxGeometry((g0 + 2,) + op.shape[1:], op.geom.stoich,
+                         op.geom.nc, op.geom.form, origin0=-1, g0=g0,
+                         out_rows=(1, 1 + g0))
+    Pw = torch.zeros((2, win.n), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="whole box"):
+        bk.box_action_synth_batched(c, Pw, op.props.window(-1, g0 + 2),
+                                    bnd, win)
+
+
+@pytest.mark.cuda
+def test_cuda_sens_solve_runs_the_batched_kernel():
+    """hog1p_3d_sens to t = 30 on the card: every action is one K3 launch
+    for p, one batched launch for the sensitivities and one per
+    derivative operator, and the result is the CPU plain versions'."""
+    _needs_cuda()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = pt.models.hog1p_3d_sens()
+        s = pt.SensFspSolverMultiSinks(odes_type="auto", device=dev)
+        s.set_model(b.model)
+        s.set_constraint_functions(b.constraint)
+        s.set_initial_bounds(b.bounds)
+        s.set_expansion_factors(b.expansion_factors)
+        s.set_initial_distribution(b.x0, b.p0)
+        bk.KERNEL.reset_counts()
+        out[dev] = s.solve(30.0, 1.0e-4)
+        if dev == "cuda":
+            n = bk.KERNEL.launches["batched_synth"]
+            assert n > 0 and bk.KERNEL.launches["synth"] == 3 * n
+            assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
+    # The sinks are summed in another order on the card and enter BDF's
+    # error norm, so the two solves take other steps: both are certified
+    # to fsp_tol (L1 of p within 2 fsp_tol) and integrate to BDF's rtol
+    # 1e-6 (dp within 1e-3 relative in L1).
+    g, w = out["cuda"], out["cpu"]
+    assert np.array_equal(g.states, w.states)
+    assert np.abs(g.p - w.p).sum() <= 2e-4
+    for j in range(2):
+        assert np.abs(g.dp[j] - w.dp[j]).sum() <= \
+            1e-3 * np.abs(w.dp[j]).sum()

@@ -1,6 +1,8 @@
 """Bundled models of the PyTorch port against the reference package:
 propensities, time coefficients and constraint functions on a shared state
-grid (rtol 1e-12), and the arrays that define each bundle (exact)."""
+grid (rtol 1e-12), and the arrays that define each bundle (exact); for the
+sensitivity bundles also the derivative propensities and time
+coefficients (rtol 1e-12)."""
 import numpy as np
 import pytest
 
@@ -14,7 +16,8 @@ import pacmensl_tpu_torch as pt  # noqa: E402
 from pacmensl_tpu_torch.interop import bundle_arrays  # noqa: E402
 
 NAMES = ["poisson", "birth_death", "telegraph", "toggle", "repressilator",
-         "hog1p_3d", "hog1p_5d", "transcr_reg_6d"]
+         "hog1p_3d", "hog1p_5d", "transcr_reg_6d", "hog1p_3d_sens",
+         "hog1p_5d_sens"]
 TIMES = [0.0, 1.0, 30.0, 120.0, 1800.0]
 
 
@@ -72,3 +75,29 @@ def test_bundle_matches_reference(name):
     np.testing.assert_array_equal(tcs.expanded_bounds(np.ones(len(
         tcs.bounds), bool)), jcs.expanded_bounds(np.ones(len(jcs.bounds),
                                                          bool)))
+
+
+@pytest.mark.parametrize("name", ["poisson_sens", "telegraph",
+                                  "hog1p_3d_sens", "hog1p_5d_sens"])
+def test_sens_bundle_derivatives_match_reference(name):
+    jm = getattr(pm.models, name)().model
+    tm = getattr(pt.models, name)().model
+    assert isinstance(tm, pt.SensModel)
+    assert tm.num_parameters == jm.num_parameters
+    x = _grid(jm.num_species, seed=7)
+    for j in range(jm.num_parameters):
+        if jm.d_propensity is not None:
+            for r in range(jm.num_reactions):
+                want = np.asarray(jm.d_propensity(jnp.asarray(x), j, r),
+                                  np.float64).reshape(-1)
+                got = tm.d_propensity(torch.as_tensor(x), j, r)
+                np.testing.assert_allclose(
+                    np.broadcast_to(got.numpy(), want.shape), want,
+                    rtol=1e-12, atol=0, err_msg=f"j = {j}, reaction {r}")
+        if jm.d_t_coeff is not None:
+            for t in TIMES:
+                np.testing.assert_allclose(
+                    np.asarray(tm.d_t_coeff(j, t), np.float64),
+                    np.asarray(jm.d_t_coeff(j, t), np.float64), rtol=1e-12)
+    base = tm.base_model()
+    assert type(base) is pt.Model and base.tv_reactions == tm.tv_reactions
