@@ -7,7 +7,8 @@ Phases (each check that fails ends the run with a nonzero exit):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; build (or
    load) the box kernel from ``pacmensl_tpu_torch/csrc`` and print the
-   build time and each instantiation's registers and spills (``ptxas``).
+   build time and each instantiation's registers, static shared memory
+   and spills (``ptxas``).
 2. Both modes of the kernel (mask-reading K1, synthesized-mask K3) vs
    their plain PyTorch versions, in float64, on the box shapes of the
    bundled models at small bounds (hog1p_3d at t = 0, 30, 120, hog1p_5d at
@@ -96,20 +97,25 @@ Phases (each check that fails ends the run with a nonzero exit):
 
    a. The batched launch K9 (the box kernel on nb vectors at once, the
       counterpart of the reference package's ``vmap`` over the
-      sensitivities) in both modes at the 128^3 box with nb = 2 and 4,
-      and on hog1p_5d_sens's final operator with the solve's own
-      sensitivities: dp bitwise its plain version's and nb single
-      launches', sinks bitwise the single launches' and within 1e-12 of
-      the plain version's (relative to each vector's largest), two
-      launches bitwise equal.  Timed with CUDA events beside nb single K3
-      launches, the plain version and one ``torch.sparse.mm`` of the
-      generator as CSR with the ``[n, nb]`` block.
+      sensitivities; a warp applies a unit's reactions to a chunk of up
+      to 4 vectors) in both modes at the 128^3 box with nb = 2, 3 and 4,
+      and on hog1p_5d_sens's final operator with the solve's own vectors
+      (p and both sensitivities, nb = 3, the solve's batch; the two
+      sensitivities, nb = 2): dp bitwise its plain version's and nb
+      single launches', sinks bitwise the single launches' and within
+      1e-12 of the plain version's (relative to each vector's largest),
+      two launches bitwise equal.  Timed with CUDA events beside nb
+      single K3 launches (also per vector) and the plain version; at
+      128^3 also beside one ``torch.sparse.mm`` of the generator as CSR
+      with the ``[n, nb]`` block.
    b. hog1p_5d_sens with its custom constraints, t = 180, fsp_tol =
       1e-4, ``"auto"`` -> BDF, every operator on K3 and on tables:
-      phase 5's output checks, one K9 and three K3 launches per action,
-      finite ``dp``, L1 of p to phase 5's distribution <= 2 * fsp_tol,
-      and the FIM finite, symmetric to 1e-12 relative, its eigenvalues
-      >= -1e-10 times the largest.
+      phase 5's output checks, per action one K9 (p and the two
+      sensitivities) and two K3 launches (the derivative operators),
+      21,467,776 states after 7,482 RHS evaluations, finite ``dp``, L1
+      of p to phase 5's distribution <= 2 * fsp_tol, and the FIM finite,
+      symmetric to 1e-12 relative, its eigenvalues >= -1e-10 times the
+      largest.
    c. The reference package's oracle (tests/test_sensfsp.py:225-277):
       hog1p_5d_sens to t = 3 at fsp_tol 1e-6 and ODE tolerances (1e-9,
       1e-14), dP/d(trans) against a central difference of two hog1p_5d
@@ -174,7 +180,12 @@ PROBE_SHAPES = {"reference": (6, 4096, 160, 128, 141),
 #: seconds a phase-7 rank may take before the script stops every rank
 RANK_TIMEOUT = 300
 #: phase 9a: the batches the batched launch K9 is checked and timed at
-BATCHES = (2, 4)
+#: (3: hog1p_5d_sens's own, p and two sensitivities)
+BATCHES = (2, 3, 4)
+#: phase 9b: hog1p_5d_sens to t = 180 ends at phase 5's state count after
+#: this many RHS evaluations; K9 is bitwise single launches, so folding p
+#: into the batched launch leaves the solve as it was
+SENS_STATES, SENS_RHS = 21467776, 7482
 #: phase 9c: the reference package's finite-difference oracle
 #: (tests/test_sensfsp.py:225-277): t, fsp_tol, BDF's rtol and atol, the
 #: step in trans, and the limit on the relative L1 of dP/d(trans)
@@ -314,19 +325,23 @@ def ptxas_lines(log):
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_Z17box_action_kernelILi"
-                      r"(\d+)ELb(\d)E(\w)Lb(\d)ELb(\d)E", line)
+                      r"(\d+)ELb(\d)E(\w)Lb(\d)ELi(\d+)E", line)
         if m:
+            nbv = int(m.group(5))
             name = (f"NCM={m.group(1)} "
                     f"{'synth' if m.group(2) == '1' else 'mask'} "
                     f"F={'int32' if m.group(3) == 'i' else 'int64'} "
                     f"{'grouped' if m.group(4) == '1' else 'one'} rows"
-                    f"{', batched' if m.group(5) == '1' else ''}")
+                    f"{f', batched NBV={nbv}' if nbv > 1 else ''}")
             continue
         if name and "spill" in line:
             spill = line.strip()
         m = re.search(r"Used (\d+) registers", line)
         if name and m:
-            out.append(f"{name}: {m.group(1)} registers; {spill}")
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers, "
+                       f"{sm.group(1) if sm else 0} B static shared "
+                       f"memory; {spill}")
             name = None
     return out
 
@@ -835,12 +850,15 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         tb = a.table_bytes()
         nbytes = nb * pr.box_action_bytes(n, n, R, True) + tb
         bnd = bound(nbytes, nb * 2 * (2 * R + 1) * n)
-        print(f"[9a] {label} nb={nb}: K9 {ms['K9'] * 1e3:.1f} us against "
-              f"{nb} single K3 launches {ms['single'] * 1e3:.1f} us; one "
-              f"batched launch no slower: {ms['K9'] <= ms['single']}; bound "
+        print(f"[9a] {label} nb={nb}: K9 {ms['K9'] * 1e3:.1f} us "
+              f"({ms['K9'] / nb * 1e3:.1f} per vector) against {nb} single "
+              f"K3 launches {ms['single'] * 1e3:.1f} us "
+              f"({ms['single'] / nb * 1e3:.1f} per vector), K9 (K1) "
+              f"{ms['K9_K1'] / nb * 1e3:.1f} per vector; one batched launch "
+              f"no slower: {ms['K9'] <= ms['single']}; bound "
               f"{bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: {nb} x K3's "
-              f"bytes, the tables once), {bnd[0] / ms['K9']:.3f} of it",
-              flush=True)
+              f"bytes, the tables once), {bnd[0] / ms['K9']:.3f} of it; "
+              f"{smi}", flush=True)
         if k9 is None:
             k9 = {"ms": ms["K9"], "plain_ms": ms["plain"], "bound": bnd,
                   "library_ms": ms["library"]}
@@ -874,7 +892,7 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
           "hog1p_5d_sens did not run the BDF integrator")
     sop = s._operator
     subs = [o for o in sop.cxdA if o is not None]
-    per = 1 + len(subs)
+    per = len(subs)
     for i, op in enumerate(sop.sub_ops()):
         check(op.synth_mask, f"hog1p_5d_sens operator {i}: not on K3")
         tables(9, f"hog1p_5d_sens final operator {i} (reactions "
@@ -890,6 +908,9 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
           and launch9["synth"] == per * actions[0]
           and launch9["mask"] + launch9["batched_mask"] == 0,
           f"hog1p_5d_sens: {launch9} for {actions[0]} actions")
+    check(d9.num_states == SENS_STATES and rhs == SENS_RHS,
+          f"hog1p_5d_sens: {d9.num_states} states after {rhs} RHS "
+          f"evaluations, expected {SENS_STATES} after {SENS_RHS}")
     check(d9.dp.shape == (2, d9.num_states) and np.isfinite(d9.dp).all(),
           "hog1p_5d_sens: dp not finite or of the wrong shape")
     l1 = l1_by_state(d9, d5)
@@ -909,32 +930,51 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
     check(eig.min() >= -1e-10 * eig.max(),
           f"hog1p_5d_sens: FIM eigenvalues {eig.tolist()}")
 
-    # (a) on the final operator and the solve's own sensitivities
+    # (a) on the final operator and the solve's own vectors: p and both
+    # sensitivities (nb = 3, the solve's own batch), and the two
+    # sensitivities alone (nb = 2)
     op = sop.base
     nf = op.geom.n
-    P = s._y.p.view(3, nf)[1:].clone()
+    P3 = s._y.p.view(3, nf).clone()
+    P2 = P3[1:].clone()
     del s, sop, subs
     torch.cuda.empty_cache()
     c = op.coefficients(HOG_T_FINAL)
     hb = op.data().bounds
     label = f"hog1p_5d_sens final {op.shape}"
-    check_batched(label, c, P, op.props, op.geom, bounds=hb)
     fviol = bo.violation_bits(op.space.constraints, op.stoichiometry,
                               op.shape, dev)
-    check_batched(label, c, P, op.props, op.geom, mask=op.space.mask_bytes(),
-                  viol=fviol)
+    for P in (P3, P2):
+        check_batched(label, c, P, op.props, op.geom, bounds=hb)
+        check_batched(label, c, P, op.props, op.geom,
+                      mask=op.space.mask_bytes(), viol=fviol)
     del fviol
-    runs = {"plain": lambda: bk.box_action_synth_batched_reference(
-                c, P, op.props, hb, op.geom),
-            "single": lambda: [bk.box_action_synth(c, P[i], op.props, hb,
-                                                   op.geom)
-                               for i in range(2)],
-            "K9": lambda: bk.box_action_synth_batched(c, P, op.props, hb,
-                                                      op.geom)}
-    timed(f"{label} nb=2 per call: K9 (K3), 2 single K3 launches, plain",
-          runs, ["plain", "single", "K9", "K9", "single", "plain"],
-          {"plain": 3, "single": 20, "K9": 20})
-    del P, op, runs
+    nvalid = int(op.space.mask_bytes().sum())
+    for P in (P3, P2):
+        nb = P.shape[0]
+        runs = {"plain": lambda: bk.box_action_synth_batched_reference(
+                    c, P, op.props, hb, op.geom),
+                "single": lambda: [bk.box_action_synth(c, P[i], op.props, hb,
+                                                       op.geom)
+                                   for i in range(nb)],
+                "K9": lambda: bk.box_action_synth_batched(c, P, op.props, hb,
+                                                          op.geom)}
+        ms = timed(f"{label} nb={nb} per call: K9 (K3), {nb} single K3 "
+                   f"launches, plain", runs,
+                   ["plain", "single", "K9", "K9", "single", "plain"],
+                   {"plain": 3, "single": 20, "K9": 20})
+        nbytes = nb * pr.box_action_bytes(nf, nf, op.props.num_reactions,
+                                          True, n_valid=nvalid) \
+            + op.props.table_bytes()
+        bnd = bound(nbytes, 0)
+        print(f"[9a] {label} nb={nb}: K9 {ms['K9'] * 1e3:.1f} us "
+              f"({ms['K9'] / nb * 1e3:.1f} per vector) against {nb} single "
+              f"K3 launches {ms['single'] * 1e3:.1f} us "
+              f"({ms['single'] / nb * 1e3:.1f} per vector); bound "
+              f"{bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: {nb} x K3's "
+              f"bytes at {nvalid} valid of {nf} elements, the tables once), "
+              f"{bnd[0] / ms['K9']:.3f} of it; {smi}", flush=True)
+    del P, P2, P3, op, runs
     torch.cuda.empty_cache()
 
     # (c) the reference package's oracle

@@ -46,14 +46,13 @@
 //     vectors, pacmensl_tpu/ops/sens_operator.py:150-153, which batches
 //     the Pallas call with a leading grid axis): K1 or K3 on nb vectors
 //     in one launch with one set of coefficients, tables and mask or
-//     bounds.  blockIdx.y is the vector: each vector gets the grid a
-//     single launch would get, its own dp rows and its own slot array,
-//     and the ticket counts the blocks of every vector, so the last block
-//     sums each vector's slots in the single launch's order.  dp and the
-//     sinks are bitwise nb single launches'.  The batch index is a grid
-//     axis and not folded into the grid-stride loop so that a vector's
-//     units, slots and reduction order stay those of a single launch, and
-//     so that the tables are staged once per block as before.
+//     bounds.  Everything but p, dp and the sinks is the same for every
+//     vector, so a warp takes a unit once for a chunk of up to NBV
+//     vectors (blockIdx.y is the chunk): it forms the unit's coordinates,
+//     source rows and (K3) intervals once, and per element and reaction
+//     the propensities, the source test and the violation bits once; then
+//     each vector of the chunk loads its p at x and at the source and
+//     adds its own terms.  See "K9" below.
 //
 // For every C-order box index x:
 //
@@ -102,11 +101,35 @@
 //     launches (K4's interior rows, then its two edge strips) add their
 //     slots to one array and the last block of the last launch sums them
 //     all, so a matvec reduces its sinks once.
-//   * K9's compulsory bytes are nb times a single launch's less the
-//     tables, which count once (each block stages them once; K1's mask
-//     and violation words are read per vector).  One launch saves nb - 1
-//     launches' fixed host and device cost and fills the card with nb
-//     times the blocks.
+//   * K9.  Its compulsory bytes are nb times a single launch's p and dp,
+//     with the tables, K1's mask and violation words read once for the
+//     chunk.  A single launch spends most of its time on the per-element
+//     work that does not depend on p (shared-memory reads of the tables,
+//     the source pointers and intervals, K3's target-interval loop), so
+//     the chunk does that work once and only the loads of p, the four
+//     operations of each vector's term and its sink adds are repeated.
+//     Each vector keeps its accumulator and p(x) in registers; a lane's
+//     sink partials for the chunk (NBV x NCM doubles would not fit in
+//     registers) live in shared memory in cells only that lane touches,
+//     [warp][vector][constraint][lane] (no bank conflicts, no atomics),
+//     and are touched only where a transition breaks a constraint.  Each
+//     vector's arithmetic is a single launch's, in the same order
+//     (elements of a lane in order, reactions in order, constraints in
+//     order), its units go to the same slots, each slot is reduced by one
+//     warp with the same shuffles, and the last block sums each vector's
+//     slots in the single launch's order: dp and the sinks are bitwise nb
+//     single launches'.  The launch picks the chunk width (at most NBV)
+//     so that the sink cells, the tables and K3's intervals fit the
+//     shared memory of BOX_BAT_MIN_BLOCKS resident blocks; wider batches
+//     take more chunks (gridDim.y).  Its grid is at most
+//     BOX_BAT_MIN_BLOCKS blocks an SM, a single launch's at 4 (which warp
+//     takes a slot does not enter the sums).  On an H100, 4 blocks of 64
+//     registers ran faster than 3 or 2 (80 or 128 registers) at both
+//     shapes timed, and a cp.async copy of the next unit's p rows into
+//     shared memory was slower at both (PERF.md, tools/time_k1.py --k9).
+//     Tensor cores do not apply: the action is a stencil
+//     with per-element coefficients and selections, not a product of
+//     tiles, and it is bound by memory latency, not by operations.
 //
 // The slots make the sinks independent of the grid, so they are bitwise
 // the same in both modes, from run to run and from card to card.  The kernel selects rather
@@ -134,6 +157,12 @@
 // was slower at both shapes timed (PERF.md, Findings).  The wrapper's grid
 // is 4 blocks on each of the H100's 132 SMs.
 #define BOX_MIN_BLOCKS 4
+// K9: most vectors a warp takes a unit for (a chunk), and the least
+// resident blocks per SM it is compiled and sized for: its grid is at
+// most that many blocks on each SM, and the chunk width keeps its shared
+// memory within their share.
+#define BOX_BAT_NBV 4
+#define BOX_BAT_MIN_BLOCKS 4
 // Sink partial slots: unit u adds to slot u % BOX_SLOTS, and slots are
 // summed in order, so the sinks do not depend on the grid.
 #define BOX_SLOTS 4224
@@ -211,16 +240,18 @@ struct BoxParams {
     int part_total;                    // partial rows the last block sums
     int ticket_total;                  // blocks of the launches chained
     int group;                         // rows a warp takes at a time (G)
-    // Batched mode (K9): vectors of one launch (blockIdx.y), and the
-    // elements between consecutive vectors of p and of dp
+    // Batched mode (K9): vectors of one launch, and the elements between
+    // consecutive vectors of p and of dp; the launch sets the chunk width
+    // (vectors a block takes, chunk blockIdx.y) and ignores the caller's
     int nb;
     long long p_bstride;
     long long dp_bstride;
+    int nbv;
 };
 
 // Device pointers of one launch (mirrored in ops/box_kernel.py).  In the
-// batched mode p, dp, part and sinks hold nb vectors: vector b's at
-// b * p_bstride, b * dp_bstride, b * part_total * nc and b * nc.
+// batched mode p, dp, part and sinks hold nb vectors: vector v's at
+// v * p_bstride, v * dp_bstride, v * part_total * nc and v * nc.
 struct BoxPtrs {
     const double* p_up;
     const double* p;
@@ -294,14 +325,17 @@ __device__ __forceinline__ void violated_on_row(const BoxForm& f,
 
 // NCM: a compile-time bound on the constraint count; SYNTH: the mode; F:
 // the type the synthesized-mask mode evaluates the forms in; GRP: units of
-// prm.group short rows (else of one row); BAT: the batched launch (K9),
-// an instantiation of its own so that a single launch computes no batch
+// prm.group short rows (else of one row); NBV: 1 for a single launch, else
+// the batched launch (K9) on chunks of at most NBV vectors, an
+// instantiation of its own so that a single launch computes no batch
 // offsets (they cost K1 and K3 about 3% at the repressilator's final
 // capacity on an H100 80GB HBM3 at 700 W, PERF.md).
-template <int NCM, bool SYNTH, typename F, bool GRP, bool BAT>
-__global__ void __launch_bounds__(BOX_THREADS, BOX_MIN_BLOCKS)
+template <int NCM, bool SYNTH, typename F, bool GRP, int NBV>
+__global__ void __launch_bounds__(BOX_THREADS, NBV > 1 ? BOX_BAT_MIN_BLOCKS
+                                                       : BOX_MIN_BLOCKS)
 box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
 {
+    constexpr bool BAT = NBV > 1;
     constexpr int NT = SYNTH ? NCM : 1;
     constexpr int NK = SYNTH ? 2 * BOX_MAX_FNC * BOX_MAX_R : 1;
     constexpr int UNROLL_R = SYNTH ? BOX_SYNTH_UNROLL_R : BOX_UNROLL_R;
@@ -322,17 +356,21 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     __shared__ int w_crd[BOX_WARPS][NG][BOX_MAX_S + 1];
     __shared__ const double* w_src[BOX_WARPS][NG][BOX_MAX_R];
     __shared__ int2 w_sint[BOX_WARPS][SYNTH ? NG : 1][SYNTH ? BOX_MAX_R : 1];
-    __shared__ double red[BOX_THREADS];
+    // the last block's reduction (K9: in the sink cells, free by then)
+    __shared__ double red_s[BAT ? 1 : BOX_THREADS];
     __shared__ int s_last;
     // Dynamic: the tables (where staged), then K3's pair intervals per
-    // warp and row of its unit.
+    // warp and row of its unit, then (K9) the sink cells of each warp.
     extern __shared__ double dyn[];
 
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int R = prm.R, S = prm.S, nc = prm.nc, last = S - 1;
-    // the vector of the batch this block works on (0 outside K9)
-    const long long bat = BAT ? (long long)blockIdx.y : 0;
+    // K9: the chunk's first vector and its number of vectors (a single
+    // launch: vector 0 alone)
+    const long long bat = BAT ? (long long)blockIdx.y * prm.nbv : 0;
+    const int nv = BAT ? min(prm.nbv, prm.nb - (int)bat) : 1;
+    const long long pbs = prm.p_bstride, dbs = prm.dp_bstride;
 
     const double* tab = ptr.tab;
     if (prm.tab_smem) {
@@ -340,9 +378,14 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
             dyn[i] = ptr.tab[i];
         tab = dyn;
     }
-    int2* w_int = reinterpret_cast<int2*>(dyn + (prm.tab_smem ? prm.ntab
-                                                                : 0))
-                  + warp * (SYNTH ? (GRP ? prm.group : 1) * prm.ntask : 0);
+    const int ntask_w = SYNTH ? (GRP ? prm.group : 1) * prm.ntask : 0;
+    double* dyn_int = dyn + (prm.tab_smem ? prm.ntab : 0);
+    int2* w_int = reinterpret_cast<int2*>(dyn_int) + warp * ntask_w;
+    // K9: this lane's sink partial of vector v, constraint c at
+    // w_sk[(v * nc + c) * 32]; red: the last block's reduction
+    double* const sk_base = dyn_int + BOX_WARPS * ntask_w;
+    double* const w_sk = sk_base + warp * prm.nbv * nc * 32 + lane;
+    double* const red = BAT ? sk_base : red_s;
     for (int i = threadIdx.x; i < BOX_MAX_R * BOX_MAX_S; i += BOX_THREADS) {
         const int r = i / BOX_MAX_S, d = i - r * BOX_MAX_S;
         t_st[r][d] = (r < R && d < S) ? prm.stoich[r][d] : 0;
@@ -403,9 +446,23 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     // slots s, s + nwarps, ...; in each the units s, s + BOX_SLOTS, ...
     for (unsigned s = blockIdx.x * BOX_WARPS + warp; s < nslots;
          s += nwarps) {
-        double sk[NCM];
+        double sk[BAT ? 1 : NCM];
+        if constexpr (BAT) {
+            for (int i = 0; i < nv * nc; ++i) w_sk[i * 32] = 0.0;
+        } else {
 #pragma unroll
-        for (int c = 0; c < NCM; ++c) sk[c] = 0.0;
+            for (int c = 0; c < NCM; ++c) sk[c] = 0.0;
+        }
+        // dp at x of the unit's rows (K9: of each vector of the chunk)
+        auto zero_dp = [&](double* row, int x) {
+            if constexpr (BAT) {
+#pragma unroll
+                for (int v = 0; v < NBV; ++v)
+                    if (v < nv) row[v * dbs + x] = 0.0;
+            } else {
+                row[x] = 0.0;
+            }
+        };
         unsigned vb_next = 0u;
         if constexpr (GRP && !SYNTH) vb_next = unit_bit(s);
         for (unsigned u = s; u < nunits; u += BOX_SLOTS) {
@@ -490,7 +547,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                          && spr <= BOX_PREF)) {
                 // no valid element in the unit's rows
                 if (rowok)
-                    for (int x = xl0; x < (int)E; x += 32) dp_row[x] = 0.0;
+                    for (int x = xl0; x < (int)E; x += 32) zero_dp(dp_row, x);
                 continue;
             }
             // each (row, reaction) of the unit: the source row's start in
@@ -567,10 +624,10 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                     s_hi = (unsigned)vhi >> 5;
                     // segments outside the valid interval: zeros
                     for (int x = lane; x < (int)(s_lo * 32u); x += 32)
-                        dp_row[x] = 0.0;
+                        zero_dp(dp_row, x);
                     for (int x = (int)((s_hi + 1u) * 32u) + lane;
                          x < (int)E; x += 32)
-                        dp_row[x] = 0.0;
+                        zero_dp(dp_row, x);
                 }
             }
             const int* lcrd = w_crd[warp][subc];
@@ -588,13 +645,92 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                     valid = sr < BOX_PREF ? ((vb >> sr) & 1u) != 0
                                           : live && ptr.mask[idx] != 0;
                     if (__ballot_sync(0xffffffffu, valid) == 0u) {
-                        if (live) dp_row[xl] = 0.0;
+                        if (live) zero_dp(dp_row, xl);
                         continue;
                     }
                 }
-                double acc = 0.0;
+                // A single launch keeps its own copy of the element body.
+                // With one body for both, K1 on rows of 13 ran 3% slower
+                // on an H100; with only the part that does not depend on p
+                // in one inlined helper, the single instantiations spilled
+                // more and K1 there ran 5% slower, K1 and K3 at the
+                // repressilator's final capacity 7-8% (PERF.md).
+                if constexpr (!BAT) {
+                    double acc = 0.0;
+                    if (valid) {
+                        const double pv = p_row[xl];
+#pragma unroll UNROLL_R
+                        for (int r = 0; r < R; ++r) {
+                            const double cr = prm.c[r];
+                            const int ax = prm.tab_axis[r];
+                            const long long koff = prm.kflat[r];
+                            long long ti = 0;
+                            double a_x;
+                            if (ax == BOX_FIELD_ROW) {
+                                a_x = ptr.fields[prm.tab_off[r] * prm.rstride
+                                                 + idx];
+                            } else {
+                                ti = prm.tab_off[r] + (ax == last ? xl
+                                                       : lcrd[ax]);
+                                a_x = tab[ti];
+                            }
+                            uint32_t bits = 0u;
+                            if constexpr (!SYNTH)
+                                bits = (uint32_t)ptr.viol[r * prm.vstride + idx];
+                            const double ap = a_x * pv;
+                            const double* sp = lsrc[r];
+                            // K1: the source lies in the box, and its mask
+                            // selects; K3: the source is valid and in the box
+                            bool ok;
+                            if constexpr (SYNTH) {
+                                const int2 si = lsint[r];
+                                ok = si.x <= xl && xl <= si.y;
+                            } else {
+                                ok = sp != nullptr
+                                     && (unsigned)(xl - t_st[r][last]) < E;
+                            }
+                            double p_s = 0.0, a_s = 0.0;
+                            bool src_valid = false;
+                            if (ok) {
+                                p_s = sp[xl];
+                                a_s = ax == BOX_FIELD_ROW
+                                      ? ptr.fields[prm.tab_off[r] * prm.rstride
+                                                   + idx - koff]
+                                      : tab[ti - prm.tab_shift[r]];
+                                if constexpr (SYNTH) src_valid = true;
+                                else src_valid = ptr.mask[idx - koff] != 0;
+                            }
+                            const double in = src_valid ? a_s * p_s : 0.0;
+                            acc += cr * (in - ap);
+                            if constexpr (SYNTH) {
+                                // targets outside the box are evaluated as
+                                // they are
+                                unsigned ev = prm.tgt_mask[r];
+                                int k = t_first[1][r];
+                                while (ev) {
+                                    const int c = __ffs(ev) - 1;
+                                    ev &= ev - 1u;
+                                    const int2 v = lint[k++];
+                                    if (v.x <= xl && xl <= v.y) bits |= 1u << c;
+                                }
+                            }
+                            if (bits) {
+#pragma unroll
+                                for (int c = 0; c < NCM; ++c)
+                                    if ((bits >> c) & 1u) sk[c] += cr * ap;
+                            }
+                        }
+                    }
+                    if (live) dp_row[xl] = acc;
+                } else {
+                // K9: each vector of the chunk, its p(x) and its sum
+                double acc[NBV], pv[NBV];
+#pragma unroll
+                for (int v = 0; v < NBV; ++v) acc[v] = 0.0;
                 if (valid) {
-                    const double pv = p_row[xl];
+#pragma unroll
+                    for (int v = 0; v < NBV; ++v)
+                        if (v < nv) pv[v] = p_row[v * pbs + xl];
 #pragma unroll UNROLL_R
                     for (int r = 0; r < R; ++r) {
                         const double cr = prm.c[r];
@@ -613,10 +749,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         uint32_t bits = 0u;
                         if constexpr (!SYNTH)
                             bits = (uint32_t)ptr.viol[r * prm.vstride + idx];
-                        const double ap = a_x * pv;
                         const double* sp = lsrc[r];
-                        // K1: the source lies in the box, and its mask
-                        // selects; K3: the source is valid and in the box
                         bool ok;
                         if constexpr (SYNTH) {
                             const int2 si = lsint[r];
@@ -625,10 +758,9 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                             ok = sp != nullptr
                                  && (unsigned)(xl - t_st[r][last]) < E;
                         }
-                        double p_s = 0.0, a_s = 0.0;
+                        double a_s = 0.0;
                         bool src_valid = false;
                         if (ok) {
-                            p_s = sp[xl];
                             a_s = ax == BOX_FIELD_ROW
                                   ? ptr.fields[prm.tab_off[r] * prm.rstride
                                                + idx - koff]
@@ -636,11 +768,21 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                             if constexpr (SYNTH) src_valid = true;
                             else src_valid = ptr.mask[idx - koff] != 0;
                         }
-                        const double in = src_valid ? a_s * p_s : 0.0;
-                        acc += cr * (in - ap);
+                        // each vector's loads of p at the source, all in
+                        // flight together, and its term in a single
+                        // launch's arithmetic
+                        double ap[NBV], p_s[NBV];
+#pragma unroll
+                        for (int v = 0; v < NBV; ++v)
+                            p_s[v] = ok && v < nv ? sp[v * pbs + xl] : 0.0;
+#pragma unroll
+                        for (int v = 0; v < NBV; ++v) {
+                            if (v >= nv) continue;
+                            ap[v] = a_x * pv[v];
+                            const double in = src_valid ? a_s * p_s[v] : 0.0;
+                            acc[v] += cr * (in - ap[v]);
+                        }
                         if constexpr (SYNTH) {
-                            // targets outside the box are evaluated as
-                            // they are
                             unsigned ev = prm.tgt_mask[r];
                             int k = t_first[1][r];
                             while (ev) {
@@ -650,27 +792,51 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                                 if (v.x <= xl && xl <= v.y) bits |= 1u << c;
                             }
                         }
-                        if (bits) {
+                        // each (vector, constraint) cell adds in reaction
+                        // order, as a single launch's register does
+                        while (bits) {
+                            const int c = __ffs(bits) - 1;
+                            bits &= bits - 1u;
 #pragma unroll
-                            for (int c = 0; c < NCM; ++c)
-                                if ((bits >> c) & 1u) sk[c] += cr * ap;
+                            for (int v = 0; v < NBV; ++v)
+                                if (v < nv) w_sk[(v * nc + c) * 32] += cr * ap[v];
                         }
                     }
                 }
-                if (live) dp_row[xl] = acc;
+                if (live) {
+#pragma unroll
+                    for (int v = 0; v < NBV; ++v)
+                        if (v < nv) dp_row[v * dbs + xl] = acc[v];
+                }
+                }
             }
         }
-        // the slot's partial: warp shuffles in a fixed order
+        // the slot's partial: warp shuffles in a fixed order (K9: for
+        // each vector of the chunk in turn)
+        if constexpr (BAT) {
+            for (int v = 0; v < nv; ++v) {
+                for (int c = 0; c < nc; ++c) {
+                    double t = w_sk[(v * nc + c) * 32];
 #pragma unroll
-        for (int c = 0; c < NCM; ++c) {
-            if (c < nc) {
-                double v = sk[c];
+                    for (int o = 16; o > 0; o >>= 1)
+                        t += __shfl_down_sync(0xffffffffu, t, o);
+                    if (lane == 0)
+                        ptr.part[((bat + v) * prm.part_total + prm.part_base
+                                  + s) * nc + c] = t;
+                }
+            }
+        } else {
 #pragma unroll
-                for (int o = 16; o > 0; o >>= 1)
-                    v += __shfl_down_sync(0xffffffffu, v, o);
-                if (lane == 0)
-                    ptr.part[(bat * prm.part_total + prm.part_base + s) * nc
-                             + c] = v;
+            for (int c = 0; c < NCM; ++c) {
+                if (c < nc) {
+                    double v = sk[c];
+#pragma unroll
+                    for (int o = 16; o > 0; o >>= 1)
+                        v += __shfl_down_sync(0xffffffffu, v, o);
+                    if (lane == 0)
+                        ptr.part[(bat * prm.part_total + prm.part_base + s)
+                                 * nc + c] = v;
+                }
             }
         }
     }
@@ -748,7 +914,7 @@ static bool window_ok(const BoxParams* prm, int nblocks)
                              && prm->p_bstride >= prm->mid_rows * prm->plane
                              && prm->dp_bstride >= (prm->out_hi - prm->out_lo)
                                                    * prm->plane))
-        && (long long)nblocks * prm->nb <= prm->ticket_total;
+        && nblocks <= prm->ticket_total;
     for (int r = 0; ok && r < prm->R; ++r) {
         const int ax = prm->tab_axis[r];
         ok = ax == BOX_FIELD_ROW || ax == BOX_CONST_AXIS
@@ -757,38 +923,70 @@ static bool window_ok(const BoxParams* prm, int nblocks)
     return ok;
 }
 
-template <int NCM, bool SYNTH, typename F, bool GRP, bool BAT>
+template <int NCM, bool SYNTH, typename F, bool GRP, int NBV>
 static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
                                  int nblocks, cudaStream_t st)
 {
-    auto kern = box_action_kernel<NCM, SYNTH, F, GRP, BAT>;
+    auto kern = box_action_kernel<NCM, SYNTH, F, GRP, NBV>;
     // Dynamic shared memory beyond 48 KB must be asked for, once per
     // kernel: all that the card lets a block have beside the static part.
-    static int max_dyn = -1;
+    // K9 also sizes its chunk by the share of an SM's shared memory that
+    // each of BOX_BAT_MIN_BLOCKS resident blocks may have, and its grid by
+    // the SMs.
+    static int max_dyn = -1, share = 0, sms = 0;
     if (max_dyn < 0) {
         cudaFuncAttributes fa;
         cudaError_t e = cudaFuncGetAttributes(&fa, kern);
         if (e != cudaSuccess) return e;
-        int dev = 0, optin = 0;
+        int dev = 0, optin = 0, per_sm = 0, reserved = 0;
         e = cudaGetDevice(&dev);
         if (e != cudaSuccess) return e;
         e = cudaDeviceGetAttribute(
             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(
+                &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(
+                &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
         if (e != cudaSuccess) return e;
         const int most = optin - (int)fa.sharedSizeBytes;
         e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
         if (e != cudaSuccess) return e;
+        share = per_sm / BOX_BAT_MIN_BLOCKS - reserved
+                - (int)fa.sharedSizeBytes;
         max_dyn = most;
     }
-    const size_t dyn = (prm->tab_smem ? (size_t)prm->ntab * sizeof(double)
-                                      : 0)
+    const size_t base = (prm->tab_smem ? (size_t)prm->ntab * sizeof(double)
+                                       : 0)
         + (SYNTH ? (size_t)BOX_WARPS * prm->group * prm->ntask
                      * sizeof(int2) : 0);
-    if (dyn > (size_t)max_dyn) return cudaErrorInvalidValue;
-    box_action_kernel<NCM, SYNTH, F, GRP, BAT>
-        <<<dim3(nblocks, BAT ? prm->nb : 1), BOX_THREADS, dyn, st>>>(*prm,
-                                                                   *ptr);
+    if constexpr (NBV == 1) {
+        if (base > (size_t)max_dyn) return cudaErrorInvalidValue;
+        kern<<<nblocks, BOX_THREADS, base, st>>>(*prm, *ptr);
+    } else {
+        // the widest chunk whose sink cells fit the share (at least one
+        // vector, within what a block may have)
+        const size_t per_vec = (size_t)BOX_WARPS * 32 * prm->nc
+                               * sizeof(double);
+        int nbv = prm->nb < NBV ? prm->nb : NBV;
+        while (nbv > 1 && base + nbv * per_vec > (size_t)(share > 0 ? share
+                                                                    : 0))
+            --nbv;
+        const size_t dyn = base + nbv * per_vec;
+        if (dyn > (size_t)max_dyn) return cudaErrorInvalidValue;
+        const int most_blocks = BOX_BAT_MIN_BLOCKS * sms;
+        const int gx = nblocks < most_blocks ? nblocks : most_blocks;
+        const int gy = (prm->nb + nbv - 1) / nbv;
+        BoxParams q = *prm;
+        q.nbv = nbv;
+        q.ticket_total = gx * gy;
+        kern<<<dim3(gx, gy), BOX_THREADS, dyn, st>>>(q, *ptr);
+    }
     return cudaGetLastError();
 }
 
@@ -797,8 +995,9 @@ static cudaError_t launch_rows(const BoxParams* prm, const BoxPtrs* ptr,
                                int nblocks, cudaStream_t st)
 {
     return prm->nb > 1
-        ? launch_kernel<NCM, SYNTH, F, GRP, true>(prm, ptr, nblocks, st)
-        : launch_kernel<NCM, SYNTH, F, GRP, false>(prm, ptr, nblocks, st);
+        ? launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV>(prm, ptr, nblocks,
+                                                         st)
+        : launch_kernel<NCM, SYNTH, F, GRP, 1>(prm, ptr, nblocks, st);
 }
 
 template <int NCM, bool SYNTH, typename F>

@@ -124,7 +124,8 @@ class _BoxParams(ctypes.Structure):
                 ("group", ctypes.c_int),
                 ("nb", ctypes.c_int),
                 ("p_bstride", ctypes.c_longlong),
-                ("dp_bstride", ctypes.c_longlong)]
+                ("dp_bstride", ctypes.c_longlong),
+                ("nbv", ctypes.c_int)]
 
 
 class _BoxPtrs(ctypes.Structure):
@@ -463,7 +464,6 @@ class BoxGeometry:
         self._narrow = {}
         self._scratch = {}
         self._pending = None
-        self._nb = 1
         self._synth_plain = None
         self._form_range: Optional[int] = None
         self.masks = (synth_masks(self.form, self.stoich)
@@ -625,7 +625,6 @@ class BoxGeometry:
         prm.ticket_total = self.ticket_total
         prm.group = self.group
         prm.nb, prm.p_bstride, prm.dp_bstride = 1, self.p_n, self.n_out
-        self._nb = 1
         if self.masks is not None:
             for k, f in enumerate(self.form):
                 pf = prm.form[k]
@@ -658,14 +657,6 @@ class BoxGeometry:
                 got[1] if got is not None
                 else torch.zeros(1, dtype=torch.int32, device=device))
         return got
-
-    def batch(self, prm: _BoxParams, nb: int) -> None:
-        """Set ``prm`` for a launch over ``nb`` vectors (1: a single
-        launch); the ticket then counts the blocks of every vector."""
-        if nb != self._nb:
-            prm.nb = nb
-            prm.ticket_total = self.ticket_total * nb
-            self._nb = nb
 
 
 class BoxActionKernel(CudaLibrary):
@@ -746,7 +737,9 @@ class BoxActionKernel(CudaLibrary):
             _check(viol, (R, n), torch.int32, dev, "viol", rows=True)
             prm = geom.params(c, None, props)
             prm.vstride = viol.stride(0) if R > 1 else n
-        geom.batch(prm, nb)
+        # vectors of the launch; a batched launch picks its chunks of
+        # vectors and its grid, and the blocks its ticket counts, itself
+        prm.nb = nb
         nsk = 0 if geom.leads else geom.nc
         if batched:
             if out is None:

@@ -22,11 +22,12 @@ vector (p, then s_1..s_Np) and ``sinks`` the ``[(1 + Np) n_c]`` sinks
 (p's, then each s_j's), so the integrators and GMRES run on it unchanged
 and BDF's error norm counts the sensitivities, as the reference package's
 does over all leaves.  :meth:`SensOperator.action` views them as ``[1 +
-Np, n]``: one launch of the box kernel for ``A p``, one batched launch
-(K9, the counterpart of the reference's ``vmap``) for every ``A s_j``
-written straight into the s rows, and one launch per non-empty derivative
-operator.  The model's time coefficients are evaluated once per action
-and handed to every launch.
+Np, n]``: one batched launch of the box kernel (K9, the counterpart of
+the reference's ``vmap``) for ``A p`` and every ``A s_j`` together,
+written straight into the output's rows, and one launch per non-empty
+derivative operator.  K9 is bitwise one launch per vector.  The model's
+time coefficients are evaluated once per action and handed to every
+launch.
 """
 from __future__ import annotations
 
@@ -130,12 +131,10 @@ class SensOperator:
         P = y.p.view(m, n)
         c = self.model.coefficients(t, self.dtype)
         out = torch.empty_like(y.p)
+        # A p and A s_j for all j in one launch, into the output's rows
+        _, sinks = self.base.action_batched(t, P, c=c, out=out.view(m, n))
+        sinks = sinks.reshape(-1)
         pv = FspVector(p=P[0], sinks=y.sinks[:nc])
-        base = self.base.action(t, pv, c=c, out=out[:n])
-        # A s_j for all j in one launch, into the s rows
-        _, s_sinks = self.base.action_batched(t, P[1:], c=c,
-                                              out=out[n:].view(m - 1, n))
-        sinks = torch.cat([base.sinks, s_sinks.reshape(-1)])
         for j in range(self.n_par):
             if self.dcxA[j] is None and self.cxdA[j] is None:
                 continue

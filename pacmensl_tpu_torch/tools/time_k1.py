@@ -14,8 +14,17 @@ them and on the ``[R, n]`` fields; an older one only on the fields.  Then
 solves the repressilator to t = 10 (fsp_tol 1e-4, Krylov) and times K3
 and K1 on its final operator (211 x 316 x 211) and solution the same way,
 on the tables.  Prints two lines, with the card's name and power limit.
-Needs a CUDA card.
+
+    python <path to this file> [label] --k9
+
+times the batched launch K9 (synthesized-mask mode) instead: at the
+128^3 repressilator box with nb = 2, 3 and 4 and at hog1p_5d's final
+capacity after a solve to t = 180 (4 x 42 x 94 x 42 x 63, the capacity
+hog1p_5d_sens ends at) with nb = 3, each beside nb single K3 launches on
+the same vectors, three rounds, each launch first checked bitwise against
+the single launches.  Prints one line per case.  Needs a CUDA card.
 """
+import argparse
 import os
 import subprocess
 import sys
@@ -77,7 +86,61 @@ def _repressilator(torch, pt, bk, bo, dev, smi, label) -> None:
                       for k, vs in times.items()) + f"; {smi}", flush=True)
 
 
-def main(label: str = "") -> None:
+def _k9(torch, pt, bk, bo, dev, smi, label) -> None:
+    """K9 against nb single K3 launches on the same vectors."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rep = pt.models.repressilator()
+    shape = (128,) * 3
+    n = 128 ** 3
+    cs = pt.ConstraintSet(None, [127] * 3, None, 3)
+    geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3, cs.form)
+    a = bo.propensity_tables(rep.model, shape, dev)
+    P = torch.rand((4, n), generator=gen, device=dev, dtype=torch.float64)
+    cases = [(f"128^3 nb={nb}", geom, a, [127] * 3,
+              rep.model.coefficients(0.0), P[:nb].contiguous())
+             for nb in (2, 3, 4)]
+    s, d = _solve(pt, pt.models.hog1p_5d(), "auto", 180.0, dev)
+    op = s._operator
+    p = s._y.p
+    noise = torch.rand((2, op.geom.n), generator=gen, device=dev,
+                       dtype=torch.float64) - 0.5
+    P3 = torch.cat([p[None], p[None] * noise]).contiguous()
+    cases.append((f"hog1p_5d t=180 final {op.shape} nb=3", op.geom,
+                  op.props, op.data().bounds,
+                  op.model.coefficients(180.0), P3))
+    del s, d, noise
+    times = {c[0]: {"K9": [], "single": []} for c in cases}
+    for rnd in range(ROUNDS):
+        for name, g, pa, b, c, Q in cases:
+            nb = Q.shape[0]
+
+            def k9():
+                return bk.box_action_synth_batched(c, Q, pa, b, g)
+
+            def single():
+                return [bk.box_action_synth(c, Q[i], pa, b, g)
+                        for i in range(nb)]
+            if rnd == 0:
+                got, one = k9(), single()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], torch.stack([o[0] for o in one]))
+                        and torch.equal(got[1],
+                                        torch.stack([o[1] for o in one]))):
+                    raise AssertionError(f"{name}: K9 is not bitwise the "
+                                         "single launches")
+            times[name]["K9"].append(_time_ms(torch, k9))
+            times[name]["single"].append(_time_ms(torch, single))
+    for name, t in times.items():
+        nb = int(name[-1])
+        print(f"{label}: {name}: us per call K9 "
+              + " / ".join(f"{x * 1e3:.1f}" for x in t["K9"])
+              + f", {nb} single K3 launches "
+              + " / ".join(f"{x * 1e3:.1f}" for x in t["single"])
+              + f"; per vector K9 {min(t['K9']) / nb * 1e3:.1f}, single "
+              f"{min(t['single']) / nb * 1e3:.1f}; {smi}", flush=True)
+
+
+def main(label: str = "", k9: bool = False) -> None:
     import torch
     import pacmensl_tpu_torch as pt
     from pacmensl_tpu_torch.ops import box_kernel as bk
@@ -86,6 +149,12 @@ def main(label: str = "") -> None:
     if not torch.cuda.is_available():
         raise SetupError("time_k1 needs a CUDA card")
     dev = torch.device("cuda", 0)
+    if k9:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip()
+        _k9(torch, pt, bk, bo, dev, smi, label)
+        return
     t0 = time.perf_counter()
     s, d = _solve(pt, pt.models.transcription_regulation_6d(), "auto",
                   T_FINAL, dev)
@@ -126,4 +195,9 @@ def main(label: str = "") -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.getcwd())
-    main(sys.argv[1] if len(sys.argv) > 1 else "")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("label", nargs="?", default="")
+    ap.add_argument("--k9", action="store_true",
+                    help="time the batched launch K9 instead")
+    args = ap.parse_args()
+    main(args.label, args.k9)

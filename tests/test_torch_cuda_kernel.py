@@ -27,7 +27,7 @@ from pacmensl_tpu_torch.parallel.halo_box import (  # noqa: E402
     halo_width, window_rows)
 from pacmensl_tpu_torch.parallel.mesh import StateMesh  # noqa: E402
 from pacmensl_tpu_torch.statespace.constraints import (  # noqa: E402
-    coord, product)
+    coord, linear, product)
 
 TOL = dict(rtol=1e-12, atol=1e-13)
 
@@ -430,8 +430,13 @@ def test_cuda_bdf_solve_runs_the_synthesized_mask_kernel():
     assert d.num_states == 350 and d.sum() >= 1.0 - 1.0e-4
 
 
+#: batches of the batched launch (K9): 1 to 5, and 9, which takes more
+#: than one chunk of vectors whatever the chunk width
+BATCHES = [1, 2, 3, 4, 5, 9]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [1, 2, 3])
+@pytest.mark.parametrize("nb", BATCHES)
 @pytest.mark.parametrize("synth", [True, False])
 @pytest.mark.parametrize("name,bounds,t", CASES + MIXED)
 def test_cuda_batched_kernel_matches_plain_and_single_launches(
@@ -475,6 +480,66 @@ def test_cuda_batched_kernel_matches_plain_and_single_launches(
     assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
 
 
+def _many_constraints(nc, shape, seed):
+    """``nc`` linear constraints on a 3-species box, each holding on part
+    of it: a form, bounds, and the repressilator's moves."""
+    rng = np.random.default_rng(seed)
+    form = tuple(linear({i % 3: 1 + int(rng.integers(0, 2)),
+                         (i + 1) % 3: int(rng.integers(0, 2))})
+                 for i in range(nc))
+    bounds = [int(0.8 * sum(w * (shape[d] - 1) for d, w in f.weights))
+              for f in form]
+    return form, bounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", BATCHES)
+@pytest.mark.parametrize("synth", [True, False])
+@pytest.mark.parametrize("shape", [(9, 10, 37), (13, 11, 7)])
+@pytest.mark.parametrize("nc", [3, 12, 20])
+def test_cuda_batched_kernel_at_each_constraint_width(nc, shape, synth, nb):
+    """K9 bitwise nb single launches and its dp bitwise its plain version
+    where the constraint count selects NCM = 8, 16 (K3) or 32 (K1), on
+    rows of 37 and on short rows (units of G = 4 rows of 7)."""
+    _needs_cuda()
+    if synth and nc > bk.MAX_FORM_NC:
+        pytest.skip("the synthesized-mask mode takes at most "
+                    f"{bk.MAX_FORM_NC} constraints")
+    dev = torch.device("cuda", 0)
+    rep = pt.models.repressilator()
+    stoich = rep.model.stoichiometry
+    form, bnd = _many_constraints(nc, shape, seed=nc)
+    geom = bk.BoxGeometry(shape, stoich, nc, form)
+    assert (geom.group > 1) == (shape[-1] <= 16)
+    a = bo.propensity_tables(rep.model, shape, dev)
+    mask, viol = bk.form_mask_and_bits(geom, bnd, dev)
+    assert 0 < int(mask.sum()) < geom.n
+    rng = np.random.default_rng(23)
+    P = torch.as_tensor(rng.random((nb, geom.n)), device=dev) * mask
+    c = rep.model.coefficients(0.0)
+    if synth:
+        def run():
+            return bk.box_action_synth_batched(c, P, a, bnd, geom)
+        want = bk.box_action_synth_batched_reference(c, P, a, bnd, geom)
+        one = [bk.box_action_synth(c, P[i], a, bnd, geom) for i in range(nb)]
+    else:
+        def run():
+            return bk.box_action_batched(c, P, mask, a, viol, geom)
+        want = bk.box_action_batched_reference(c, P, mask, a, viol, geom)
+        one = [bk.box_action(c, P[i], mask, a, viol, geom)
+               for i in range(nb)]
+    kp, ks = run()
+    kp2, ks2 = run()
+    torch.cuda.synchronize()
+    assert torch.equal(kp, want[0])
+    np.testing.assert_allclose(ks.cpu().numpy(), want[1].cpu().numpy(),
+                               **TOL)
+    assert torch.equal(kp, torch.stack([o[0] for o in one]))
+    assert torch.equal(ks, torch.stack([o[1] for o in one]))
+    assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
+    assert bool((ks != 0).any())
+
+
 @pytest.mark.cuda
 def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
     _needs_cuda()
@@ -500,9 +565,9 @@ def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
 
 @pytest.mark.cuda
 def test_cuda_sens_solve_runs_the_batched_kernel():
-    """hog1p_3d_sens to t = 30 on the card: every action is one K3 launch
-    for p, one batched launch for the sensitivities and one per
-    derivative operator, and the result is the CPU plain versions'."""
+    """hog1p_3d_sens to t = 30 on the card: every action is one batched
+    launch for p and the sensitivities and one launch per derivative
+    operator, and the result is the CPU plain versions'."""
     _needs_cuda()
     out = {}
     for dev in ("cuda", "cpu"):
@@ -516,8 +581,12 @@ def test_cuda_sens_solve_runs_the_batched_kernel():
         bk.KERNEL.reset_counts()
         out[dev] = s.solve(30.0, 1.0e-4)
         if dev == "cuda":
+            # one batched launch for p and the s_j, one per derivative
+            # operator
+            per = len(s._operator.sub_ops()) - 1
             n = bk.KERNEL.launches["batched_synth"]
-            assert n > 0 and bk.KERNEL.launches["synth"] == 3 * n
+            assert n > 0 and per > 0
+            assert bk.KERNEL.launches["synth"] == per * n
             assert sum(bk.KERNEL.plain_cuda_calls.values()) == 0
     # The sinks are summed in another order on the card and enter BDF's
     # error norm, so the two solves take other steps: both are certified

@@ -69,6 +69,58 @@ def test_kernel_is_bitwise_its_plain_version(name, dtype, size):
     assert torch.equal(got, again)
 
 
+#: K8's staged reads: (G, T, H, L) whose T L is no multiple of the span
+#: a block stages (4,096 float32 or 2,048 float64 outputs, or a quarter of
+#: that), with a halo wide enough for shifts in up to eight groups (the
+#: kernel groups shifts within 1,024 elements of each other), and shifts
+#: in the caller's order: five groups, where the spans of four vectors a
+#: thread fit shared memory, and eight, where they do not
+ROLL_SIZE = (2, 37, 80, 64)
+ROLL_SHIFTS = {"five groups": (2560, -1, 64, -2560, 1300, 0, -64, -1301),
+               "eight groups": (4400, -1100, 2200, -3300, 1100, -4400,
+                                3300, -2200)}
+
+
+def _offset(rows, L, dtype, dev, offset, fill=None):
+    """A [rows, L] tensor that starts ``offset`` elements into its buffer
+    (not 16-byte aligned where offset is odd)."""
+    buf = torch.empty(rows * L + offset, dtype=dtype, device=dev)
+    t = buf[offset:].view(rows, L)
+    if fill is not None:
+        t.copy_(fill)
+    return t
+
+
+@pytest.mark.parametrize("groups", sorted(ROLL_SHIFTS))
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("nshifts", range(1, 9))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_roll_window_staged_reads_are_bitwise(dtype, nshifts, offset,
+                                              groups):
+    """K8 on windows whose outputs are no multiple of the staged span,
+    whose x, prev, next and out start off a 16-byte boundary (offset
+    elements into their buffers, each by another amount), with 1 to 8
+    shifts, some in groups of their own: bitwise its plain version."""
+    dev = _dev()
+    dt = DTYPES[dtype]
+    G, T, H, L = ROLL_SIZE
+    rng = np.random.default_rng(nshifts + 10 * offset)
+
+    def rand(rows, off):
+        return _offset(rows, L, dt, dev, off, torch.as_tensor(
+            rng.random((rows, L)) + 0.5, dtype=dt))
+    x, prev = rand(G * T, offset), rand(G * H, 2 * offset)
+    nxt = rand(G * H, 3 * offset)
+    out = _offset(G * T, L, dt, dev, offset + 1)
+    c = float(rng.uniform(0.5, 2.0))
+    ks = ROLL_SHIFTS[groups][:nshifts]
+    got = pr.roll_window(c, x, prev, nxt, G, ks, out=out)
+    want = pr.roll_window_reference(c, x, prev, nxt, G, ks)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
 def test_misaligned_base_pointer_raises():
     dev = _dev()
     x = torch.zeros(129, dtype=torch.float32, device=dev)[1:]

@@ -12,6 +12,10 @@ and batched action, on the CPU.
 * A reaction subset is the whole operator with the other reactions'
   coefficients set to 0, bitwise (adding an exact zero changes nothing).
 * The batched plain versions are a loop of single plain calls, bitwise.
+* ``SensOperator.action`` makes one batched call for ``A p`` and every
+  ``A s_j`` (K9 on a card) and no single call of the base operator, and is
+  bitwise the arrangement of one single call for ``p`` beside one batched
+  call for the ``s_j``.
 """
 import numpy as np
 import pytest
@@ -34,8 +38,10 @@ from pacmensl_tpu_torch.ops.sens_operator import SensOperator  # noqa: E402
 
 TOL = dict(rtol=1e-12, atol=1e-13)
 
+#: nb = 1 + Np = 5, 3 and 2
 CASES = [("telegraph", [1, 1, 6], 0.0),
-         ("hog1p_3d_sens", [3, 5, 5, 3, 8, 8, 8], 30.0)]
+         ("hog1p_3d_sens", [3, 5, 5, 3, 8, 8, 8], 30.0),
+         ("poisson_sens", [5], 1.0)]
 
 
 def _space(bundle, bounds):
@@ -59,8 +65,8 @@ def _stacked(space, n_par, seed):
 
 @pytest.mark.parametrize("name,bounds,t", CASES)
 def test_sens_operator_matches_the_reference_package(name, bounds, t):
-    tb = pt.models.ALL_MODELS[name]()
-    jb = pm.models.ALL_MODELS[name]()
+    tb = getattr(pt.models, name)()
+    jb = getattr(pm.models, name)()
     ts = _space(tb, bounds)
     js = JBox(jb.model.stoichiometry,
               pm.ConstraintSet(jb.constraint, np.asarray(bounds),
@@ -95,6 +101,62 @@ def test_sens_operator_matches_the_reference_package(name, bounds, t):
                                    np.asarray(w.p).reshape(-1), **TOL)
         np.testing.assert_allclose(g.sinks.numpy(), np.asarray(w.sinks),
                                    **TOL)
+
+
+@pytest.mark.parametrize("name,bounds,t", CASES)
+def test_folded_action_is_bitwise_one_single_and_one_batched_call(
+        name, bounds, t):
+    """``A p`` folded into the batched call gives bitwise what a single
+    call for p beside a batched call for the s_j gave."""
+    b = getattr(pt.models, name)()
+    sop = SensOperator(b.model, _space(b, bounds))
+    n, nc, m = sop.local_n, sop.num_constraints, 1 + sop.n_par
+    p, k = _stacked(sop.base.space, sop.n_par, seed=7)
+    y = pt.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                     sinks=torch.as_tensor(k.reshape(-1)))
+    got = sop.action(t, y)
+    P = y.p.view(m, n)
+    c = sop.model.coefficients(t, sop.dtype)
+    out = torch.empty_like(y.p)
+    pv = pt.FspVector(p=P[0], sinks=y.sinks[:nc])
+    base = sop.base.action(t, pv, c=c, out=out[:n])
+    _, s_sinks = sop.base.action_batched(t, P[1:], c=c,
+                                         out=out[n:].view(m - 1, n))
+    sinks = torch.cat([base.sinks, s_sinks.reshape(-1)])
+    for j in range(sop.n_par):
+        if sop.dcxA[j] is None and sop.cxdA[j] is None:
+            continue
+        g = sop.sens_action(j, t, pv, c=c)
+        out[(j + 1) * n:(j + 2) * n].add_(g.p)
+        sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
+    assert torch.equal(got.p, out) and torch.equal(got.sinks, sinks)
+
+
+@pytest.mark.parametrize("name,bounds,t", CASES)
+def test_action_makes_one_batched_call_of_the_base_operator(
+        name, bounds, t, monkeypatch):
+    b = getattr(pt.models, name)()
+    sop = SensOperator(b.model, _space(b, bounds))
+    m = 1 + sop.n_par
+    calls = {"single": 0, "batched": []}
+    single, batched = sop.base.action, sop.base.action_batched
+
+    def count_single(*args, **kw):
+        calls["single"] += 1
+        return single(*args, **kw)
+
+    def count_batched(t, p, **kw):
+        calls["batched"].append(tuple(p.shape))
+        return batched(t, p, **kw)
+    monkeypatch.setattr(sop.base, "action", count_single)
+    monkeypatch.setattr(sop.base, "action_batched", count_batched)
+    p, k = _stacked(sop.base.space, sop.n_par, seed=8)
+    y = pt.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                     sinks=torch.as_tensor(k.reshape(-1)))
+    for _ in range(2):
+        sop.action(t, y)
+    assert calls == {"single": 0,
+                     "batched": [(m, sop.local_n)] * 2}
 
 
 def test_sens_action_matches_finite_differences():
