@@ -121,9 +121,44 @@ Phases (each check that fails ends the run with a nonzero exit):
       1e-14), dP/d(trans) against a central difference of two hog1p_5d
       solves at trans = 0.01 +/- 0.001: relative L1 below 5e-2.
 
+10. The compressed (ELL) backend and the stationary solver:
+
+   a. The repressilator of phase 4 on ``backend="ell"`` from the start
+      (plain PyTorch gathers on the card, no kernel launch): phase 4's
+      output checks, L1 <= 2 * fsp_tol to phase 4's distribution (the
+      state counts may differ), its ``EventLog`` phases and its assembly
+      time per epoch.
+   b. Its action at the final state set against one ``torch.mv`` of the
+      same generator as CSR with the sink rows appended (dp and sinks
+      within 1e-12 relative), timed with CUDA events over 100 actions
+      beside K3 on phase 4's final box, the CSR product and the action on
+      the same set in GRAPH's (reverse Cuthill-McKee) order; the fill
+      floor (K3's time per box element over ELL's per state) and the
+      "auto" rule for custom constraints that follows from it.
+   c. The repressilator to t = 2 on ``backend="box"`` with
+      ``PACMENSL_BOX_MEM_BUDGET`` = ``MIGRATE_BUDGET``: it migrates to ELL
+      partway (K3 until then), L1 <= 2 * fsp_tol to phase 7c's box-only
+      solve; K1 and K3 against their plain versions on the operator and
+      solution of the last box epoch.
+   d. hog1p_5d_sens at phase 9c's setting on ELL and on the box, under
+      BDF (the setting's) and under Krylov: p within 1e-6 relative L1
+      under both; each sensitivity within 1e-6 under Krylov and within
+      ``SENS_BDF_LIMIT`` under BDF, whose error norm averages over the
+      vector's entries (the box's capacity, ELL's padded list) so the
+      two take other steps; the FIM finite and symmetric.
+   e. The stationary law: birth-death on both backends against
+      Poisson(10) (L1 < 1e-6), then the repressilator (BASELINE.json
+      config 5, whose script leaves the backend to ``"auto"``: the box
+      with K3, then ELL once the fill falls below the fill floor) at
+      ``STAT_TOL``: every round's GMRES converges, sum(pi) = 1 within
+      1e-12, pi >= -1e-12, every sink at most ``STAT_TOL``, past the
+      96,142 states where the TPU's float32 solve stopped; K1 and K3
+      against their plain versions on the last box operator and pi.
+
 The ``kernels`` record counts each kernel's launches in the paths' own
-solves only: K1 and K3 in phases 4, 5, 6 and 9b, K4 in phases 7b and 7c
-(over all ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b.
+solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
+migration) and 10e, K4 in phases 7b and 7c (over all ranks), K5-K8 in
+phase 8's two entry points, K9 in phase 9b.
 ``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
 bound: the float operations over its 34 TFLOP/s in float64 and 67 in
@@ -191,6 +226,24 @@ SENS_STATES, SENS_RHS = 21467776, 7482
 #: step in trans, and the limit on the relative L1 of dP/d(trans)
 FD_T_FINAL, FD_TOL, FD_RTOL, FD_ATOL = 3.0, 1.0e-6, 1.0e-9, 1.0e-14
 FD_EPS, FD_LIMIT = 1.0e-3, 5.0e-2
+#: phase 10c: the vector-memory budget (PACMENSL_BOX_MEM_BUDGET, bytes)
+#: under which the repressilator's box solve to t = 2 migrates partway:
+#: 504k box elements under Krylov's 62 vectors (the box reaches 94 x 211 x
+#: 94 = 1.86M by t = 2)
+MIGRATE_BUDGET = 2.5e8
+#: phase 10d: the relative L1 within which ELL's and the box's BDF
+#: sensitivities at phase 9c's setting agree.  BDF's error norm averages
+#: over the vector's entries, so the two backends take other steps (527
+#: and 479 RHS evaluations) and their sensitivities differ by BDF's own
+#: error: 8.8e-7 and 1.35e-6 on an H100 80GB HBM3 at 700 W (this
+#: script), against 3.4e-13 and 8.9e-13 under Krylov
+SENS_BDF_LIMIT = 1.0e-5
+#: phase 10e: the stationary tolerance, cut from BASELINE.json config 5's
+#: 1e-6 (tools/bench_configs.py:96-108), which does not finish in this
+#: script's time (PERF.md): 0.08 ends past the TPU's 96,142 states
+#: (115,155 states after 44 rounds, this phase on an H100 80GB HBM3 at
+#: 700 W) and 0.09 does not (89,468 states, the same solve on the host)
+STAT_TOL = 0.08
 
 
 def fail(msg):
@@ -690,6 +743,32 @@ def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
     import torch
     import pacmensl_tpu_torch as pt
 
+    def uncounted(run):
+        """``run`` (kernels against their plain versions) without adding
+        to the path's counts."""
+        counts = (bk.KERNEL.launches, bk.KERNEL.plain_calls,
+                  bk.KERNEL.plain_cuda_calls)
+        held = [dict(d) for d in counts]
+        run()
+        for d, h in zip(counts, held):
+            d.update(h)
+
+    def hold_box(phase, s):
+        """Checks the box kernels against their plain versions on the box
+        operator and solution a migration leaves, then times the
+        migration; returns the list of (seconds, states, t) it fills."""
+        log, migrate = [], s._migrate_box_to_ell
+
+        def hooked():
+            uncounted(lambda: final_operator(
+                phase, "last box epoch before the migration", s, s._t_now))
+            t0 = time.perf_counter()
+            migrate()
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, s.num_states, s._t_now))
+        s._migrate_box_to_ell = hooked
+        return log
+
     def setup(s, bundle):
         s.set_model(bundle.model)
         s.set_constraint_functions(bundle.constraint)
@@ -701,8 +780,8 @@ def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
 
     hs = pt.models.hog1p_5d_sens()
     t0 = time.perf_counter()
-    sd = setup(pt.SensFspSolverMultiSinks(odes_type="auto", device=dev),
-               hs).solve(t_final, tol)
+    sd = setup(pt.SensFspSolverMultiSinks(backend="box", odes_type="auto",
+                                          device=dev), hs).solve(t_final, tol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -717,8 +796,9 @@ def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
             return prop0(x, r)
         base.model = pt.Model(base.model.stoichiometry, prop,
                               base.model.t_coeff, tv_reactions=(2,))
-        return setup(pt.FspSolverMultiSinks(odes_type="auto", device=dev),
-                     base).solve(t_final, tol)
+        return setup(pt.FspSolverMultiSinks(backend="box", odes_type="auto",
+                                            device=dev), base).solve(t_final,
+                                                                     tol)
 
     dp, dm = plain(0.01 + eps), plain(0.01 - eps)
     keyd = {tuple(x): float(v) for x, v in zip(dp.states, dp.p)}
@@ -869,7 +949,8 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
 
     # (b) hog1p_5d_sens, the path
     hs = pt.models.hog1p_5d_sens()
-    s = pt.SensFspSolverMultiSinks(odes_type="auto", device=dev)
+    s = pt.SensFspSolverMultiSinks(backend="box", odes_type="auto",
+                                   device=dev)
     s.set_model(hs.model)
     s.set_constraint_functions(hs.constraint)
     s.set_initial_bounds(hs.bounds)
@@ -988,6 +1069,318 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
     check(rel < FD_LIMIT, f"hog1p_5d_sens finite-difference oracle: "
                           f"relative L1 {rel:.3e}")
     return launch9, k9
+
+
+def ell_csr(op, c):
+    """The compressed operator at coefficients ``c`` as a CSR matrix of
+    ``n + nc`` rows, the sink rows last: the function its action computes
+    on the ``n`` valid entries.  The library yardstick only."""
+    import torch
+    n, nc = op.n_states, op.num_constraints
+    dev = op.device
+    cr = torch.as_tensor(c, dtype=torch.float64, device=dev)
+    rows = torch.arange(n, device=dev)
+    off = op.off_val[:, :n] * cr[:, None]
+    keep = off != 0
+    r_off = rows.expand_as(off)[keep]
+    c_off = op.src_idx[:, :n][keep]
+    diag = -(cr[:, None] * op.diag_val[:, :n]).sum(0)
+    sink_v = op.sink_w * cr[op.sink_r][None, :]
+    sk = sink_v != 0
+    r_s = (n + torch.arange(nc, device=dev)[:, None]).expand_as(sink_v)[sk]
+    c_s = op.sink_x[None, :].expand_as(sink_v)[sk]
+    idx = torch.stack([torch.cat([r_off, rows, r_s]),
+                       torch.cat([c_off, rows, c_s])])
+    vals = torch.cat([off[keep], diag, sink_v[sk]])
+    return torch.sparse_coo_tensor(idx, vals, (n + nc, n)
+                                   ).coalesce().to_sparse_csr()
+
+
+def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
+    """Phase 10: the compressed (ELL) backend and the stationary solver.
+    (a) The repressilator on ELL from the start, phase 4's setting.  (b)
+    Its action at the final state set against K3 on phase 4's final box,
+    one torch.mv of the generator as CSR, and the action in GRAPH's
+    order; the fill floor and the "auto" rule from these.  (c) A box
+    solve to t = 2 that migrates on PACMENSL_BOX_MEM_BUDGET, against the
+    one-device box solve ``d_t2`` of phase 7c.  (d) hog1p_5d_sens at
+    phase 9c's setting on ELL against the box.  (e) The stationary law of
+    the repressilator (BASELINE.json config 5) on the box, and of the
+    birth-death model on both backends against Poisson(10).  In (c) and
+    (e) K1 and K3 are held against their plain versions at the last box
+    epoch (``final_operator``).  Returns the box kernel's launches in (c)
+    and (e)'s repressilator solve."""
+    import os
+    import warnings
+    import numpy as np
+    import torch
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.fsp import solver as fsp_solver
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops.vecops import FspVector
+    from pacmensl_tpu_torch.statespace.partitioner import (
+        PartitioningType, StatePartitioner)
+
+    def uncounted(run):
+        """``run`` (kernels against their plain versions) without adding
+        to the path's counts."""
+        counts = (bk.KERNEL.launches, bk.KERNEL.plain_calls,
+                  bk.KERNEL.plain_cuda_calls)
+        held = [dict(d) for d in counts]
+        run()
+        for d, h in zip(counts, held):
+            d.update(h)
+
+    def hold_box(phase, s):
+        """Checks the box kernels against their plain versions on the box
+        operator and solution a migration leaves, then times the
+        migration; returns the list of (seconds, states, t) it fills."""
+        log, migrate = [], s._migrate_box_to_ell
+
+        def hooked():
+            uncounted(lambda: final_operator(
+                phase, "last box epoch before the migration", s, s._t_now))
+            t0 = time.perf_counter()
+            migrate()
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, s.num_states, s._t_now))
+        s._migrate_box_to_ell = hooked
+        return log
+
+    def setup(s, bundle):
+        s.set_model(bundle.model)
+        s.set_constraint_functions(bundle.constraint)
+        s.set_initial_bounds(bundle.bounds)
+        s.set_expansion_factors(bundle.expansion_factors)
+        s.set_initial_distribution(bundle.x0, bundle.p0)
+        return s
+
+    # (a) the repressilator on ELL at full size
+    s = setup(pt.FspSolverMultiSinks(backend="ell", odes_type="krylov",
+                                     device=dev), rep)
+    d10, _, wall = run_solve("10a", f"repressilator on ELL t={SLICE_T_FINAL:g}"
+                             f" tol={SLICE_TOL:g}", s, SLICE_T_FINAL,
+                             SLICE_TOL, lambda k: 1.0e-8, kernel=False)
+    check(s._backend_used == "ell" and isinstance(s._operator,
+                                                  pt.EllOperator),
+          "10a: the solve did not run on the compressed backend")
+    ev = s.get_event_log().events
+    l1 = l1_by_state(d10, d4)
+    mg = ev["MatrixGeneration"]
+    print(f"[10a] {d10.num_states} states on ELL against phase 4's "
+          f"{d4.num_states} on the box; L1 {l1:.3e} (limit "
+          f"{2 * SLICE_TOL:g}); MatrixGeneration {mg.total_s:.3f} s over "
+          f"{mg.count} assemblies ({mg.total_s / mg.count * 1e3:.1f} ms "
+          f"each), StatePartitioning {ev['StatePartitioning'].total_s:.3f} "
+          f"s, ODESolve {ev['ODESolve'].total_s:.3f} s, wall {wall:.2f} s; "
+          f"{smi}", flush=True)
+    check(l1 <= 2 * SLICE_TOL, f"10a: L1 to phase 4 {l1:.3e} > "
+                               f"{2 * SLICE_TOL:g}")
+
+    # (b) the action at the final state set
+    op, y = s._operator, s._y
+    n, nc = op.n_states, op.num_constraints
+    c = op.model.coefficients(SLICE_T_FINAL)
+    A = ell_csr(op, c)
+    pv = y.p[:n].contiguous()
+    ref = torch.mv(A, pv)
+    got = op.action(SLICE_T_FINAL, y)
+    scale = float(ref[:n].abs().max())
+    e_dp = float((got.p[:n] - ref[:n]).abs().max()) / scale
+    e_s = float(((got.sinks - ref[n:]).abs()
+                 / ref[n:].abs().clamp_min(1e-300)).max())
+    print(f"[10b] ELL action at {n} states (n_pad {op.n_pad}, {op.nnz()} "
+          f"nonzeros, {op.sink_x.numel()} boundary transitions) against "
+          f"one torch.mv of the generator as CSR: dp {e_dp:.3e} relative "
+          f"to its largest, sinks {e_s:.3e} relative (limits 1e-12)",
+          flush=True)
+    check(e_dp <= 1e-12 and e_s <= 1e-12,
+          f"10b: the ELL action differs from the CSR product ({e_dp:.3e}, "
+          f"{e_s:.3e})")
+    check(not bool(got.p[n:].any()), "10b: nonzero dp past the states")
+    # the same set in GRAPH's (reverse Cuthill-McKee) order
+    t0 = time.perf_counter()
+    ss2 = pt.StateSet(rep.model.stoichiometry, s.constraints,
+                      init_states=s._space.states)
+    order = StatePartitioner(PartitioningType.GRAPH).partition(
+        ss2.states, rep.model.stoichiometry, 1, state2index=ss2.state2index,
+        need_boundaries=False).order
+    ss2.reorder(order)
+    op_g = pt.EllOperator(rep.model, ss2, device=dev)
+    t_rcm = time.perf_counter() - t0
+    pg = torch.zeros_like(y.p)
+    pg[torch.as_tensor(ss2.state2index(s._space.states), device=dev)] = pv
+    yg = FspVector(p=pg, sinks=y.sinks)
+    gg = op_g.action(SLICE_T_FINAL, yg)
+    inv = torch.as_tensor(ss2.state2index(s._space.states), device=dev)
+    e_g = float((gg.p[inv] - got.p[:n]).abs().max()) / scale
+    check(e_g <= 1e-12, f"10b: the action in GRAPH order differs "
+                        f"({e_g:.3e})")
+    c4 = op4.model.coefficients(SLICE_T_FINAL)
+    runs = {"ELL": lambda: op.action(SLICE_T_FINAL, y),
+            "K3": lambda: op4.action(SLICE_T_FINAL,
+                                     FspVector(p=p4, sinks=None), c=c4),
+            "CSR": lambda: torch.mv(A, pv),
+            "ELL_GRAPH": lambda: op_g.action(SLICE_T_FINAL, yg)}
+    t = {k: [] for k in runs}
+    for k in ("ELL", "K3", "CSR", "ELL_GRAPH", "ELL_GRAPH", "CSR", "K3",
+              "ELL"):
+        t[k].append(time_ms(runs[k], reps=100))
+    ell_ms, k3_ms = min(t["ELL"]), min(t["K3"])
+    box_n = int(np.prod(op4.shape))
+    floor = (k3_ms / box_n) / (ell_ms / n)
+    fill = d4.num_states / box_n
+    # R gathers of p (int64 index, value), the diagonal, p, dp, sinks
+    R = rep.model.num_reactions
+    nbytes = 8 * (3 * R * op.n_pad + 2 * op.n_pad
+                  + op.sink_x.numel() * (2 + nc))
+    bnd = bound(nbytes, 2 * op.nnz())
+    print(f"[10b] us per action (order ELL K3 CSR GRAPH GRAPH CSR K3 ELL): "
+          + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+                      for k, vs in t.items())
+          + f"; ELL {ell_ms / n * 1e6:.3f} ns per state, K3 "
+          f"{k3_ms / box_n * 1e6:.4f} ns per box element ({op4.shape}); "
+          f"bound of the ELL action {bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f}"
+          f" MB, {bnd[1]}); GRAPH ordering took {t_rcm:.2f} s; {smi}",
+          flush=True)
+    auto = "box" if floor < fill else "ell"
+    print(f"[10b] fill floor (K3 per box element / ELL per state) "
+          f"{floor:.4f}; the repressilator's final fill {fill:.4f}; the "
+          f"port's BOX_FILL_FLOOR {fsp_solver.BOX_FILL_FLOOR}; measured "
+          f"rule for custom constraints under auto: {auto} (the port's: "
+          f"box on a card); GRAPH order's time over the insertion order's "
+          f"{min(t['ELL_GRAPH']) / ell_ms:.4f}", flush=True)
+    check(auto == "box", "10b: the measured fill floor puts custom "
+                         "constraints on ELL, the port starts them on the box")
+    del s, op, y, A, pv, ref, got, ss2, op_g, pg, yg, gg, runs
+    torch.cuda.empty_cache()
+
+    # (c) migration on the memory budget, to t = 2
+    os.environ["PACMENSL_BOX_MEM_BUDGET"] = str(MIGRATE_BUDGET)
+    try:
+        s = setup(pt.FspSolverMultiSinks(backend="box", odes_type="krylov",
+                                         device=dev), rep)
+        t_mig = hold_box("10c", s)
+        d10c, launch10c, wall = run_solve(
+            "10c", f"repressilator box -> ELL t={GLOO_T_FINAL:g}", s,
+            GLOO_T_FINAL, SLICE_TOL, lambda k: 1.0e-8)
+    finally:
+        del os.environ["PACMENSL_BOX_MEM_BUDGET"]
+    l1 = l1_by_state(d10c, d_t2)
+    print(f"[10c] budget {MIGRATE_BUDGET:g} B: migrated at t = "
+          f"{t_mig[0][2]:.4g} with {t_mig[0][1]} states in "
+          f"{t_mig[0][0]:.3f} s (migrations: {len(t_mig)}); backend at the "
+          f"end {s._backend_used}, {d10c.num_states} states, K3 launches "
+          f"before the migration {launch10c['synth']}; L1 to the box-only "
+          f"solve of 7c ({d_t2.num_states} states) {l1:.3e}; wall "
+          f"{wall:.2f} s", flush=True)
+    check(s._backend_used == "ell" and len(t_mig) == 1,
+          "10c: the solve did not migrate to the compressed backend")
+    check(l1 <= 2 * SLICE_TOL, f"10c: L1 to the box-only solve {l1:.3e}")
+    del s
+    torch.cuda.empty_cache()
+
+    # (d) sensitivities on ELL at phase 9c's setting, against the box.
+    # BDF's error norm is a mean over the vector's entries, the box's
+    # capacity or ELL's n_pad, so the two take other steps and agree only
+    # to the integrator's error: p to 1e-6, each sensitivity (a small
+    # vector, whose error is relative to p's scale) to SENS_BDF_LIMIT.
+    # Krylov's 2-norms do not count the structural zeros: under it the
+    # backends take the same steps, and all are held to 1e-6.
+    hs = pt.models.hog1p_5d_sens()
+    for odes in ("auto", "krylov"):
+        sd = {}
+        for backend in ("ell", "box"):
+            s = setup(pt.SensFspSolverMultiSinks(
+                backend=backend, odes_type=odes, device=dev), hs)
+            s.set_ode_tolerances(FD_RTOL, FD_ATOL)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # Krylov/tv
+                sd[backend] = s.solve(FD_T_FINAL, FD_TOL)
+            torch.cuda.synchronize()
+            ev = s.get_event_log().events
+            print(f"[10d] hog1p_5d_sens t={FD_T_FINAL:g} tol={FD_TOL:g} "
+                  f"{type(s._ode_solver).__name__} on {s._backend_used}: "
+                  f"{sd[backend].num_states} states, epochs "
+                  f"{ev['ODESolve'].count}, RHS evaluations "
+                  f"{ev['RHSEvaluation'].count}, wall "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            check(s._backend_used == backend,
+                  f"10d: ran on {s._backend_used}")
+            del s
+            torch.cuda.empty_cache()
+        ke = {tuple(x): i for i, x in enumerate(sd["ell"].states)}
+        check(sd["ell"].num_states == sd["box"].num_states
+              and all(tuple(x) in ke for x in sd["box"].states),
+              "10d: the two backends' state sets differ")
+        perm = np.array([ke[tuple(x)] for x in sd["box"].states])
+        rels = [float(np.abs(a[perm] - b).sum() / np.abs(b).sum())
+                for a, b in [(sd["ell"].p, sd["box"].p)] + list(
+                    zip(sd["ell"].dp, sd["box"].dp))]
+        fim = sd["ell"].compute_fim()
+        asym = float(np.abs(fim - fim.T).max() / np.abs(fim).max())
+        lim = 1e-6 if odes == "krylov" else SENS_BDF_LIMIT
+        print(f"[10d] {odes}: ELL against the box, relative L1 of p and "
+              f"each sensitivity {', '.join(f'{r:.3e}' for r in rels)} "
+              f"(limits 1e-6, {lim:g}); ELL's FIM {fim.tolist()}, "
+              f"asymmetry {asym:.3e}", flush=True)
+        check(rels[0] <= 1e-6 and max(rels[1:]) <= lim,
+              f"10d ({odes}): ELL and box differ by {rels}")
+        check(np.isfinite(fim).all() and asym <= 1e-12,
+              "10d: FIM not finite and symmetric")
+
+    # (e) stationary: the birth-death oracle on both backends, then the
+    # repressilator, BASELINE.json config 5
+    from scipy.stats import poisson as poisson_law
+    for backend in ("box", "ell"):
+        b = pt.models.birth_death(birth=1.0, death=0.1)
+        s = pt.StationaryFspSolverMultiSinks(backend=backend, device=dev)
+        s.set_model(b.model)
+        s.set_initial_bounds([10])
+        s.set_expansion_factors([0.5])
+        s.set_initial_distribution(b.x0, b.p0)
+        d = s.solve(1.0e-7)
+        pdf = poisson_law.pmf(d.states[:, 0], 10.0)
+        l1 = float(np.abs(d.p - pdf / pdf.sum()).sum())
+        print(f"[10e] birth-death stationary on {backend}: {d.num_states} "
+              f"states, L1 to Poisson(10) {l1:.3e} (limit 1e-6)", flush=True)
+        check(l1 < 1e-6, f"10e: birth-death on {backend}: L1 {l1:.3e}")
+    s = setup(pt.StationaryFspSolverMultiSinks(device=dev), rep)
+    t_mig = hold_box("10e", s)
+    torch.cuda.synchronize()
+    bk.KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    d = s.solve(STAT_TOL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launch10e = dict(bk.KERNEL.launches)
+    if s._backend_used == "box":
+        final_operator("10e", "stationary repressilator", s, 0.0)
+    else:
+        print(f"[10e] migrated at {t_mig[0][1]} states", flush=True)
+    for k, r in enumerate(s.rounds_):
+        print(f"[10e] round {k}: {r.backend}, {r.num_states} states, GMRES "
+              f"{r.n_matvecs} matvecs, preconditioned residual "
+              f"{r.res_norm:.3e}, raw {r.raw_res_norm:.3e}, sinks "
+              f"{np.array2string(r.sinks, precision=3)}, {r.seconds:.2f} s",
+              flush=True)
+    mass, sinks = d.sum(), np.asarray(s.sinks_)
+    print(f"[10e] stationary repressilator sfsp_tol={STAT_TOL:g}: "
+          f"{d.num_states} states (the TPU's float32 wall: 96,142), "
+          f"{len(s.rounds_)} rounds, backend at the end {s._backend_used}, "
+          f"bounds {d.bounds.tolist()}, sum(pi) - 1 = {mass - 1:.3e}, "
+          f"min(pi) {d.p.min():.3e}, max sink {sinks.max():.3e}, kernel "
+          f"launches {launch10e}, wall {wall:.2f} s; {smi}", flush=True)
+    check(abs(mass - 1.0) <= 1e-12, f"10e: sum(pi) - 1 = {mass - 1:.3e}")
+    check(d.p.min() >= -1e-12, f"10e: min(pi) = {d.p.min():.3e}")
+    check((sinks <= STAT_TOL).all(), f"10e: sinks {sinks} > {STAT_TOL:g}")
+    check(d.num_states > 96142, f"10e: {d.num_states} states, not past "
+                                "the TPU's float32 wall of 96,142")
+    check(sum(launch10e.values()) > 0, "10e: no box kernel launch")
+    del s
+    torch.cuda.empty_cache()
+    return launch10c, launch10e
 
 
 def main():
@@ -1321,12 +1714,14 @@ def main():
         s.set_initial_distribution(bundle.x0, bundle.p0)
         return s
 
-    def run_solve(phase, label, s, t_final, tol, mass_tol):
+    def run_solve(phase, label, s, t_final, tol, mass_tol, kernel=True):
         """One solve with the counters set to 0 just before it; prints
-        and checks its output; returns (distribution, launches, plain
-        calls)."""
+        and checks its output; returns (distribution, launches, wall).
+        ``kernel=False``: a compressed-backend solve, which launches no
+        box kernel."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
         bk.KERNEL.reset_counts()
         t0 = time.perf_counter()
         d = s.solve(t_final, tol)
@@ -1339,12 +1734,15 @@ def main():
         mass, sinks = d.sum(), np.asarray(d.sinks)
         steps = ev["ODESteps"].count if "ODESteps" in ev else 0
         rej = ev["ODEStepsRejected"].count if "ODEStepsRejected" in ev else 0
+        cap = (tuple(s._space.shape) if s._backend_used == "box"
+               else f"n_pad {s._operator.local_n}")
         print(f"[{phase}] {label}: {d.num_states} states, bounds "
-              f"{d.bounds.tolist()}, capacity {tuple(s._space.shape)}, "
+              f"{d.bounds.tolist()}, capacity {cap}, "
               f"epochs {ev['ODESolve'].count}, RHS evaluations "
               f"{ev['RHSEvaluation'].count}, steps {steps}, rejected {rej}, "
               f"wall {wall:.2f} s, peak device memory {peak / 2**30:.2f} "
-              f"GiB, sum(p) {mass:.10f}, sum(sinks) {sinks.sum():.3e}, "
+              f"GiB ({held / 2**30:.2f} held before the solve), sum(p) "
+              f"{mass:.10f}, sum(sinks) {sinks.sum():.3e}, "
               f"kernel launches {launches}, plain calls on CUDA {plain}",
               flush=True)
         print(s.get_event_log().report(), flush=True)
@@ -1368,7 +1766,8 @@ def main():
               f"{mass + sinks.sum() - 1:.3e}, sum(p) + max(sinks) - 1 = "
               f"{mass + sinks.max() - 1:.3e}, tolerance {mt:.1e}",
               flush=True)
-        check(sum(launches.values()) > 0, f"{label}: no kernel launch")
+        check((sum(launches.values()) > 0) == kernel,
+              f"{label}: kernel launches {launches}")
         check(sum(plain.values()) == 0,
               f"{label}: the plain versions ran {plain} times on CUDA")
         return d, launches, wall
@@ -1674,7 +2073,7 @@ def main():
           f"{ms4f['K3'] <= ms4f['K1']}", flush=True)
     library("7a", c4, p4, mask4, op4.props, viol4, op4.shape,
             op4.geom.nc, k1_4, reps=10)
-    del win4, k1_4, mask4, viol4, op4, p4
+    del win4, k1_4, mask4, viol4
     torch.cuda.empty_cache()
 
     def rank_checks(phase, label, res, tol, per_matvec):
@@ -1784,7 +2183,13 @@ def main():
     launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_solve, tables,
                              same_twice, max_err)
 
-    paths = (launch4, launch5, launch6, launch9)
+    # --------------------------------------------------------- phase 10
+    launch10c, launch10e = ell_phase(dev, smi, run_solve, final_operator,
+                                        rep, d4, op4, p4, d1)
+    del op4, p4
+    torch.cuda.empty_cache()
+
+    paths = (launch4, launch5, launch6, launch9, launch10c, launch10e)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",

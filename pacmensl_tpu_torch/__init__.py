@@ -3,7 +3,9 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``pacmensl_tpu`` (JAX/Pallas for the TPU), with the same
 subpackage layout.  It imports no JAX.  This package holds the transient
-solve on the dense-box backend, with the Krylov integrator for
+solve on the dense-box and the compressed (ELL) backends (``backend=
+"auto"`` picks, and a box solve migrates to the compressed backend where
+the box outgrows its memory budget), with the Krylov integrator for
 time-invariant models and BDF with matrix-free GMRES for time-varying
 ones (``odes_type="auto"`` picks)::
 
@@ -39,6 +41,12 @@ information and the smFISH likelihood gradient::
     data = pt.SmFishSnapshot(observed_counts)   # [cells, species]
     grad = pt.smfish_gradient(data, sd, measured_species=[1, 2])
 
+The stationary law (time-invariant models), on either backend::
+
+    s = pt.StationaryFspSolverMultiSinks(backend="box", device="cuda")
+    ...                                 # as above
+    pi = s.solve(1e-6)                  # every sink at most 1e-6
+
 Pass ``device="cpu"`` to run on the host, where the box kernel's plain
 PyTorch version takes the kernel's place.
 
@@ -64,8 +72,12 @@ from .models.model import Model, SensModel  # noqa: F401
 from .models import library as models  # noqa: F401
 from .statespace.constraints import ConstraintSet  # noqa: F401
 from .statespace.box_space import BoxStateSpace  # noqa: F401
+from .statespace.state_set import StateSet  # noqa: F401
+from .statespace.partitioner import (  # noqa: F401
+    PartitioningType, PartitioningApproach, StatePartitioner)
 from .ops.vecops import FspVector  # noqa: F401
 from .ops.box_operator import BoxOperator  # noqa: F401
+from .ops.ell_operator import EllOperator  # noqa: F401
 from .solvers.base import ODESolverType  # noqa: F401
 from .solvers.krylov import KrylovSolver  # noqa: F401
 from .solvers.bdf import BdfSolver  # noqa: F401
@@ -73,6 +85,7 @@ from .fsp.distribution import DiscreteDistribution  # noqa: F401
 from .fsp.solver import FspSolverMultiSinks  # noqa: F401
 from .sensfsp.sens_distribution import SensDiscreteDistribution  # noqa: F401
 from .sensfsp.sens_solver import SensFspSolverMultiSinks  # noqa: F401
+from .stationary.solver import StationaryFspSolverMultiSinks  # noqa: F401
 from .smfish.snapshot import (  # noqa: F401
     SmFishSnapshot, smfish_loglikelihood, smfish_gradient)
 from .pdo.pdo import Pdo  # noqa: F401
@@ -81,4 +94,4 @@ from .sys.environment import Environment  # noqa: F401
 from .parallel.mesh import StateMesh, make_mesh  # noqa: F401
 from . import interop  # noqa: F401
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

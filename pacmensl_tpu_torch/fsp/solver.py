@@ -25,13 +25,23 @@ the same steps.  Axis 0 of the capacity is padded to a multiple of the
 rank count; expansion gathers ``p``, embeds it and takes the new slab;
 the distribution is gathered on every rank.
 
-The compressed (ELL) backend, the RK and CN integrators and the axis
-reordering of the reference package are not ported yet (ROADMAP): where
-the reference package would migrate to the ELL backend, this driver
-raises :class:`StateSpaceError`.
+The compressed (ELL) backend (``backend="ell"``,
+:class:`~..statespace.state_set.StateSet` and
+:class:`~..ops.ell_operator.EllOperator`) runs on one device: its
+expansion is the state set's frontier BFS, an optional re-ordering by the
+partitioner when the set grew by more than ``lb_threshold``, an operator
+re-assembly and an index scatter of the solution.  ``backend="auto"``
+routes (:meth:`_choose_backend`) and a box solve migrates to the
+compressed backend mid-solve (:meth:`_should_leave_box`,
+:meth:`_migrate_box_to_ell`) where the box outgrows the memory budget, or
+under ``"auto"`` where its fill falls below :data:`BOX_FILL_FLOOR`.  The
+compressed backend over a mesh (``parallel/halo_ell.py``), the RK and CN
+integrators and the axis reordering of the reference package are not
+ported yet (ROADMAP).
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import List, Optional, Sequence, Union
@@ -48,7 +58,11 @@ from ..sys.events import (EventLog, StepTrace, EVT_SETUP, EVT_PARTITION,
 from ..statespace.constraints import ConstraintSet
 from ..statespace.box_space import (BoxStateSpace, MAX_BOX_ELEMS,
                                     _round_capacity)
+from ..statespace.partitioner import (PartitioningApproach,
+                                      PartitioningType, StatePartitioner)
+from ..statespace.state_set import StateSet
 from ..ops.box_operator import BoxOperator
+from ..ops.ell_operator import EllOperator
 from ..ops import vecops as vo
 from ..ops.vecops import FspVector
 from ..parallel.mesh import gather_global, shard_fsp_vector
@@ -58,28 +72,52 @@ from ..solvers.krylov import KrylovSolver
 from .distribution import DiscreteDistribution
 
 #: vector-memory budget on the host, in bytes (the reference package's
-#: default); on a CUDA device the budget is half the device memory
+#: default); on a CUDA device the budget is half the device memory.  The
+#: reference package's ``PACMENSL_BOX_MEM_BUDGET`` (bytes) overrides both.
 _HOST_MEM_BUDGET = 8.0e9
+
+#: The fill floor: a box solve under ``backend="auto"`` migrates to the
+#: compressed backend where its states fill less than this share of the
+#: tight box.  It is the ratio of the two backends' costs per matvec,
+#: (K3's time per box element) / (the ELL action's time per state),
+#: measured by chip_smoke.py phase 10b at the repressilator's final state
+#: set on an NVIDIA H100 80GB HBM3 at a 700 W power limit: K3 116.2 us on
+#: the 211x316x211 box (8.3 ps per element), the ELL action 239.7 us at
+#: 1,193,406 states (201 ps per state), ratio 0.041.  (The reference
+#: package's 0.001 was the TPU's ratio.)  The same run puts the
+#: repressilator's final fill, 1,193,406 states in 14.07M box elements,
+#: at 0.085, above the floor: on a card custom constraints start on the
+#: box (:meth:`FspSolverMultiSinks._choose_backend`).
+BOX_FILL_FLOOR = 0.041
+
+_NO_ELL_MESH = ("the compressed (ELL) backend over a mesh is not ported yet "
+                "(ROADMAP A13, parallel/halo_ell.py)")
 
 
 class FspSolverMultiSinks:
     """Transient CME solver with multi-sink adaptive FSP truncation."""
 
     def __init__(self,
-                 backend: str = "box",
+                 backend: str = "auto",
                  odes_type: Union[ODESolverType, str] = "auto",
                  device=None, mesh=None):
-        """``device`` defaults to the mesh's where a ``mesh`` is given,
-        else to ``"cuda"``."""
-        if backend not in ("box", "auto"):
-            raise SetupError(
-                f"backend {backend!r} is not ported yet: only the dense box "
-                "backend exists (compressed ELL backend: ROADMAP A9)")
+        """``backend``: ``"box"``, ``"ell"`` or ``"auto"``
+        (:meth:`_choose_backend`).  ``device`` defaults to the mesh's
+        where a ``mesh`` is given, else to ``"cuda"``."""
+        if backend not in ("box", "ell", "auto"):
+            raise SetupError(f"unknown backend {backend!r} (box, ell or "
+                             "auto)")
         self.backend = backend
         self._device_arg = device
         self.set_mesh(mesh)
         self.dtype = DEFAULT_DTYPE
         self.set_odes_type(odes_type)
+        self.partitioning = PartitioningType.BLOCK
+        self.repart_approach = PartitioningApproach.FROMSCRATCH
+        #: re-order the compressed state set only when it grew by this
+        #: factor since the last ordering (reference lb_threshold_,
+        #: StateSetBase.h:111, StateSetConstrained.cpp:213-218)
+        self.lb_threshold = 1.2
 
         self.model: Optional[Model] = None
         self.constraints: Optional[ConstraintSet] = None
@@ -93,10 +131,12 @@ class FspSolverMultiSinks:
         self.events = EventLog()
         self.step_trace = StepTrace()
 
-        self._space: Optional[BoxStateSpace] = None
-        self._operator: Optional[BoxOperator] = None
+        self._backend_used: Optional[str] = None
+        self._space: Optional[Union[BoxStateSpace, StateSet]] = None
+        self._operator = None
         self._ode_solver: Optional[Union[KrylovSolver, BdfSolver]] = None
         self._ode_solver_key = None
+        self._n_last_partition = 0
         self._y: Optional[FspVector] = None
         self._t_now = 0.0
         self._t_prev_epoch: Optional[float] = None
@@ -109,6 +149,8 @@ class FspSolverMultiSinks:
         analogue of the reference running on several MPI ranks."""
         dev = self._device_arg
         if mesh is not None:
+            if self.backend == "ell":
+                raise SetupError(_NO_ELL_MESH)
             if dev is not None and resolve_device(dev) != mesh.device:
                 raise SetupError(f"device {dev!r} is not the mesh's device "
                                  f"{mesh.device}")
@@ -233,6 +275,26 @@ class FspSolverMultiSinks:
         self.verbosity = int(level)
         return self
 
+    def set_load_balancing_method(self, ptype) -> "FspSolverMultiSinks":
+        """The compressed state set's ordering (reference
+        ``SetLoadBalancingMethod``): BLOCK keeps the insertion order,
+        GRAPH and HYPERGRAPH re-order it for locality."""
+        self.partitioning = (ptype if isinstance(ptype, PartitioningType)
+                             else PartitioningType.from_string(str(ptype)))
+        if self.partitioning == PartitioningType.HIERARCHICAL:
+            raise SetupError("HIERARCHICAL partitioning is not supported "
+                             "(unsupported in the reference as well)")
+        return self
+
+    def set_repart_approach(self, approach) -> "FspSolverMultiSinks":
+        """How a re-ordering treats the existing order (reference
+        ``PartitioningApproach``): FROMSCRATCH recomputes it,
+        REPARTITION and REFINE keep it."""
+        self.repart_approach = (
+            approach if isinstance(approach, PartitioningApproach)
+            else PartitioningApproach.from_string(str(approach)))
+        return self
+
     # -------------------------------------------------------------- setup
     def _box_elem_budget(self) -> float:
         """Box elements the integrator's vectors may take (reference
@@ -240,7 +302,9 @@ class FspSolverMultiSinks:
         box-sized vectors alive; BDF its GMRES basis (restart + 1), the
         difference array (q_max + 3) and its work vectors with a margin,
         the reference package's count."""
-        if self.device.type == "cuda":
+        if "PACMENSL_BOX_MEM_BUDGET" in os.environ:
+            mem = float(os.environ["PACMENSL_BOX_MEM_BUDGET"])
+        elif self.device.type == "cuda":
             mem = 0.5 * torch.cuda.get_device_properties(
                 self.device).total_memory
         else:
@@ -254,13 +318,39 @@ class FspSolverMultiSinks:
         return mem / (vecs * torch.finfo(self.dtype).bits / 8)
 
     def _choose_backend(self) -> str:
+        """``"auto"``: the box, unless the constraints are custom and the
+        box does not pay on this device, or the box would not fit the
+        memory budget (reference ``_choose_backend``).  On the host,
+        custom constraints go to the compressed backend, as in the
+        reference package off the TPU.  On a card they start on the box,
+        and :meth:`_should_leave_box` moves the solve to the compressed
+        backend once its fill falls below :data:`BOX_FILL_FLOOR`.  With a
+        mesh: the box (the compressed backend over ranks is not
+        ported)."""
+        if self.backend != "auto":
+            return self.backend
+        if self.mesh is not None:
+            return "box"
+        if self.constraints.fn is not None and self.device.type != "cuda":
+            return "ell"
+        box = self.constraints.derive_box_bounds(self.model.num_species,
+                                                 self._init_states)
+        size = float(np.prod(np.asarray(box, np.float64) + 1.0))
+        if size > min(float(MAX_BOX_ELEMS), self._box_elem_budget()):
+            return "ell"
         return "box"
 
     def _should_leave_box(self, new_bounds) -> bool:
-        """The reference package's test (``_should_leave_box``) for
-        migrating to the compressed backend: the grown box's fresh
-        capacity would exceed the memory budget, or the constraint set
-        fills under 0.1% of a large box."""
+        """Whether a box solve migrates to the compressed backend before
+        growing to ``new_bounds`` (reference ``_should_leave_box``): the
+        grown box's fresh capacity would exceed the memory budget, or,
+        under ``backend="auto"`` only, the constraint set fills less than
+        the fill floor of the tight box of the current bounds, which is
+        large (over 2e6 elements after growth).  A solve with
+        ``backend="box"`` keeps the box above the floor: the floor is a
+        speed choice, the budget a limit."""
+        if self._backend_used != "box":
+            return False
         cs_new = self.constraints.with_bounds(new_bounds)
         box = cs_new.derive_box_bounds(self.model.num_species,
                                        self._init_states)
@@ -269,12 +359,44 @@ class FspSolverMultiSinks:
         cap = float(np.prod(np.asarray(need, np.float64)))
         if cap > min(float(MAX_BOX_ELEMS), self._box_elem_budget()):
             return True
+        if self.backend != "auto":
+            return False
         tight_new = float(np.prod(np.asarray(box, np.float64) + 1.0))
         box_cur = self.constraints.derive_box_bounds(
             self.model.num_species, self._init_states)
         tight_cur = float(np.prod(np.asarray(box_cur, np.float64) + 1.0))
         return tight_new > 2.0e6 and \
-            self._space.num_states < 0.001 * tight_cur
+            self._space.num_states < BOX_FILL_FLOOR * tight_cur
+
+    def _migrate_box_to_ell(self) -> None:
+        """Switch a running box solve to the compressed backend, carrying
+        over its states and every row of its solution (reference package
+        ``_migrate_box_to_ell``).  The box's tensors are freed before the
+        state set and its operator are built."""
+        if self.mesh is not None:
+            raise SetupError("the box outgrows its memory budget, and "
+                             + _NO_ELL_MESH)
+        if self.verbosity:
+            print(f"[fsp] t = {self._t_now:.4g}: the box exceeds the "
+                  "budget or the fill floor, migrating to the compressed "
+                  "backend")
+        states, rows = self._valid_rows()
+        sinks = self._y.sinks
+        self._y = self._space = self._operator = self._ode_solver = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self._backend_used = "ell"
+        self._space = StateSet(self.model.stoichiometry, self.constraints,
+                               init_states=states)
+        self._space.expand()
+        self._maybe_partition(force=True)
+        # the solution as [rows, n] in the set's order; the expansion's
+        # scatter then pads it to the operator's capacity
+        p = np.zeros((rows.shape[0], self._space.num_states))
+        p[:, self._space.state2index(states)] = rows
+        self._y = FspVector(
+            p=torch.as_tensor(p.reshape(-1), dtype=self.dtype,
+                              device=self.device), sinks=sinks)
 
     def set_up(self) -> "FspSolverMultiSinks":
         if self.model is None:
@@ -311,15 +433,57 @@ class FspSolverMultiSinks:
         return pad_quanta
 
     def _build_space(self):
-        self._space = BoxStateSpace(self.model.stoichiometry,
-                                    self.constraints, self._init_states,
-                                    device=self.device,
-                                    pad_quanta=self.pad_quanta_for_space())
-        self._space.events = self.events   # MaskBFS sub-timer
+        if self._backend_used == "box":
+            self._space = BoxStateSpace(
+                self.model.stoichiometry, self.constraints,
+                self._init_states, device=self.device,
+                pad_quanta=self.pad_quanta_for_space())
+            self._space.events = self.events   # MaskBFS sub-timer
+        else:
+            self._space = StateSet(self.model.stoichiometry,
+                                   self.constraints,
+                                   init_states=self._init_states)
+            self._space.expand()
+            self._maybe_partition(force=True)
+
+    def _maybe_partition(self, force: bool = False) -> bool:
+        """Re-order the compressed state set where it grew by more than
+        ``lb_threshold`` since its last ordering (reference: a re-partition
+        when the set grew by over 20%, StateSetConstrained.cpp:213-218).
+        On one device only the partitioner's ordering is used: BLOCK keeps
+        the insertion order, GRAPH and HYPERGRAPH re-order for the
+        gather's locality.  The box's layout is its coordinates: nothing
+        to do there."""
+        if self._backend_used == "box":
+            return False
+        n = self._space.num_states
+        if not force and n <= self.lb_threshold * self._n_last_partition:
+            return False
+        self._n_last_partition = n
+        if self.partitioning == PartitioningType.BLOCK:
+            return False
+        part = StatePartitioner(self.partitioning, self.repart_approach)
+        prev = (np.arange(n)
+                if self.repart_approach != PartitioningApproach.FROMSCRATCH
+                else None)
+        res = part.partition(self._space.states, self.model.stoichiometry,
+                             1, state2index=self._space.state2index,
+                             prev_order=prev, need_boundaries=False)
+        self._space.reorder(res.order)
+        if self.verbosity:
+            print(f"[fsp] re-ordered {n} states "
+                  f"({self.partitioning.value}/"
+                  f"{self.repart_approach.value})")
+        return True
 
     def _build_operator(self):
         self._ode_solver = None     # its basis has the old capacity
         self._operator = None       # free the old fields first
+        if self._backend_used == "ell":
+            self._operator = EllOperator(self.model, self._space,
+                                         dtype=self.dtype,
+                                         device=self.device)
+            return
         self._operator = BoxOperator(self.model, self._space,
                                      dtype=self.dtype, mesh=self.mesh)
         if self._operator.sharded is not None:
@@ -331,18 +495,33 @@ class FspSolverMultiSinks:
                   f" ({float(np.prod(self._space.shape)):.3g} elems)",
                   flush=True)
 
+    def _vector_rows(self) -> int:
+        """Rows of the solution vector: 1 (p); the sensitivity solve
+        stacks p and each sensitivity."""
+        return 1
+
+    def _init_values(self) -> np.ndarray:
+        """``[rows, n_init]`` values of the solution rows at the initial
+        states."""
+        return self._init_probs[None, :]
+
     def _initial_vector(self) -> FspVector:
         idx = self._space.state2index(self._init_states)
         if (idx < 0).any():
             raise StateSpaceError(
                 "initial states outside the FSP state space")
         n_c = self.constraints.num_constraints
-        p = np.zeros(self._space.size, dtype=np.float64)
-        p[idx] = self._init_probs
+        m = self._vector_rows()
+        n = (self._space.size if self._backend_used == "box"
+             else self._operator.local_n)
+        p = np.zeros((m, n), dtype=np.float64)
+        p[:, idx] = self._init_values()
         self.sinks_ = np.zeros((n_c,), np.float64)
         return self._place(FspVector(
-            p=torch.as_tensor(p, dtype=self.dtype, device=self.device),
-            sinks=torch.zeros(n_c, dtype=self.dtype, device=self.device)))
+            p=torch.as_tensor(p.reshape(-1), dtype=self.dtype,
+                              device=self.device),
+            sinks=torch.zeros(m * n_c, dtype=self.dtype,
+                              device=self.device)))
 
     def _place(self, y: FspVector) -> FspVector:
         """This rank's part of a vector over the whole box: its slab of
@@ -395,9 +574,11 @@ class FspSolverMultiSinks:
             "A8)")
 
     def _expand(self, to_expand: np.ndarray, rounds: int = 1):
-        """Grow the flagged bounds, rebuild the mask, and rebuild the
-        operator only if the box capacity grew (reference Advance_
-        expansion block, :114-211)."""
+        """Grow the flagged bounds and the state space with them, and
+        carry the solution over (reference Advance_ expansion block,
+        :114-211).  The box rebuilds its mask, and its operator only if
+        the capacity grew; the compressed set expands by BFS, may be
+        re-ordered, and its operator is re-assembled."""
         new_bounds = self.constraints.expanded_bounds(to_expand)
         for _ in range(rounds - 1):      # escalated growth (thrash guard)
             new_bounds = self.constraints.with_bounds(
@@ -408,12 +589,16 @@ class FspSolverMultiSinks:
         with self.events.timed("LeaveBoxCheck"):
             leave = self._should_leave_box(new_bounds)
         if leave:
-            raise StateSpaceError(
-                f"at t = {self._t_now:.6g} the box for bounds "
-                f"{new_bounds.tolist()} outgrows the box backend's memory "
-                "budget or fill floor; the reference package migrates to "
-                "the compressed (ELL) backend there, which is not ported "
-                "yet (ROADMAP A9)")
+            with self.events.timed(EVT_PARTITION):
+                self._migrate_box_to_ell()
+        if self._backend_used == "box":
+            self._expand_box(new_bounds, to_expand)
+        else:
+            self._expand_ell(new_bounds, to_expand)
+        if self.verbosity:
+            print(f"[fsp] new state count: {self.num_states}")
+
+    def _expand_box(self, new_bounds, to_expand) -> None:
         n_before = self._space.num_states
         with self.events.timed(EVT_PARTITION):
             old_shape = self._space.shape
@@ -431,15 +616,52 @@ class FspSolverMultiSinks:
                 # within capacity the newly valid states already hold
                 # zeros
                 self._y = self._embed_old(old_shape)
-        if self.verbosity:
-            print(f"[fsp] new state count: {self.num_states}")
+
+    def _expand_ell(self, new_bounds, to_expand) -> None:
+        n_before = self._space.num_states
+        with self.events.timed(EVT_PARTITION):
+            states_old = self._space.copy_states()
+            bounds_old = self.constraints.bounds
+            self._space.set_bounds(new_bounds)
+            self.constraints = self._space.constraints
+            self._space.expand(old_bounds=bounds_old)
+            self._escalate_if_stuck(n_before, to_expand)
+            self._maybe_partition()
+        with self.events.timed(EVT_MATGEN):
+            if self._operator is None:      # first epoch after a migration
+                self._build_operator()
+            elif self._operator.reassemble():
+                self._ode_solver = None     # its storage has the old size
+        with self.events.timed(EVT_SCATTER):
+            self._y = self._scatter_ell(states_old)
+
+    def _scatter_ell(self, states_old: np.ndarray) -> FspVector:
+        """Every row of the solution at its states' new indices, zero
+        elsewhere (reference ``ExpandVec``, PetscWrap.cpp:26-56).  Where
+        the set kept its order (no re-ordering) the old indices are the
+        identity prefix and this is a zero-pad, or nothing within
+        capacity: entries past the states stay exactly zero."""
+        m = self._vector_rows()
+        rows = self._y.p.view(m, -1)
+        n_old, n_pad = states_old.shape[0], self._operator.local_n
+        idx = self._space.state2index(states_old)
+        if (idx == np.arange(n_old)).all():
+            if rows.shape[1] == n_pad:
+                return self._y
+            p = rows.new_zeros((m, n_pad))
+            p[:, :rows.shape[1]] = rows
+        else:
+            p = rows.new_zeros((m, n_pad))
+            p[:, torch.as_tensor(idx, device=p.device)] = rows[:, :n_old]
+        return FspVector(p=p.reshape(-1), sinks=self._y.sinks)
 
     def _embed_old(self, old_shape) -> FspVector:
-        """The solution zero-padded from the box of ``old_shape`` into
-        the grown one; a sharded p is gathered, embedded and re-sliced."""
-        return self._place(FspVector(
-            p=self._space.embed_old(self._global_p(), old_shape),
-            sinks=self._y.sinks))
+        """Every row of the solution zero-padded from the box of
+        ``old_shape`` into the grown one; a sharded p is gathered,
+        embedded and re-sliced."""
+        rows = self._global_p().view(self._vector_rows(), -1)
+        p = torch.cat([self._space.embed_old(r, old_shape) for r in rows])
+        return self._place(FspVector(p=p, sinks=self._y.sinks))
 
     def _base_sinks(self, y: FspVector) -> torch.Tensor:
         """The sinks of the probability part of ``y``, the ones the
@@ -458,9 +680,12 @@ class FspSolverMultiSinks:
             return
         growable = self.constraints.expansion_factors > 0.0
         for _ in range(64):
+            prev_bounds = self.constraints.bounds
             new_bounds = self.constraints.expanded_bounds(growable)
             self._space.set_bounds(new_bounds)
             self.constraints = self._space.constraints
+            if self._backend_used == "ell":
+                self._space.expand(old_bounds=prev_bounds)
             if self._space.num_states > n_before:
                 return
         raise StateSpaceError(
@@ -584,13 +809,25 @@ class FspSolverMultiSinks:
     def num_states(self) -> int:
         return self._space.num_states if self._space is not None else 0
 
+    def _valid_rows(self):
+        """(states [n, S], the solution's rows at them [rows, n]) on the
+        host, the states in the space's order."""
+        m = self._vector_rows()
+        if self._backend_used == "box":
+            rows = self._global_p().view(m, -1)
+            return self._space.states(), np.stack(
+                [self._space.extract_valid(r) for r in rows])
+        states = self._space.copy_states()
+        return states, self._y.p.view(m, -1)[:, :states.shape[0]
+                                               ].cpu().numpy()
+
     def _make_distribution(self) -> DiscreteDistribution:
         with self.events.timed("DistributionExtract"):
+            states, rows = self._valid_rows()
             return DiscreteDistribution(
-                t=self._t_now, states=self._space.states(),
-                p=self._space.extract_valid(self._global_p()),
+                t=self._t_now, states=states, p=rows[0],
                 bounds=self.constraints.bounds.copy(),
-                sinks=self._y.sinks.cpu().numpy())
+                sinks=self._base_sinks(self._y).cpu().numpy())
 
     def get_event_log(self) -> EventLog:
         return self.events
@@ -610,6 +847,8 @@ class FspSolverMultiSinks:
     SetKrylovDimRange = set_krylov_dim_range
     SetOdeTolerances = set_ode_tolerances
     SetVerbosity = set_verbosity
+    SetLoadBalancingMethod = set_load_balancing_method
+    SetRepartApproach = set_repart_approach
     SetUp = set_up
     Solve = solve
     SolveTspan = solve_tspan

@@ -74,7 +74,8 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
                     vi = vo.basis_get(V, i)
                     h = vo.vdot(w, vi)
                     w.p.addcmul_(vi.p, -h)
-                    w.sinks.addcmul_(vi.sinks, -h)
+                    if w.sinks.numel():
+                        w.sinks.addcmul_(vi.sinks, -h)
                     hs_dev.append(h)
                 hs_dev.append(vo.norm2(w))
                 col = torch.stack(hs_dev).cpu().numpy()       # sync

@@ -56,8 +56,10 @@ class FspVector(NamedTuple):
 
 
 def vdot(a: FspVector, b: FspVector) -> torch.Tensor:
-    """Inner product over both parts (a 0-d device tensor)."""
-    return sum_ranks(torch.dot(a.p, b.p)) + torch.dot(a.sinks, b.sinks)
+    """Inner product over both parts (a 0-d device tensor).  An empty
+    sinks part (the stationary solve's vectors) adds no launch."""
+    d = sum_ranks(torch.dot(a.p, b.p))
+    return d + torch.dot(a.sinks, b.sinks) if a.sinks.numel() else d
 
 
 def norm2(a: FspVector) -> torch.Tensor:

@@ -100,7 +100,7 @@ def test_hog1p_3d_matches_reference():
     2.85e-9 apart; the bounds below are those values with headroom."""
     js = _hog3(pm, _OneDispatch, odes_type="cvode", backend="box")
     jd = js.solve(30.0, 1.0e-4)
-    ts = _hog3(pt, device="cpu")
+    ts = _hog3(pt, device="cpu", backend="box")
     td = ts.solve(30.0, 1.0e-4)
     assert isinstance(ts._ode_solver, pt.BdfSolver)
     assert ts._operator.synth_mask
@@ -128,7 +128,7 @@ def test_bdf_restart_from_reference_checkpoint(tmp_path):
     js.set_initial_distribution(JDist.load(path))
     jd = js.solve(4.0, 1.0e-4, t_init=2.0)
 
-    ts = _hog3(pt, device="cpu")
+    ts = _hog3(pt, device="cpu", backend="box")
     ts.set_initial_distribution(distribution_from_reference(path))
     td = ts.solve(4.0, 1.0e-4, t_init=2.0)
 

@@ -415,7 +415,7 @@ def test_cuda_bdf_solve_runs_the_synthesized_mask_kernel():
     launches K3 (the mask stays constraint-only)."""
     _needs_cuda()
     b = pt.models.hog1p_3d()
-    s = pt.FspSolverMultiSinks(device="cuda")
+    s = pt.FspSolverMultiSinks(backend="box", device="cuda")
     s.set_model(b.model)
     s.set_constraint_functions(b.constraint)
     s.set_initial_bounds(b.bounds)
@@ -572,7 +572,8 @@ def test_cuda_sens_solve_runs_the_batched_kernel():
     out = {}
     for dev in ("cuda", "cpu"):
         b = pt.models.hog1p_3d_sens()
-        s = pt.SensFspSolverMultiSinks(odes_type="auto", device=dev)
+        s = pt.SensFspSolverMultiSinks(backend="box", odes_type="auto",
+                                       device=dev)
         s.set_model(b.model)
         s.set_constraint_functions(b.constraint)
         s.set_initial_bounds(b.bounds)

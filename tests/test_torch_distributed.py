@@ -146,7 +146,7 @@ def _work_poisson(pt, mesh):
 
 def _hog_solver(pt, mesh=None):
     h = pt.models.hog1p_3d()
-    s = pt.FspSolverMultiSinks(device="cpu", mesh=mesh)
+    s = pt.FspSolverMultiSinks(backend="box", device="cpu", mesh=mesh)
     s.set_model(h.model)
     s.set_constraint_functions(h.constraint)
     s.set_initial_bounds(h.bounds)

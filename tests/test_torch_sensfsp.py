@@ -99,6 +99,59 @@ def test_sens_solve_matches_the_reference_package(name, t_final, fsp_tol):
                                atol=1e-14)
 
 
+def _sens(pkg_solver, mod, name, **kw):
+    b = getattr(mod.models, name)()
+    s = pkg_solver(odes_type="krylov", **kw)
+    s.set_model(b.model)
+    s.set_initial_bounds(b.bounds)
+    s.set_expansion_factors(b.expansion_factors)
+    s.set_initial_distribution(b.x0, b.p0)
+    return s
+
+
+def _assert_same_solution(want, got, tol):
+    assert set(_by_state(want.states, want.p)) == \
+        set(_by_state(got.states, got.p))
+    for a, b in [(want.p, got.p)] + list(zip(want.dp, got.dp)):
+        w, g = _by_state(want.states, a), _by_state(got.states, b)
+        assert max(abs(w[k] - g[k]) for k in w) <= tol
+
+
+def test_ell_sens_solve_matches_the_reference_package_and_the_box(
+        monkeypatch):
+    """poisson_sens to t = 1 on the compressed backend: the reference
+    package's compressed solve (its plain gather) and the port's box
+    solve, p and dp by state within 1e-12."""
+    monkeypatch.setenv("PACMENSL_ELL_GATHER", "plain")
+    ref = _sens(JSensSolver, pm, "poisson_sens", backend="ell").solve(
+        1.0, 1e-7)
+    s = _sens(pt.SensFspSolverMultiSinks, pt, "poisson_sens",
+              backend="ell", device="cpu")
+    port = s.solve(1.0, 1e-7)
+    assert s._backend_used == "ell"
+    assert isinstance(s._operator.base, pt.EllOperator)
+    np.testing.assert_array_equal(port.states, ref.states)
+    _assert_same_solution(ref, port, 1e-12)
+    box = _sens(pt.SensFspSolverMultiSinks, pt, "poisson_sens",
+                backend="box", device="cpu").solve(1.0, 1e-7)
+    _assert_same_solution(box, port, 1e-12)
+
+
+def test_sens_solve_migrates_with_every_sensitivity(monkeypatch):
+    """A box sensitivity solve over its memory budget migrates to the
+    compressed backend, p and every sensitivity carried over together:
+    the telegraph model to t = 1 against the box-only solve."""
+    box = _sens(pt.SensFspSolverMultiSinks, pt, "telegraph",
+                backend="box", device="cpu").solve(1.0, 1e-6)
+    monkeypatch.setenv("PACMENSL_BOX_MEM_BUDGET", "1e4")
+    s = _sens(pt.SensFspSolverMultiSinks, pt, "telegraph", backend="box",
+              device="cpu")
+    mig = s.solve(1.0, 1e-6)
+    assert s._backend_used == "ell"
+    _assert_same_solution(box, mig, 1e-10)
+    assert mig.compute_fim().shape == (4, 4)
+
+
 def test_fim_marginal_and_checkpoints_both_ways(tmp_path):
     d = _poisson("cvode")
     fim = d.compute_fim()
