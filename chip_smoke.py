@@ -155,10 +155,41 @@ Phases (each check that fails ends the run with a nonzero exit):
       96,142 states where the TPU's float32 solve stopped; K1 and K3
       against their plain versions on the last box operator and pi.
 
+11. The pluggable TS methods, the compressed backend over ranks and the
+    sensitivity solve over ranks:
+
+   a. The repressilator of phase 4 under ``-fsp_odes_type petsc``
+      (``set_from_options``; Dormand-Prince RK, every stage on K3):
+      phase 4's output checks (p >= -k atol after k steps, not -1e-12:
+      RK's error control holds an entry near 0 to about atol a step), L1
+      <= 2 * fsp_tol to phase 4's distribution; steps, rejections, FSP
+      retries, RHS evaluations, K3 launches and wall.
+   b. The same under ``-ts_type cn`` (CN, two GMRES solves a step),
+      reduced to t = 0.02 (``CN_T_FINAL``): L1 <= 2 * fsp_tol to a
+      one-device Krylov solve to the same time.
+   c. The repressilator on ``backend="ell"`` over one NCCL rank per card
+      at t = 10 (L1 <= 2 * fsp_tol to 10a), and over two gloo ranks on
+      the card to t = 2 (against phase 7c's one-device solve, the state
+      count within 5%): every rank takes the same steps and holds the same
+      state set (count and checksum); the values crossing ranks per
+      matvec beside n_pad.
+   d. The batched launch on a window (K9w) at the 128^3 box cut into 4
+      slabs (nb = 2, 3, 4; both modes) and, at the end of phase 9a, on
+      hog1p_5d_sens's final operator cut into 2 and 4 slabs (nb = 3, K3
+      mode): dp bitwise the plain version's and nb single K4 launches',
+      sinks bitwise the single launches' and within 1e-12 of the plain
+      version's, the slabs' dp bitwise the whole box's K9; timed with
+      CUDA events beside nb K4 sweeps, the unsharded K9, the plain version
+      and (128^3) one ``torch.sparse.mm`` of each slab's CSR rows.
+   e. hog1p_5d_sens at phase 9c's setting under Krylov over two gloo
+      ranks on the box (K9w and K4) and on ELL: the one-device solve's
+      states, p and dp within 1e-10 relative of it.
+
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
-migration) and 10e, K4 in phases 7b and 7c (over all ranks), K5-K8 in
-phase 8's two entry points, K9 in phase 9b.
+migration), 10e, 11a and 11b, K4 in phases 7b and 7c (over all ranks),
+K5-K8 in phase 8's two entry points, K9 in phase 9b, K9w in phase 11e
+(over both ranks).
 ``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
 bound: the float operations over its 34 TFLOP/s in float64 and 67 in
@@ -194,6 +225,12 @@ GMRES_TOL = 1.0e-10
 TR6_T_FINAL, TR6_TOL = 30.0, 1.0e-4
 #: phase 7c: the repressilator to this time (its CPU test size)
 GLOO_T_FINAL = 2.0
+#: phase 11b: CN on the repressilator to this time, reduced from phase
+#: 4's t = 10: from the point mass its first-order error estimate against
+#: atol 1e-14 takes 10,695 steps by t = 0.02 and 38,295 by t = 1, each two
+#: GMRES solves (``python -m pacmensl_tpu_torch.tools.ts_steps --ts cn
+#: --backend ell --device cpu --t 0.02 1`` on a host CPU)
+CN_T_FINAL = 0.02
 #: slabs the box is cut into in phase 7a
 SLABS = 4
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float64 and float32
@@ -324,6 +361,19 @@ def graph_ms(fn, reps=100):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def same_twice(label, run):
+    """Two launches, bitwise equal and finite; returns the first."""
+    import torch
+    kp, ks = run()
+    kp2, ks2 = run()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kp).all() and torch.isfinite(ks).all()),
+          f"{label}: non-finite kernel output")
+    check(torch.equal(kp, kp2) and torch.equal(ks, ks2),
+          f"{label}: two launches differ")
+    return kp, ks
 
 
 def generator_csr(c, mask, a, viol, shape, stoich, nc, out_range=None):
@@ -470,17 +520,20 @@ def rank_solve(rank, world, port, backend, t_final, tol, queue):
         pt.environment.finalize()
 
 
-def run_ranks(world, backend, t_final, tol):
-    """``rank_solve`` on ``world`` spawned processes; their summaries by
-    rank.  A rank that fails or outlasts RANK_TIMEOUT fails the run, and
-    every rank is stopped."""
+def run_ranks(world, backend, t_final, tol, target=rank_solve, args=None):
+    """``target`` (default ``rank_solve``) on ``world`` spawned processes;
+    their summaries by rank.  ``target`` takes ``(rank, world, port,
+    backend, *args, queue)``, ``args`` defaulting to ``(t_final, tol)``.
+    A rank that fails or outlasts RANK_TIMEOUT fails the run, and every
+    rank is stopped."""
     import queue as queue_mod
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=rank_solve,
-                         args=(r, world, port, backend, t_final, tol, q))
+    args = (t_final, tol) if args is None else tuple(args)
+    procs = [ctx.Process(target=target,
+                         args=(r, world, port, backend) + args + (q,))
              for r in range(world)]
     for pr in procs:
         pr.start()
@@ -1055,7 +1108,14 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
               f"{bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: {nb} x K3's "
               f"bytes at {nvalid} valid of {nf} elements, the tables once), "
               f"{bnd[0] / ms['K9']:.3f} of it; {smi}", flush=True)
-    del P, P2, P3, op, runs
+    del P, P2, runs
+    # phase 11d at full width: K9w on the final operator, cut into 2 and
+    # 4 slabs, with the solve's own vectors
+    for slabs in (2, 4):
+        k9w_check(dev, smi, f"hog1p_5d_sens final {op.shape}", c, P3,
+                  op.props, op.geom, hb, op.space.mask_bytes(), None, slabs,
+                  max_err, modes=("synth",), time_plain=False)
+    del P3, op
     torch.cuda.empty_cache()
 
     # (c) the reference package's oracle
@@ -1380,7 +1440,465 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
     check(sum(launch10e.values()) > 0, "10e: no box kernel launch")
     del s
     torch.cuda.empty_cache()
-    return launch10c, launch10e
+    return launch10c, launch10e, d10
+
+
+def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
+              max_err, modes=("synth", "mask"), library=False,
+              time_plain=True):
+    """Phase 11d: the batched launch on a window (K9w) on ``geom``'s box
+    cut into ``slabs`` axis-0 slabs, each window holding every vector's
+    halo planes as ShardedBoxAction.batched's exchange delivers them.  In
+    each of ``modes`` on every slab: dp bitwise the plain version's and nb
+    single K4 launches', sinks bitwise the single launches' and within
+    1e-12 of the plain version's (relative to each vector's largest), two
+    launches bitwise equal; the assembled dp bitwise the whole box's K9,
+    the summed sinks within 1e-12 of its.  Timed with CUDA events (100
+    calls) beside nb K4 sweeps, the unsharded K9, the plain version and,
+    with ``library``, one torch.sparse.mm of each slab's CSR rows with
+    the [n, nb] block (the plain version is timed only with
+    ``time_plain``).  Returns K9w's record (ms per sweep)."""
+    import numpy as np
+    import torch
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
+    nb, shape, g0, plane = P.shape[0], geom.shape, geom.shape[0], geom.plane
+    w0 = halo_width(geom.stoich)
+    R = geom.num_reactions
+
+    def rows_of(lo, rows):
+        return torch.stack([window_rows(P[i].reshape(shape), lo, rows)
+                            .reshape(-1) for i in range(nb)])
+
+    wins = []
+    cuts = np.linspace(0, g0, slabs + 1).astype(int)
+    for lo, hi in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
+        o, rows = lo - w0, hi - lo + 2 * w0
+        g = bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
+                           geom.form, origin0=o, g0=g0,
+                           out_rows=(w0, w0 + hi - lo),
+                           halo_rows=(w0, hi - lo))
+        wm = window_rows(mask.reshape(shape), o, rows).reshape(-1)
+        wv = (torch.stack([window_rows(v.reshape(shape), o, rows)
+                           .reshape(-1) for v in viol])
+              if "mask" in modes else None)
+        wins.append((g, P[:, lo * plane:hi * plane].contiguous(),
+                     (rows_of(lo - w0, w0), rows_of(hi, w0)),
+                     a.window(o, rows), wm, wv))
+
+    def launch(mode, w, i=None, plain=False):
+        g, ps, (up, dn), wa, wm, wv = w
+        if i is not None:
+            if mode == "synth":
+                return bk.box_action_synth(c, ps[i], wa, bounds, g,
+                                           halos=(up[i], dn[i]))
+            return bk.box_action(c, ps[i], wm, wa, wv, g,
+                                 halos=(up[i], dn[i]))
+        if mode == "synth":
+            fn = (bk.box_action_synth_batched_reference if plain
+                  else bk.box_action_synth_batched)
+            return fn(c, ps, wa, bounds, g, halos=(up, dn))
+        fn = (bk.box_action_batched_reference if plain
+              else bk.box_action_batched)
+        return fn(c, ps, wm, wa, wv, g, halos=(up, dn))
+
+    whole = bk.box_action_synth_batched(c, P, a, bounds, geom)
+    for mode in modes:
+        dps, sk, rel = [], 0, 0.0
+        for j, w in enumerate(wins):
+            tag = f"[11d] {label} K9w {mode} slab {j}"
+            kp, ks = same_twice(tag, lambda: launch(mode, w))
+            rp, rs = launch(mode, w, plain=True)
+            err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
+            check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the plain "
+                                       f"version's (max abs {err:.3e})")
+            scale = rs.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+            rel = max(rel, float(((ks - rs).abs() / scale).max()))
+            check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
+                                "version's, relative")
+            one = [launch(mode, w, i) for i in range(nb)]
+            check(torch.equal(kp, torch.stack([q[0] for q in one]))
+                  and torch.equal(ks, torch.stack([q[1] for q in one])),
+                  f"{tag}: not bitwise {nb} single K4 launches")
+            max_err["batched_sharded"] = max(max_err["batched_sharded"],
+                                             err)
+            dps.append(kp)
+            sk = sk + ks
+        check(torch.equal(torch.cat(dps, dim=1), whole[0]),
+              f"[11d] {label} K9w {mode}: the assembled dp is not bitwise "
+              "the whole box's K9")
+        srel = float(((sk - whole[1]).abs() / whole[1].abs().amax(
+            dim=1, keepdim=True).clamp_min(1e-300)).max())
+        check(srel <= 1e-12, f"[11d] {label} K9w {mode}: summed sinks "
+                             f"{srel:.3e} from the whole box's K9")
+        print(f"[11d] K9w ({mode}) {label}: nb={nb}, {slabs} slabs of "
+              f"{[w[0].out_hi - w[0].out_lo for w in wins]} rows, windows of "
+              f"{[w[0].shape[0] for w in wins]}; dp bitwise the plain "
+              f"version's and {nb} single K4 launches', sinks bitwise the "
+              f"single launches' and within {rel:.3e} of the plain "
+              f"version's; assembled dp bitwise the whole box's K9, summed "
+              f"sinks within {srel:.3e}", flush=True)
+    runs = {"plain": lambda: [launch("synth", w, plain=True) for w in wins],
+            "K4": lambda: [launch("synth", w, i) for i in range(nb)
+                           for w in wins],
+            "K9w": lambda: [launch("synth", w) for w in wins],
+            "K9": lambda: bk.box_action_synth_batched(c, P, a, bounds, geom)}
+    order = ["plain", "K4", "K9w", "K9", "K9", "K9w", "K4", "plain"]
+    if not time_plain:
+        del runs["plain"]
+        order = order[1:-1]
+    mats = None
+    if library:
+        Pt = P.T.contiguous()
+        mats = [generator_csr(c, mask, a.dense(), viol, shape, geom.stoich,
+                              geom.nc, ((w[0].origin0 + w0) * plane,
+                                        (w[0].origin0 + w[0].out_hi)
+                                        * plane)) for w in wins]
+        for w, A in zip(wins, mats):
+            y = torch.sparse.mm(A, Pt)
+            kp, ks = launch("synth", w)
+            lerr = max(float((y[:w[0].n_out].T - kp).abs().max()),
+                       float((y[w[0].n_out:].T - ks).abs().max()))
+            check(lerr <= 1e-9 * float(kp.abs().max()),
+                  f"[11d] {label}: a slab's CSR rows differ from K9w by "
+                  f"{lerr:.3e}")
+        runs["library"] = lambda: [torch.sparse.mm(A, Pt) for A in mats]
+        order = order[:4] + ["library", "library"] + order[4:]
+    reps = {"plain": 3} if P[0].numel() > 1e7 else {"plain": 10}
+    t = {k: [] for k in runs}
+    for k in order:
+        t[k].append(time_ms(runs[k], reps=reps.get(k, 100)))
+    ms = {k: float(np.mean(v)) for k, v in t.items()}
+    tb = a.table_bytes()
+    nbytes = sum(nb * pr.box_action_bytes(
+        w[0].n, w[0].n_out, R, True, n_valid=sum(
+            int((w[4][lo * plane:hi * plane] != 0).sum())
+            for lo, hi in w[0].read_spans)) + tb for w in wins)
+    bnd = bound(nbytes, nb * 2 * (2 * R + 1) * geom.n)
+    print(f"[11d] {label} nb={nb}, a sweep of {slabs} slabs (us; order "
+          f"{' '.join(order)}): " + ", ".join(
+              f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
+              for k, vs in t.items()) + f"; bound {bnd[0] * 1e3:.1f} us "
+          f"({nbytes / 1e6:.1f} MB: each vector's p over the rows its "
+          f"slab's rows read, halos included, and its dp, the tables once "
+          f"a slab), {bnd[0] / ms['K9w']:.3f} of it; K9w no slower than "
+          f"{nb} K4 sweeps: {ms['K9w'] <= ms['K4']}; {smi}", flush=True)
+    return {"ms": ms["K9w"], "plain_ms": ms.get("plain"), "bound": bnd,
+            "library_ms": ms.get("library"), "k4_ms": ms["K4"],
+            "k9_ms": ms["K9"]}
+
+
+def rank_ell_solve(rank, world, port, backend, t_final, tol, queue):
+    """Phase 11c on one rank: the repressilator on ``backend="ell"`` over
+    the mesh of ``world`` ranks (no kernel: the ELL gathers and the
+    exchange are plain PyTorch); puts its summary (and on rank 0 the
+    distribution) on ``queue``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    pt.environment.init(backend=backend, world_size=world, rank=rank,
+                        init_method=f"tcp://127.0.0.1:{port}",
+                        timeout=RANK_TIMEOUT)
+    try:
+        calls = [0]
+        action = pt.ShardedEllOperator.action
+
+        def counted(self, *args, **kw):
+            calls[0] += 1
+            return action(self, *args, **kw)
+        pt.ShardedEllOperator.action = counted
+        mesh = pt.make_mesh("cuda")
+        rep = pt.models.repressilator()
+        s = pt.FspSolverMultiSinks(backend="ell", odes_type="krylov",
+                                   mesh=mesh)
+        s.set_model(rep.model)
+        s.set_constraint_functions(rep.constraint)
+        s.set_initial_bounds(rep.bounds)
+        s.set_expansion_factors(rep.expansion_factors)
+        s.set_initial_distribution(rep.x0, rep.p0)
+        torch.cuda.synchronize()
+        bk.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        d = s.solve(t_final, tol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = s.get_event_log().events
+        tr = s.step_trace
+        op = s._operator
+        states = s._space.copy_states()
+        out = {"rank": rank, "device": str(mesh.device), "wall": wall,
+               "matvecs": calls[0], "launches": dict(bk.KERNEL.launches),
+               "epochs": ev["ODESolve"].count,
+               "rhs": ev["RHSEvaluation"].count,
+               "n_pad": op.n_pad, "shard_len": op.shard_len,
+               "halo_width": op.halo_width,
+               "comm": op.comm_values_per_matvec(),
+               "sent": op.values_sent_per_matvec(),
+               "n_states": states.shape[0],
+               "checksum": int(np.sum(states.astype(np.int64)
+                                      * np.arange(1, states.shape[1] + 1))),
+               "steps": (np.array(tr.model_time), np.array(tr.step_h),
+                         np.array(tr.aux)),
+               "sinks": np.asarray(d.sinks)}
+        if rank == 0:
+            out.update(states=d.states, p=d.p, bounds=d.bounds)
+        queue.put(out)
+    finally:
+        pt.environment.finalize()
+
+
+def rank_sens_solve(rank, world, port, backend, queue):
+    """Phase 11e on one rank: hog1p_5d_sens at phase 9c's setting under
+    Krylov over the mesh of ``world`` ranks on the box (K9w and K4) and
+    on ELL (the sharded compressed operator); puts each solve's summary
+    and distribution on ``queue``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    pt.environment.init(backend=backend, world_size=world, rank=rank,
+                        init_method=f"tcp://127.0.0.1:{port}",
+                        timeout=RANK_TIMEOUT)
+    try:
+        mesh = pt.make_mesh("cuda")
+        out = {"rank": rank}
+        for fsp_backend in ("box", "ell"):
+            s = sens_solver(pt, fsp_backend, "krylov", mesh=mesh)
+            torch.cuda.synchronize()
+            bk.KERNEL.reset_counts()
+            t0 = time.perf_counter()
+            d = s.solve(FD_T_FINAL, FD_TOL)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ev = s.get_event_log().events
+            out[fsp_backend] = {
+                "wall": wall, "states": d.states, "p": d.p, "dp": d.dp,
+                "launches": dict(bk.KERNEL.launches),
+                "plain": dict(bk.KERNEL.plain_cuda_calls),
+                "rhs": ev["RHSEvaluation"].count,
+                "steps": np.array(s.step_trace.model_time)}
+            del s
+        queue.put(out)
+    finally:
+        pt.environment.finalize()
+
+
+def sens_solver(pt, fsp_backend, odes_type, mesh=None, device=None):
+    """hog1p_5d_sens at phase 9c's setting (t = 3, fsp_tol 1e-6, ODE
+    tolerances 1e-9 and 1e-14) on ``fsp_backend``."""
+    hs = pt.models.hog1p_5d_sens()
+    s = pt.SensFspSolverMultiSinks(backend=fsp_backend, odes_type=odes_type,
+                                   mesh=mesh, device=device)
+    s.set_model(hs.model)
+    s.set_constraint_functions(hs.constraint)
+    s.set_initial_bounds(hs.bounds)
+    s.set_expansion_factors(hs.expansion_factors)
+    s.set_initial_distribution(hs.x0, hs.p0)
+    s.set_ode_tolerances(FD_RTOL, FD_ATOL)
+    return s
+
+
+def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
+    """Phase 11: (a) the repressilator of phase 4 under
+    ``-fsp_odes_type petsc`` (RK, K3), against phase 4's distribution;
+    (b) the same under ``-ts_type cn`` to ``CN_T_FINAL`` against a
+    one-device Krylov solve; (c) the repressilator on ELL over
+    one NCCL rank per card against 10a's ``d10``, and over two gloo ranks
+    on the card to t = 2 against ``d_t2``; (d) K9w at 128^3 on 4 slabs;
+    (e) hog1p_5d_sens at phase 9c's setting over two gloo ranks on the
+    box (K9w) and on ELL against one-device solves.  Returns the box
+    kernel's launches in (a) and (b), K9w's launches over (e)'s ranks and
+    K9w's record at 128^3 (nb = 3)."""
+    import numpy as np
+    import torch
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import box_operator as bo
+
+    def petsc(ts):
+        s = pt.FspSolverMultiSinks(backend="box", device=dev)
+        s.set_from_options(pt.Options.from_argv(
+            ["-fsp_odes_type", "petsc"] + (["-ts_type", ts] if ts else [])))
+        s.set_model(rep.model)
+        s.set_constraint_functions(rep.constraint)
+        s.set_initial_bounds(rep.bounds)
+        s.set_expansion_factors(rep.expansion_factors)
+        s.set_initial_distribution(rep.x0, rep.p0)
+        return s
+
+    def halvings(s):
+        """Counts the FSP halvings of ``s``'s RK or CN integrators."""
+        n = [0]
+        make = s._make_ode_solver
+
+        def counted(*args):
+            solver = make(*args)
+            step = solver._decision
+
+            def decision(*a, **kw):
+                dec = step(*a, **kw)
+                if dec[0] <= 1.0 and bool(dec[1]) and dec[2:].max() > 0:
+                    n[0] += 1
+                return dec
+            solver._decision = decision
+            return solver
+        s._make_ode_solver = counted
+        return n
+
+    # 11b's yardstick: the one-device Krylov solve to CN_T_FINAL
+    s = pt.FspSolverMultiSinks(backend="box", odes_type="krylov", device=dev)
+    s.set_model(rep.model)
+    s.set_constraint_functions(rep.constraint)
+    s.set_initial_bounds(rep.bounds)
+    s.set_expansion_factors(rep.expansion_factors)
+    s.set_initial_distribution(rep.x0, rep.p0)
+    d_cn = s.solve(CN_T_FINAL, SLICE_TOL)
+    del s
+    launches = {}
+    for key, ts, t_final, want, wname in (
+            ("11a", None, SLICE_T_FINAL, d4, "phase 4's Krylov solve"),
+            ("11b", "cn", CN_T_FINAL, d_cn,
+             f"a one-device Krylov solve to t = {CN_T_FINAL:g}")):
+        s = petsc(ts)
+        n_halve = halvings(s)
+        # RK's and CN's error control holds each entry to about
+        # atol + rtol |p| a step, so an entry near 0 may drift below it by
+        # atol a step (RK: -1.044e-12 after 2,222 steps on an H100)
+        d, launch, wall = run_solve(
+            key, f"repressilator t={t_final:g} tol={SLICE_TOL:g} under "
+                 f"-fsp_odes_type petsc{' -ts_type ' + ts if ts else ''}",
+            s, t_final, SLICE_TOL, lambda k: 1.0e-8,
+            neg_tol=lambda k: max(1.0e-12, k * s.ode_atol))
+        cls = pt.CNSolver if ts else pt.RKSolver
+        check(type(s._ode_solver) is cls,
+              f"{key}: the solve ran {type(s._ode_solver).__name__}")
+        ev = s.get_event_log().events
+        l1 = l1_by_state(d, want)
+        print(f"[{key}] {type(s._ode_solver).__name__}: steps "
+              f"{ev['ODESteps'].count}, rejected "
+              f"{ev['ODEStepsRejected'].count} (FSP halvings among them "
+              f"{n_halve[0]}), RHS evaluations {ev['RHSEvaluation'].count}, "
+              f"K3 launches {launch['synth']}, wall {wall:.2f} s; L1 to "
+              f"{wname} {l1:.3e} (limit {2 * SLICE_TOL:g}); {smi}",
+              flush=True)
+        check(launch["synth"] > 0 and launch["mask"] == 0,
+              f"{key}: launches {launch}")
+        check(l1 <= 2 * SLICE_TOL, f"{key}: L1 to {wname} {l1:.3e}")
+        launches[key] = launch
+        del s
+        torch.cuda.empty_cache()
+
+    # (c) the compressed backend over ranks
+    for key, world, backend, t_final, want, wname in (
+            ("11c", torch.cuda.device_count(), "nccl", SLICE_T_FINAL, d10,
+             "10a's one-device ELL solve"),
+            ("11c", 2, "gloo", GLOO_T_FINAL, d_t2,
+             "phase 7c's one-device box solve")):
+        res = run_ranks(world, backend, t_final, SLICE_TOL,
+                        target=rank_ell_solve)
+        r0 = res[0]
+        for r in res:
+            check(all(np.array_equal(x, y) for x, y in
+                      zip(r["steps"], r0["steps"])),
+                  f"{key}: rank {r['rank']} took other steps than rank 0")
+            check(r["n_states"] == r0["n_states"]
+                  and r["checksum"] == r0["checksum"]
+                  and np.array_equal(r["sinks"], r0["sinks"]),
+                  f"{key}: rank {r['rank']}'s state set or sinks differ")
+            check(sum(r["launches"].values()) == 0,
+                  f"{key}: rank {r['rank']} launched {r['launches']}")
+        pv = r0["p"]
+        got = pt.DiscreteDistribution(t=t_final, states=r0["states"], p=pv,
+                                      bounds=r0["bounds"], sinks=r0["sinks"])
+        l1 = l1_by_state(got, want)
+        mass = float(pv.sum())
+        print(f"[{key}] repressilator on ELL t={t_final:g} over {world} "
+              f"{backend} rank(s): {pv.size} states, epochs {r0['epochs']}, "
+              f"RHS evaluations {r0['rhs']}, steps {r0['steps'][0].size} "
+              f"(equal on every rank, and the state sets' counts and "
+              f"checksums), matvecs {r0['matvecs']}, wall "
+              + " / ".join(f"{r['wall']:.2f}" for r in res)
+              + f" s; n_pad {r0['n_pad']}, shard_len {r0['shard_len']}, "
+              f"halo_width {r0['halo_width']}; values crossing ranks per "
+              f"matvec {r0['sent']} (the reference's padded count "
+              f"{r0['comm']}); sum(p) {mass:.10f}; L1 to {wname} {l1:.3e} "
+              f"(limit {2 * SLICE_TOL:g}), {want.num_states} states there",
+              flush=True)
+        check(np.isfinite(pv).all() and pv.min() > -1e-12
+              and mass >= 1.0 - SLICE_TOL, f"{key}: output checks")
+        check(l1 <= 2 * SLICE_TOL, f"{key}: L1 {l1:.3e}")
+        check(abs(pv.size - want.num_states) <= 0.05 * want.num_states,
+              f"{key}: {pv.size} states, not within 5% of "
+              f"{want.num_states}")
+
+    # (d) K9w at 128^3, 7a's cut
+    shape = (BENCH_EDGE,) * 3
+    n = int(np.prod(shape))
+    stoich = rep.model.stoichiometry
+    bb = np.array([BENCH_EDGE - 1] * 3)
+    cs = pt.ConstraintSet(None, bb, None, 3)
+    geom = bk.BoxGeometry(shape, stoich, 3, cs.form)
+    a = bo.propensity_tables(rep.model, shape, dev)
+    viol = bo.violation_bits(cs, stoich, shape, dev)
+    mask = torch.ones(n, dtype=torch.uint8, device=dev)
+    c = rep.model.coefficients(0.0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    k9w = None
+    for nb in BATCHES:
+        P = torch.rand((nb, n), generator=gen, device=dev,
+                       dtype=torch.float64)
+        rec = k9w_check(dev, smi, f"{BENCH_EDGE}^3 box", c, P, a, geom, bb,
+                        mask, viol, SLABS, max_err, library=True)
+        if nb == 3:
+            k9w = rec
+    del a, viol, mask, geom, P
+    torch.cuda.empty_cache()
+
+    # (e) the sensitivity solve over two gloo ranks, box and ELL
+    k9w_launches = 0
+    ranks = run_ranks(2, "gloo", None, None, target=rank_sens_solve,
+                      args=())
+    for fsp_backend in ("box", "ell"):
+        one = sens_solver(pt, fsp_backend, "krylov", device=dev)
+        d1 = one.solve(FD_T_FINAL, FD_TOL)
+        del one
+        res = [r[fsp_backend] | {"rank": r["rank"]} for r in ranks]
+        r0 = res[0]
+        for r in res:
+            check(np.array_equal(r["steps"], r0["steps"]),
+                  f"11e {fsp_backend}: rank {r['rank']} took other steps")
+            check(sum(r["plain"].values()) == 0,
+                  f"11e {fsp_backend}: plain versions on CUDA {r['plain']}")
+        same = np.array_equal(r0["states"], d1.states)
+        check(same, f"11e {fsp_backend}: {r0['states'].shape[0]} states "
+                    f"against the one-device solve's {d1.num_states}")
+        rel_p = float(np.abs(r0["p"] - d1.p).max() / np.abs(d1.p).max())
+        rel_dp = float((np.abs(r0["dp"] - d1.dp).max(axis=1)
+                        / np.abs(d1.dp).max(axis=1)).max())
+        k9 = sum(r["launches"]["batched_sharded_synth"]
+                 + r["launches"]["batched_sharded_mask"] for r in res)
+        k4 = sum(r["launches"]["sharded_synth"]
+                 + r["launches"]["sharded_mask"] for r in res)
+        print(f"[11e] hog1p_5d_sens t={FD_T_FINAL:g} tol={FD_TOL:g} under "
+              f"Krylov on {fsp_backend} over 2 gloo ranks: "
+              f"{r0['states'].shape[0]} states (the one-device solve's), "
+              f"RHS evaluations {r0['rhs']}, K9w launches {k9}, K4 "
+              f"{k4} (both ranks), wall "
+              + " / ".join(f"{r['wall']:.2f}" for r in res)
+              + f" s; p within {rel_p:.3e}, dp within {rel_dp:.3e} of the "
+              f"one-device solve (relative, limit 1e-10)", flush=True)
+        check(rel_p <= 1e-10 and rel_dp <= 1e-10,
+              f"11e {fsp_backend}: p {rel_p:.3e}, dp {rel_dp:.3e}")
+        if fsp_backend == "box":
+            check(k9 > 0 and k4 > 0, f"11e box: K9w {k9}, K4 {k4}")
+            k9w_launches = k9
+        else:
+            check(k9 + k4 == 0, f"11e ell: box launches {k9 + k4}")
+    return launches["11a"], launches["11b"], k9w_launches, k9w
 
 
 def main():
@@ -1421,19 +1939,9 @@ def main():
 
     # ---------------------------------------------------------- phase 2
     rng = np.random.default_rng(1234)
-    max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0, "batched": 0.0}
+    max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0, "batched": 0.0,
+               "batched_sharded": 0.0}
     TOL = dict(rtol=1e-12, atol=1e-13)
-
-    def same_twice(label, run):
-        """Two launches, bitwise equal and finite; returns the first."""
-        kp, ks = run()
-        kp2, ks2 = run()
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(kp).all() and torch.isfinite(ks).all()),
-              f"{label}: non-finite kernel output")
-        check(torch.equal(kp, kp2) and torch.equal(ks, ks2),
-              f"{label}: two launches differ")
-        return kp, ks
 
     def against_plain(label, mode, got, want):
         kp, ks = got
@@ -1714,11 +2222,13 @@ def main():
         s.set_initial_distribution(bundle.x0, bundle.p0)
         return s
 
-    def run_solve(phase, label, s, t_final, tol, mass_tol, kernel=True):
+    def run_solve(phase, label, s, t_final, tol, mass_tol, kernel=True,
+                  neg_tol=lambda steps: 1.0e-12):
         """One solve with the counters set to 0 just before it; prints
         and checks its output; returns (distribution, launches, wall).
         ``kernel=False``: a compressed-backend solve, which launches no
-        box kernel."""
+        box kernel.  ``neg_tol(steps)``: how far below 0 an entry of p
+        may lie after that many accepted steps."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
@@ -1748,8 +2258,9 @@ def main():
         print(s.get_event_log().report(), flush=True)
         check(np.isfinite(d.p).all() and np.isfinite(sinks).all(),
               f"{label}: non-finite solution")
-        check(d.p.min() > -1e-12,
-              f"{label}: negative probability {d.p.min():.3e}")
+        nt = neg_tol(steps)
+        check(d.p.min() > -nt, f"{label}: negative probability "
+                               f"{d.p.min():.3e} (limit {-nt:.1e})")
         check(mass >= 1.0 - tol, f"{label}: sum(p) = {mass} < 1 - {tol:g}")
         # Sinks count a transition in every constraint it violates, so
         # max(sinks) <= mass that left <= sum(sinks): mass is conserved iff
@@ -2184,12 +2695,18 @@ def main():
                              same_twice, max_err)
 
     # --------------------------------------------------------- phase 10
-    launch10c, launch10e = ell_phase(dev, smi, run_solve, final_operator,
-                                        rep, d4, op4, p4, d1)
+    launch10c, launch10e, d10 = ell_phase(dev, smi, run_solve,
+                                          final_operator, rep, d4, op4, p4,
+                                          d1)
     del op4, p4
     torch.cuda.empty_cache()
 
-    paths = (launch4, launch5, launch6, launch9, launch10c, launch10e)
+    # --------------------------------------------------------- phase 11
+    launch11a, launch11b, k9w_launches, k9w = petsc_phase(
+        dev, smi, run_solve, rep, d4, d1, d10, max_err)
+
+    paths = (launch4, launch5, launch6, launch9, launch10c, launch10e,
+             launch11a, launch11b)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",
@@ -2222,7 +2739,15 @@ def main():
          "max_abs_err": max_err["batched"],
          "ms": k9["ms"], "plain_ms": k9["plain_ms"],
          "bound_ms": k9["bound"][0], "bound_by": k9["bound"][1],
-         "library_ms": k9["library_ms"]}] + probe_entries}), flush=True)
+         "library_ms": k9["library_ms"]},
+        {"name": "box_action_batched_sharded", "route": "cuda",
+         "source": "pacmensl_tpu_torch/csrc/box_action.cu",
+         "replaces": "pacmensl_tpu/ops/sens_operator.py:151",
+         "launches": k9w_launches,
+         "max_abs_err": max_err["batched_sharded"],
+         "ms": k9w["ms"], "plain_ms": k9w["plain_ms"],
+         "bound_ms": k9w["bound"][0], "bound_by": k9w["bound"][1],
+         "library_ms": k9w["library_ms"]}] + probe_entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,6 +68,7 @@ from .sys import errors  # noqa: F401
 from .sys.errors import (  # noqa: F401
     PacmenslError, SetupError, StateSpaceError, IntegratorError)
 from .sys.events import EventLog, StepTrace  # noqa: F401
+from .sys.options import Options  # noqa: F401
 from .models.model import Model, SensModel  # noqa: F401
 from .models import library as models  # noqa: F401
 from .statespace.constraints import ConstraintSet  # noqa: F401
@@ -81,6 +82,8 @@ from .ops.ell_operator import EllOperator  # noqa: F401
 from .solvers.base import ODESolverType  # noqa: F401
 from .solvers.krylov import KrylovSolver  # noqa: F401
 from .solvers.bdf import BdfSolver  # noqa: F401
+from .solvers.rk import RKSolver  # noqa: F401
+from .solvers.cn import CNSolver  # noqa: F401
 from .fsp.distribution import DiscreteDistribution  # noqa: F401
 from .fsp.solver import FspSolverMultiSinks  # noqa: F401
 from .sensfsp.sens_distribution import SensDiscreteDistribution  # noqa: F401
@@ -92,6 +95,7 @@ from .pdo.pdo import Pdo  # noqa: F401
 from .sys import environment  # noqa: F401
 from .sys.environment import Environment  # noqa: F401
 from .parallel.mesh import StateMesh, make_mesh  # noqa: F401
+from .parallel.halo_ell import ShardedEllOperator  # noqa: F401
 from . import interop  # noqa: F401
 
 __version__ = "0.4.0"

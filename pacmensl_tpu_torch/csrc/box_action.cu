@@ -52,7 +52,20 @@
 //     source rows and (K3) intervals once, and per element and reaction
 //     the propensities, the source test and the violation bits once; then
 //     each vector of the chunk loads its p at x and at the source and
-//     adds its own terms.  See "K9" below.
+//     adds its own terms.  See "K9" below;
+//   * batched on a window (K9w, the jax.vmap of the sharded action: the
+//     reference's meshed sensitivity solve vmaps the sharded Pallas call,
+//     pacmensl_tpu/ops/sens_operator.py:150-153 over
+//     pacmensl_tpu/ops/box_operator.py:152-170): K9 with K4's window
+//     fields, for one launch over a rank's slab.  Each vector's halos
+//     above and below come in p_up and p_dn with batch strides of their
+//     own (up_bstride, dn_bstride), so the ranks exchange every vector's
+//     edge planes in one message each way.  A source row's vector stride
+//     follows from the part of p it lies in, which depends only on the
+//     reaction (two comparisons a reaction, in an instantiation of its
+//     own, so K9 on a whole box keeps its code).  Its sinks come from the
+//     same per-vector cells and slots as K9's, and each vector's dp and
+//     sinks are bitwise a K4 launch's on that vector.
 //
 // For every C-order box index x:
 //
@@ -247,11 +260,15 @@ struct BoxParams {
     long long p_bstride;
     long long dp_bstride;
     int nbv;
+    // K9w: the elements between consecutive vectors of p_up and of p_dn
+    long long up_bstride;
+    long long dn_bstride;
 };
 
 // Device pointers of one launch (mirrored in ops/box_kernel.py).  In the
 // batched mode p, dp, part and sinks hold nb vectors: vector v's at
-// v * p_bstride, v * dp_bstride, v * part_total * nc and v * nc.
+// v * p_bstride, v * dp_bstride, v * part_total * nc and v * nc (and on a
+// window p_up's and p_dn's at v * up_bstride and v * dn_bstride).
 struct BoxPtrs {
     const double* p_up;
     const double* p;
@@ -329,8 +346,9 @@ __device__ __forceinline__ void violated_on_row(const BoxForm& f,
 // the batched launch (K9) on chunks of at most NBV vectors, an
 // instantiation of its own so that a single launch computes no batch
 // offsets (they cost K1 and K3 about 3% at the repressilator's final
-// capacity on an H100 80GB HBM3 at 700 W, PERF.md).
-template <int NCM, bool SYNTH, typename F, bool GRP, int NBV>
+// capacity on an H100 80GB HBM3 at 700 W, PERF.md); WIN: K9 on a window
+// whose halos hold vectors of their own strides (K9w).
+template <int NCM, bool SYNTH, typename F, bool GRP, int NBV, bool WIN>
 __global__ void __launch_bounds__(BOX_THREADS, NBV > 1 ? BOX_BAT_MIN_BLOCKS
                                                        : BOX_MIN_BLOCKS)
 box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
@@ -566,11 +584,14 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                 }
                 const long long srow = wr - t_st[r][0];
                 const double* base =
-                    srow < prm.up_rows ? ptr.p_up + srow * prm.plane
+                    srow < prm.up_rows
+                        ? ptr.p_up + (WIN ? bat * prm.up_bstride : 0)
+                          + srow * prm.plane
                     : srow < prm.up_rows + prm.mid_rows
                         ? ptr.p + bat * prm.p_bstride
                           + (srow - prm.up_rows) * prm.plane
-                        : ptr.p_dn + (srow - prm.up_rows - prm.mid_rows)
+                        : ptr.p_dn + (WIN ? bat * prm.dn_bstride : 0)
+                          + (srow - prm.up_rows - prm.mid_rows)
                           * prm.plane;
                 w_src[warp][g][r] =
                     ok ? base + (long long)(pr0 + g) * E - t_kin[r] : nullptr;
@@ -770,11 +791,19 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         }
                         // each vector's loads of p at the source, all in
                         // flight together, and its term in a single
-                        // launch's arithmetic
+                        // launch's arithmetic.  K9w: the vector stride of
+                        // the part of p the source row lies in
+                        long long sbs = pbs;
+                        if constexpr (WIN) {
+                            const long long srow = wr - t_st[r][0];
+                            sbs = srow < prm.up_rows ? prm.up_bstride
+                                  : srow < prm.up_rows + prm.mid_rows
+                                      ? pbs : prm.dn_bstride;
+                        }
                         double ap[NBV], p_s[NBV];
 #pragma unroll
                         for (int v = 0; v < NBV; ++v)
-                            p_s[v] = ok && v < nv ? sp[v * pbs + xl] : 0.0;
+                            p_s[v] = ok && v < nv ? sp[v * sbs + xl] : 0.0;
 #pragma unroll
                         for (int v = 0; v < NBV; ++v) {
                             if (v >= nv) continue;
@@ -909,11 +938,14 @@ static bool window_ok(const BoxParams* prm, int nblocks)
         && (prm->group == 1 || prm->group * E <= 32)
         && prm->ntab >= 0 && nblocks >= 1 && prm->part_base >= 0
         && prm->nb >= 1 && prm->nb <= 65535
-        && (prm->nb == 1 || (prm->part_base == 0 && prm->up_rows == 0
-                             && prm->mid_rows == prm->shape[0]
+        && (prm->nb == 1 || (prm->part_base == 0
                              && prm->p_bstride >= prm->mid_rows * prm->plane
                              && prm->dp_bstride >= (prm->out_hi - prm->out_lo)
-                                                   * prm->plane))
+                                                   * prm->plane
+                             && prm->up_bstride >= prm->up_rows * prm->plane
+                             && prm->dn_bstride
+                                >= (prm->shape[0] - prm->up_rows
+                                    - prm->mid_rows) * prm->plane))
         && nblocks <= prm->ticket_total;
     for (int r = 0; ok && r < prm->R; ++r) {
         const int ax = prm->tab_axis[r];
@@ -923,11 +955,11 @@ static bool window_ok(const BoxParams* prm, int nblocks)
     return ok;
 }
 
-template <int NCM, bool SYNTH, typename F, bool GRP, int NBV>
+template <int NCM, bool SYNTH, typename F, bool GRP, int NBV, bool WIN>
 static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
                                  int nblocks, cudaStream_t st)
 {
-    auto kern = box_action_kernel<NCM, SYNTH, F, GRP, NBV>;
+    auto kern = box_action_kernel<NCM, SYNTH, F, GRP, NBV, WIN>;
     // Dynamic shared memory beyond 48 KB must be asked for, once per
     // kernel: all that the card lets a block have beside the static part.
     // K9 also sizes its chunk by the share of an SM's shared memory that
@@ -994,10 +1026,15 @@ template <int NCM, bool SYNTH, typename F, bool GRP>
 static cudaError_t launch_rows(const BoxParams* prm, const BoxPtrs* ptr,
                                int nblocks, cudaStream_t st)
 {
-    return prm->nb > 1
-        ? launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV>(prm, ptr, nblocks,
-                                                         st)
-        : launch_kernel<NCM, SYNTH, F, GRP, 1>(prm, ptr, nblocks, st);
+    if (prm->nb == 1)
+        return launch_kernel<NCM, SYNTH, F, GRP, 1, false>(prm, ptr, nblocks,
+                                                           st);
+    // K9 on a whole box, or on a window with halos (K9w)
+    return prm->up_rows == 0 && prm->mid_rows == prm->shape[0]
+        ? launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, false>(prm, ptr,
+                                                                nblocks, st)
+        : launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, true>(prm, ptr,
+                                                               nblocks, st);
 }
 
 template <int NCM, bool SYNTH, typename F>
@@ -1010,7 +1047,8 @@ static cudaError_t launch(const BoxParams* prm, const BoxPtrs* ptr,
 }
 
 // Launches the box kernel on ``stream`` of CUDA device ``device``: the
-// mask-reading mode (synth = 0: K1, or K4 on a window) or the
+// mask-reading mode (synth = 0: K1, or K4 on a window; with prm->nb > 1
+// K9, or K9w on a window) or the
 // synthesized-mask mode (synth = 1: K3, or K4 on a window; prm->bounds
 // and prm->form describe the constraints; narrow = 1 evaluates the forms
 // in int32, which the caller allows only where no value at any box point

@@ -1,9 +1,13 @@
 """FspSolverMultiSinks: the transient FSP driver.
 
 Counterpart of ``pacmensl_tpu/fsp/solver.py`` (reference
-``src/Fsp/FspSolverMultiSinks.{h,cpp}``) on the dense-box backend with the
-Krylov integrator (time-invariant models) and the BDF integrator with
-matrix-free GMRES (time-varying models).  It owns the constrained state space, the CME operator
+``src/Fsp/FspSolverMultiSinks.{h,cpp}``) on the dense-box and the
+compressed backend, with the Krylov integrator (time-invariant models),
+the BDF integrator with matrix-free GMRES (time-varying models) and the
+reference's pluggable TS methods under ``odes_type="petsc"``
+(:meth:`FspSolverMultiSinks.set_ts_type`: Dormand-Prince RK, CN or BDF).
+Runtime flags come from :class:`~..sys.options.Options`
+(:meth:`FspSolverMultiSinks.set_from_options`).  It owns the constrained state space, the CME operator
 and the integrator, and runs the solve -> check sinks -> expand -> scatter
 -> resume loop (``Advance_``, FspSolverMultiSinks.cpp:62-224):
 
@@ -27,17 +31,18 @@ the distribution is gathered on every rank.
 
 The compressed (ELL) backend (``backend="ell"``,
 :class:`~..statespace.state_set.StateSet` and
-:class:`~..ops.ell_operator.EllOperator`) runs on one device: its
-expansion is the state set's frontier BFS, an optional re-ordering by the
-partitioner when the set grew by more than ``lb_threshold``, an operator
-re-assembly and an index scatter of the solution.  ``backend="auto"``
+:class:`~..ops.ell_operator.EllOperator`): its expansion is the state
+set's frontier BFS, an optional re-ordering by the partitioner when the
+set grew by more than ``lb_threshold``, an operator re-assembly and an
+index scatter of the solution.  With a mesh every rank builds the same
+state set, from the all-reduced sinks, and holds block ``r`` of the
+padded state list (:class:`~..parallel.halo_ell.ShardedEllOperator`);
+re-ordering, assembly and scatter run on the gathered vector.  ``backend="auto"``
 routes (:meth:`_choose_backend`) and a box solve migrates to the
 compressed backend mid-solve (:meth:`_should_leave_box`,
 :meth:`_migrate_box_to_ell`) where the box outgrows the memory budget, or
 under ``"auto"`` where its fill falls below :data:`BOX_FILL_FLOOR`.  The
-compressed backend over a mesh (``parallel/halo_ell.py``), the RK and CN
-integrators and the axis reordering of the reference package are not
-ported yet (ROADMAP).
+axis reordering of the reference package is not ported (ROADMAP A2a).
 """
 from __future__ import annotations
 
@@ -65,10 +70,14 @@ from ..ops.box_operator import BoxOperator
 from ..ops.ell_operator import EllOperator
 from ..ops import vecops as vo
 from ..ops.vecops import FspVector
-from ..parallel.mesh import gather_global, shard_fsp_vector
+from ..parallel.halo_ell import ShardedEllOperator
+from ..parallel.mesh import gather_rows, shard_rows, slab_rows
 from ..solvers.base import ODESolverType, STATUS_OK, STATUS_FSP_STOP
 from ..solvers.bdf import BdfSolver
+from ..solvers.cn import CNSolver
 from ..solvers.krylov import KrylovSolver
+from ..solvers.rk import RKSolver
+from ..sys.options import Options
 from .distribution import DiscreteDistribution
 
 #: vector-memory budget on the host, in bytes (the reference package's
@@ -90,8 +99,11 @@ _HOST_MEM_BUDGET = 8.0e9
 #: box (:meth:`FspSolverMultiSinks._choose_backend`).
 BOX_FILL_FLOOR = 0.041
 
-_NO_ELL_MESH = ("the compressed (ELL) backend over a mesh is not ported yet "
-                "(ROADMAP A13, parallel/halo_ell.py)")
+#: ``odes_type="petsc"``: the TS methods by name (reference TsFsp
+#: ``-ts_type``, ``pacmensl_tpu/fsp/solver.py:971-991``)
+TS_TYPES = {"rk": RKSolver, "rk45": RKSolver, "dp5": RKSolver,
+            "cn": CNSolver, "theta": CNSolver, "trapezoid": CNSolver,
+            "bdf": BdfSolver, "beuler": BdfSolver}
 
 
 class FspSolverMultiSinks:
@@ -128,6 +140,11 @@ class FspSolverMultiSinks:
         self.ode_rtol: Optional[float] = None
         self.ode_atol = 1.0e-14
         self.verbosity = 0
+        #: the TS method ``odes_type="petsc"`` runs (:data:`TS_TYPES`)
+        self.ts_type = "rk"
+        #: record the optional event counts (the halo's values per
+        #: matvec); the phase timers always run
+        self.log_events = True
         self.events = EventLog()
         self.step_trace = StepTrace()
 
@@ -145,12 +162,12 @@ class FspSolverMultiSinks:
 
     # ---------------------------------------------------------- settings
     def set_mesh(self, mesh) -> "FspSolverMultiSinks":
-        """Split the box over ``mesh``'s ranks (None: one device), the
-        analogue of the reference running on several MPI ranks."""
+        """Split the state space over ``mesh``'s ranks (None: one
+        device), the analogue of the reference running on several MPI
+        ranks: the box into axis-0 slabs, the compressed state list into
+        contiguous blocks."""
         dev = self._device_arg
         if mesh is not None:
-            if self.backend == "ell":
-                raise SetupError(_NO_ELL_MESH)
             if dev is not None and resolve_device(dev) != mesh.device:
                 raise SetupError(f"device {dev!r} is not the mesh's device "
                                  f"{mesh.device}")
@@ -239,7 +256,8 @@ class FspSolverMultiSinks:
     def set_odes_type(self, odes_type) -> "FspSolverMultiSinks":
         """Pick the integrator; ``"auto"`` resolves at set-up to KRYLOV for
         time-invariant models and CVODE (BDF) for time-varying ones, as in
-        the reference package.  PETSC (RK, CN) is not ported yet."""
+        the reference package.  PETSC runs the TS method of
+        :meth:`set_ts_type`."""
         if isinstance(odes_type, str) and odes_type.strip().lower() == "auto":
             self.odes_type = "auto"
             return self
@@ -271,6 +289,47 @@ class FspSolverMultiSinks:
         self.krylov_dim_range = (int(m_min), int(m_max))
         return self
 
+    def set_ts_type(self, name: str) -> "FspSolverMultiSinks":
+        """The TS method of ``odes_type="petsc"`` (reference
+        ``TsFsp::SetTsType``, ``-ts_type``): ``"rk"`` (explicit
+        Dormand-Prince 5(4); also ``"rk45"``, ``"dp5"``), ``"cn"``
+        (trapezoid with matrix-free GMRES; also ``"theta"``,
+        ``"trapezoid"``) or ``"bdf"`` (also ``"beuler"``).  An unknown name
+        raises :class:`SetupError` at set-up."""
+        self.ts_type = str(name).strip().lower()
+        self._ode_solver = None
+        return self
+
+    def set_from_options(self, opts: Optional[Options] = None
+                         ) -> "FspSolverMultiSinks":
+        """Settings from PETSc-style options (reference SetFromOptions,
+        FspSolverMultiSinks.cpp:523-574; default: ``sys.argv``), the keys
+        of ``pacmensl_tpu/fsp/solver.py:270-292``."""
+        opts = opts or Options.from_argv()
+        if opts.has("fsp_partitioning_type"):
+            self.set_load_balancing_method(opts.get("fsp_partitioning_type"))
+        if opts.has("fsp_repart_approach"):
+            self.set_repart_approach(opts.get("fsp_repart_approach"))
+        if opts.has("fsp_verbosity"):
+            self.verbosity = opts.get_int("fsp_verbosity")
+        if opts.has("fsp_log_events"):
+            self.log_events = opts.get_bool("fsp_log_events")
+        if opts.has("fsp_odes_type"):
+            self.set_odes_type(opts.get("fsp_odes_type"))
+        if opts.has("ts_type"):
+            self.set_ts_type(opts.get("ts_type"))
+        if opts.has("fsp_backend"):
+            backend = opts.get("fsp_backend")
+            if backend not in ("box", "ell", "auto"):
+                raise SetupError(f"unknown backend {backend!r} (box, ell "
+                                 "or auto)")
+            self.backend = backend
+            self._set_up = False
+        if opts.has("ode_rtol") or opts.has("ode_atol"):
+            self.set_ode_tolerances(opts.get_float("ode_rtol", self.ode_rtol),
+                                    opts.get_float("ode_atol", self.ode_atol))
+        return self
+
     def set_verbosity(self, level: int) -> "FspSolverMultiSinks":
         self.verbosity = int(level)
         return self
@@ -299,9 +358,14 @@ class FspSolverMultiSinks:
     def _box_elem_budget(self) -> float:
         """Box elements the integrator's vectors may take (reference
         ``_box_elem_budget``): the Krylov integrator keeps m_max + 2
-        box-sized vectors alive; BDF its GMRES basis (restart + 1), the
-        difference array (q_max + 3) and its work vectors with a margin,
-        the reference package's count."""
+        box-sized vectors alive; every other integrator is counted as BDF
+        is, the reference package's count (its non-Krylov branch): the
+        GMRES basis (restart + 1), the difference array (q_max + 3) and
+        work vectors with a margin.  RK holds its seven stages and a few
+        temporaries, CN two GMRES bases in turn, both within that count:
+        RK's solve of the repressilator to t = 10 peaked at 1.58 GiB of
+        device memory, Krylov's at 7.24 (chip_smoke.py 11a and phase 4 on
+        an H100 80GB HBM3 at 700 W)."""
         if "PACMENSL_BOX_MEM_BUDGET" in os.environ:
             mem = float(os.environ["PACMENSL_BOX_MEM_BUDGET"])
         elif self.device.type == "cuda":
@@ -324,13 +388,10 @@ class FspSolverMultiSinks:
         custom constraints go to the compressed backend, as in the
         reference package off the TPU.  On a card they start on the box,
         and :meth:`_should_leave_box` moves the solve to the compressed
-        backend once its fill falls below :data:`BOX_FILL_FLOOR`.  With a
-        mesh: the box (the compressed backend over ranks is not
-        ported)."""
+        backend once its fill falls below :data:`BOX_FILL_FLOOR`.  A mesh
+        follows the same rule on its device."""
         if self.backend != "auto":
             return self.backend
-        if self.mesh is not None:
-            return "box"
         if self.constraints.fn is not None and self.device.type != "cuda":
             return "ell"
         box = self.constraints.derive_box_bounds(self.model.num_species,
@@ -372,10 +433,9 @@ class FspSolverMultiSinks:
         """Switch a running box solve to the compressed backend, carrying
         over its states and every row of its solution (reference package
         ``_migrate_box_to_ell``).  The box's tensors are freed before the
-        state set and its operator are built."""
-        if self.mesh is not None:
-            raise SetupError("the box outgrows its memory budget, and "
-                             + _NO_ELL_MESH)
+        state set and its operator are built.  Over a mesh every rank
+        gathers the slabs and builds the same state set, and then keeps
+        its block of it."""
         if self.verbosity:
             print(f"[fsp] t = {self._t_now:.4g}: the box exceeds the "
                   "budget or the fill floor, migrating to the compressed "
@@ -390,13 +450,13 @@ class FspSolverMultiSinks:
                                init_states=states)
         self._space.expand()
         self._maybe_partition(force=True)
-        # the solution as [rows, n] in the set's order; the expansion's
-        # scatter then pads it to the operator's capacity
-        p = np.zeros((rows.shape[0], self._space.num_states))
+        self._build_operator()
+        # the solution as [rows, n_pad] in the set's order
+        p = np.zeros((rows.shape[0], self._operator.n_pad))
         p[:, self._space.state2index(states)] = rows
-        self._y = FspVector(
+        self._y = self._place(FspVector(
             p=torch.as_tensor(p.reshape(-1), dtype=self.dtype,
-                              device=self.device), sinks=sinks)
+                              device=self.device), sinks=sinks))
 
     def set_up(self) -> "FspSolverMultiSinks":
         if self.model is None:
@@ -407,11 +467,8 @@ class FspSolverMultiSinks:
             raise SetupError("SetUp called before initial distribution")
         if self._init_states.shape[1] != self.model.num_species:
             raise SetupError("initial states do not match model species")
-        odes = self._resolve_odes_type()
-        if odes == ODESolverType.PETSC:
-            raise SetupError(
-                "ODE solver 'petsc' (RK, CN) is not ported yet (ROADMAP "
-                "A8); use odes_type='cvode' or 'krylov'")
+        if self._resolve_odes_type() == ODESolverType.PETSC:
+            self._ts_class()
 
         self._ode_solver = None
         self._operator = None
@@ -452,8 +509,10 @@ class FspSolverMultiSinks:
         when the set grew by over 20%, StateSetConstrained.cpp:213-218).
         On one device only the partitioner's ordering is used: BLOCK keeps
         the insertion order, GRAPH and HYPERGRAPH re-order for the
-        gather's locality.  The box's layout is its coordinates: nothing
-        to do there."""
+        gather's locality.  Over a mesh rank r then holds the r-th
+        contiguous block of the order, so the ordering also sets the
+        halo each rank exchanges.  The box's layout is its coordinates:
+        nothing to do there."""
         if self._backend_used == "box":
             return False
         n = self._space.num_states
@@ -466,8 +525,9 @@ class FspSolverMultiSinks:
         prev = (np.arange(n)
                 if self.repart_approach != PartitioningApproach.FROMSCRATCH
                 else None)
+        n_parts = self.mesh.size if self.mesh is not None else 1
         res = part.partition(self._space.states, self.model.stoichiometry,
-                             1, state2index=self._space.state2index,
+                             n_parts, state2index=self._space.state2index,
                              prev_order=prev, need_boundaries=False)
         self._space.reorder(res.order)
         if self.verbosity:
@@ -480,20 +540,29 @@ class FspSolverMultiSinks:
         self._ode_solver = None     # its basis has the old capacity
         self._operator = None       # free the old fields first
         if self._backend_used == "ell":
-            self._operator = EllOperator(self.model, self._space,
-                                         dtype=self.dtype,
-                                         device=self.device)
+            if self.mesh is not None:
+                self._operator = ShardedEllOperator(
+                    self.model, self._space, self.mesh, dtype=self.dtype)
+                self._log_halo(self._operator)
+            else:
+                self._operator = EllOperator(self.model, self._space,
+                                             dtype=self.dtype,
+                                             device=self.device)
             return
         self._operator = BoxOperator(self.model, self._space,
                                      dtype=self.dtype, mesh=self.mesh)
-        if self._operator.sharded is not None:
-            self.events.add_count(
-                "HaloValuesPerMatvec",
-                self._operator.sharded.comm_values_per_matvec())
+        self._log_halo(self._operator.sharded)
         if self.verbosity:
             print(f"[fsp] box operator: capacity {tuple(self._space.shape)}"
                   f" ({float(np.prod(self._space.shape)):.3g} elems)",
                   flush=True)
+
+    def _log_halo(self, exchange) -> None:
+        """Count the values a matvec sends across ranks (the reference's
+        ``HaloValuesPerMatvec``)."""
+        if exchange is not None and self.log_events:
+            self.events.add_count("HaloValuesPerMatvec",
+                                  exchange.comm_values_per_matvec())
 
     def _vector_rows(self) -> int:
         """Rows of the solution vector: 1 (p); the sensitivity solve
@@ -513,7 +582,7 @@ class FspSolverMultiSinks:
         n_c = self.constraints.num_constraints
         m = self._vector_rows()
         n = (self._space.size if self._backend_used == "box"
-             else self._operator.local_n)
+             else self._operator.n_pad)
         p = np.zeros((m, n), dtype=np.float64)
         p[:, idx] = self._init_values()
         self.sinks_ = np.zeros((n_c,), np.float64)
@@ -524,17 +593,22 @@ class FspSolverMultiSinks:
                               device=self.device)))
 
     def _place(self, y: FspVector) -> FspVector:
-        """This rank's part of a vector over the whole box: its slab of
+        """This rank's part of a vector over the whole state space: its
+        slab of the box, or its block of the state list, of each row of
         ``p``, so only the owner of a state holds its mass."""
         if self.mesh is None:
             return y
-        return shard_fsp_vector(y, self._space.shape, self.mesh)
+        if self._backend_used == "box":
+            slab_rows(self._space.shape, self.mesh)    # axis 0 divides
+        return FspVector(p=shard_rows(y.p, self._vector_rows(), self.mesh),
+                         sinks=y.sinks)
 
     def _global_p(self) -> torch.Tensor:
-        """``p`` over the whole box (gathered from every rank)."""
+        """``p`` over the whole state space, row after row (gathered from
+        every rank)."""
         if self.mesh is None:
             return self._y.p
-        return gather_global(self._y.p, self.mesh)
+        return gather_rows(self._y.p, self._vector_rows(), self.mesh)
 
     # -------------------------------------------------------------- solve
     def _make_ode_solver(self, fsp_tol: float, t_final: float):
@@ -544,14 +618,15 @@ class FspSolverMultiSinks:
             def stop_check(t, y, forgiven):
                 # reference CheckFspTolerance_ (FspSolverMultiSinks.cpp:
                 # 576-611): sink_i exceeds its share of the tolerance
-                # budget pro-rated by t/t_final.  ``forgiven`` subtracts
-                # the excess already lost when the epoch started: growing
-                # the space cannot reclaim it, so re-tripping on it would
-                # stop every resumed epoch on its first step.  p's sinks
-                # lead y's (the closure holds no reference to the driver,
-                # so a dropped solver is freed at once)
-                sinks = y.sinks[:n_sinks].cpu().numpy()      # host sync
-                excess = sinks * n_sinks - fsp_tol * (t / t_final)
+                # budget pro-rated by t/t_final.  ``forgiven`` (on y's
+                # device) subtracts the excess already lost when the epoch
+                # started: growing the space cannot reclaim it, so
+                # re-tripping on it would stop every resumed epoch on its
+                # first step.  p's sinks lead y's.  The excess stays on
+                # the device for the integrator to fetch.  (The closure
+                # holds no reference to the driver, so a dropped solver is
+                # freed at once.)
+                excess = y.sinks[:n_sinks] * n_sinks - fsp_tol * (t / t_final)
                 if forgiven is not None:
                     excess = excess - forgiven
                 return excess
@@ -565,13 +640,18 @@ class FspSolverMultiSinks:
                                 m_max=self.krylov_dim_range[1],
                                 rhs_cost=self._operator.local_mv_flops(),
                                 stop_check=stop_check, n_sinks=n_sinks)
-        if odes == ODESolverType.CVODE:
-            return BdfSolver(self._operator.action,
-                             rtol=self.ode_rtol, atol=self.ode_atol,
-                             stop_check=stop_check, n_sinks=n_sinks)
-        raise SetupError(
-            f"ODE solver {odes.value!r} is not ported yet (RK/CN: ROADMAP "
-            "A8)")
+        cls = BdfSolver if odes == ODESolverType.CVODE else self._ts_class()
+        return cls(self._operator.action, rtol=self.ode_rtol,
+                   atol=self.ode_atol, stop_check=stop_check,
+                   n_sinks=n_sinks)
+
+    def _ts_class(self):
+        """The integrator of :attr:`ts_type` (``odes_type="petsc"``)."""
+        cls = TS_TYPES.get(self.ts_type)
+        if cls is None:
+            raise SetupError(f"unknown ts_type {self.ts_type!r} (supported: "
+                             "rk, cn/theta/trapezoid, bdf/beuler)")
+        return cls
 
     def _expand(self, to_expand: np.ndarray, rounds: int = 1):
         """Grow the flagged bounds and the state space with them, and
@@ -628,9 +708,7 @@ class FspSolverMultiSinks:
             self._escalate_if_stuck(n_before, to_expand)
             self._maybe_partition()
         with self.events.timed(EVT_MATGEN):
-            if self._operator is None:      # first epoch after a migration
-                self._build_operator()
-            elif self._operator.reassemble():
+            if self._operator.reassemble():
                 self._ode_solver = None     # its storage has the old size
         with self.events.timed(EVT_SCATTER):
             self._y = self._scatter_ell(states_old)
@@ -640,20 +718,21 @@ class FspSolverMultiSinks:
         elsewhere (reference ``ExpandVec``, PetscWrap.cpp:26-56).  Where
         the set kept its order (no re-ordering) the old indices are the
         identity prefix and this is a zero-pad, or nothing within
-        capacity: entries past the states stay exactly zero."""
+        capacity: entries past the states stay exactly zero.  Over a mesh
+        the rows are gathered, scattered and cut into blocks again."""
         m = self._vector_rows()
-        rows = self._y.p.view(m, -1)
-        n_old, n_pad = states_old.shape[0], self._operator.local_n
+        n_old, n_pad = states_old.shape[0], self._operator.n_pad
         idx = self._space.state2index(states_old)
-        if (idx == np.arange(n_old)).all():
-            if rows.shape[1] == n_pad:
-                return self._y
-            p = rows.new_zeros((m, n_pad))
+        in_place = bool((idx == np.arange(n_old)).all())
+        if in_place and self._y.p.numel() == m * self._operator.local_n:
+            return self._y
+        rows = self._global_p().view(m, -1)
+        p = rows.new_zeros((m, n_pad))
+        if in_place:
             p[:, :rows.shape[1]] = rows
         else:
-            p = rows.new_zeros((m, n_pad))
             p[:, torch.as_tensor(idx, device=p.device)] = rows[:, :n_old]
-        return FspVector(p=p.reshape(-1), sinks=self._y.sinks)
+        return self._place(FspVector(p=p.reshape(-1), sinks=self._y.sinks))
 
     def _embed_old(self, old_shape) -> FspVector:
         """Every row of the solution zero-padded from the box of
@@ -730,7 +809,9 @@ class FspSolverMultiSinks:
                     slack = (64.0 * eps * np.maximum(np.abs(sinks_now)
                                                      * n_sinks, fsp_tol)
                              + 1.0e-3 * fsp_tol / n_sinks)
-                    forgiven = np.maximum(0.0, excess_now) + slack
+                    forgiven = torch.as_tensor(
+                        np.maximum(0.0, excess_now) + slack,
+                        dtype=self.dtype, device=self.device)
                     self.events.add("StopCheckPrep",
                                     time.perf_counter() - t_fg)
                 else:
@@ -818,8 +899,8 @@ class FspSolverMultiSinks:
             return self._space.states(), np.stack(
                 [self._space.extract_valid(r) for r in rows])
         states = self._space.copy_states()
-        return states, self._y.p.view(m, -1)[:, :states.shape[0]
-                                               ].cpu().numpy()
+        return states, self._global_p().view(m, -1)[:, :states.shape[0]
+                                                   ].cpu().numpy()
 
     def _make_distribution(self) -> DiscreteDistribution:
         with self.events.timed("DistributionExtract"):
@@ -845,6 +926,8 @@ class FspSolverMultiSinks:
     SetInitialDistribution = set_initial_distribution
     SetOdesType = set_odes_type
     SetKrylovDimRange = set_krylov_dim_range
+    SetTsType = set_ts_type
+    SetFromOptions = set_from_options
     SetOdeTolerances = set_ode_tolerances
     SetVerbosity = set_verbosity
     SetLoadBalancingMethod = set_load_balancing_method

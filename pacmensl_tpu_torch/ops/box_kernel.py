@@ -21,6 +21,9 @@ reference package and ``chip_smoke.py`` compares the kernel with):
 either mode on ``nb`` vectors at once (K9, the counterpart of the
 reference package's ``vmap`` of the action over the sensitivity vectors);
 their plain versions run the single plain versions over the leading axis.
+On a window (a geometry built with ``g0``) with each vector's halos
+(``[nb, ...]``) they are K9w, the counterpart of the ``vmap`` of the
+sharded action.
 
 Either mode runs on a window of a box split into axis-0 slabs (K4, the
 TPU kernel's sharded mode) when its :class:`BoxGeometry` is built with the
@@ -54,9 +57,10 @@ MAX_FORM_NC, MAX_PROD = 16, 2
 MAX_ELEMS = 2 ** 31 - 1
 _I32 = 2 ** 31
 #: the kernel's modes, keys of the launch counters: K1, K3, K4 in either
-#: of them, and the batched launch K9 in either of them
+#: of them, and the batched launch K9 and K9w (on a window) in either of
+#: them
 MODES = ("mask", "synth", "sharded_mask", "sharded_synth", "batched_mask",
-         "batched_synth")
+         "batched_synth", "batched_sharded_mask", "batched_sharded_synth")
 #: threads of a block, and its warps (one unit of rows of the last axis
 #: each)
 THREADS, WARPS = 256, 8
@@ -125,7 +129,9 @@ class _BoxParams(ctypes.Structure):
                 ("nb", ctypes.c_int),
                 ("p_bstride", ctypes.c_longlong),
                 ("dp_bstride", ctypes.c_longlong),
-                ("nbv", ctypes.c_int)]
+                ("nbv", ctypes.c_int),
+                ("up_bstride", ctypes.c_longlong),
+                ("dn_bstride", ctypes.c_longlong)]
 
 
 class _BoxPtrs(ctypes.Structure):
@@ -520,10 +526,12 @@ class BoxGeometry:
         up, mid = self.halo_rows
         return up * self.plane, (self.shape[0] - up - mid) * self.plane
 
-    def mode_key(self, mode: str) -> str:
+    def mode_key(self, mode: str, batched: bool = False) -> str:
         """The launch counter of ``mode`` ("mask" or "synth") on this
-        geometry: K4's own where the geometry is a window."""
-        return "sharded_" + mode if self.sharded else mode
+        geometry: K4's own where the geometry is a window; with
+        ``batched`` K9's, or K9w's on a window."""
+        key = "sharded_" + mode if self.sharded else mode
+        return "batched_" + key if batched else key
 
     def narrow(self, bounds) -> bool:
         """Whether the synthesized-mask kernel may evaluate the form in
@@ -625,6 +633,7 @@ class BoxGeometry:
         prm.ticket_total = self.ticket_total
         prm.group = self.group
         prm.nb, prm.p_bstride, prm.dp_bstride = 1, self.p_n, self.n_out
+        prm.up_bstride, prm.dn_bstride = self.halo_n()
         if self.masks is not None:
             for k, f in enumerate(self.form):
                 pf = prm.form[k]
@@ -702,20 +711,19 @@ class BoxActionKernel(CudaLibrary):
                viol=None, bounds=None, out=None, halos=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One launch of ``mode`` ("mask": K1/K2, "synth": K3; K4 on a
-        window; K9 where ``p`` is ``[nb, n]``).  Returns ``(dp, sinks)``
-        (``[nb, n]`` and ``[nb, n_c]`` for K9); sinks is None where
-        ``geom`` leads a chain (the following launch returns both
-        launches')."""
+        window; K9 where ``p`` is ``[nb, n]``, K9w on a window, with
+        halos ``[nb, ...]``).  Returns ``(dp, sinks)`` (``[nb, n]`` and
+        ``[nb, n_c]`` for K9); sinks is None where ``geom`` leads a chain
+        (the following launch returns both launches')."""
         lib = self.lib if self.lib is not None else self.load()
         dev = p.device
         R, n = geom.num_reactions, geom.n
         batched = p.dim() == 2
         nb = p.shape[0] if batched else 1
         if batched:
-            if geom.sharded or geom.follows is not None or geom.leads \
-                    or halos is not None:
-                raise ValueError("the batched launch takes a whole box, "
-                                 "not a window or a chain")
+            if geom.follows is not None or geom.leads:
+                raise ValueError("the batched launch takes a whole box or "
+                                 "one window, not a chain")
             if not 1 <= nb <= 65535:
                 raise ValueError(f"a batch of {nb} vectors; the batched "
                                  "launch takes 1 to 65535")
@@ -763,10 +771,11 @@ class BoxActionKernel(CudaLibrary):
         part, ticket = geom.scratch(dev, nb)
         up, dn = halos if halos is not None else (None, None)
         q = geom._ptrs
-        q.p_up = _halo_ptr(up, geom.halo_n()[0], geom.reads_halo[0], dev,
-                           "the halo above")
-        q.p_dn = _halo_ptr(dn, geom.halo_n()[1], geom.reads_halo[1], dev,
-                           "the halo below")
+        lead = (nb,) if batched else ()
+        q.p_up = _halo_ptr(up, lead + (geom.halo_n()[0],),
+                           geom.reads_halo[0], dev, "the halo above")
+        q.p_dn = _halo_ptr(dn, lead + (geom.halo_n()[1],),
+                           geom.reads_halo[1], dev, "the halo below")
         q.p = p.data_ptr()
         q.mask = mask.data_ptr() if mask is not None else None
         q.tab = props.packed.data_ptr() if props.packed.numel() else None
@@ -784,19 +793,19 @@ class BoxActionKernel(CudaLibrary):
             raise KernelError(f"box_action launch ({mode}"
                               f"{', batched' if batched else ''}) failed: "
                               f"cudaError {rc}")
-        self.launches["batched_" + mode if batched
-                      else geom.mode_key(mode)] += 1
+        self.launches[geom.mode_key(mode, batched)] += 1
         return dp, sinks
 
 
-def _halo_ptr(t, n: int, read: bool, device, name: str):
-    """The device pointer of a halo, or None where it is absent; absent
-    only where no computed row reads it."""
+def _halo_ptr(t, shape, read: bool, device, name: str):
+    """The device pointer of a halo of ``shape`` (``(n,)``, or ``(nb,
+    n)`` in a batched launch), or None where it is absent; absent only
+    where no computed row reads it."""
     if t is None:
-        if read and n:
+        if read and shape[-1]:
             raise ValueError(f"{name} is read and was not given")
         return None
-    _check(t, (n,), torch.float64, device, name)
+    _check(t, shape, torch.float64, device, name)
     return t.data_ptr()
 
 
@@ -996,68 +1005,78 @@ def box_action_synth(c, p, a, bounds, geom: BoxGeometry, out=None,
     raise ValueError(f"unsupported device {p.device}")
 
 
-def _batched_plain(mode: str, p, out, one) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def _batched_plain(mode: str, geom: BoxGeometry, p, out, halos, one
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A plain version over the leading axis of ``p [nb, n]``: ``one(row,
-    out_row)`` for each vector, stacked."""
+    out_row, halos_row)`` for each vector, stacked."""
     if p.dim() != 2:
         raise ValueError(f"p has shape {tuple(p.shape)}, expected [nb, n]")
-    KERNEL.plain_calls["batched_" + mode] += 1
+    key = geom.mode_key(mode, batched=True)
+    KERNEL.plain_calls[key] += 1
     if p.is_cuda:
-        KERNEL.plain_cuda_calls["batched_" + mode] += 1
+        KERNEL.plain_cuda_calls[key] += 1
     dps, sks = [], []
     for b in range(p.shape[0]):
-        dp, sk = one(p[b], None if out is None else out[b])
+        hb = (None if halos is None else
+              tuple(None if h is None else h[b] for h in halos))
+        dp, sk = one(p[b], None if out is None else out[b], hb)
         dps.append(dp)
         sks.append(sk)
     return (out if out is not None else torch.stack(dps)), torch.stack(sks)
 
 
 def box_action_batched_reference(c, p, mask, a, viol, geom: BoxGeometry,
-                                 out=None
+                                 out=None, halos=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the batched mask-reading launch: the
-    mask-reading plain version over the leading axis of ``p``."""
-    return _batched_plain("mask", p, out, lambda pb, ob: _masked_stencil(
-        c, pb, mask, a, viol, geom, ob))
+    """Plain PyTorch version of the batched mask-reading launch (K9, K9w
+    on a window): the mask-reading plain version over the leading axis of
+    ``p`` and of each halo."""
+    return _batched_plain("mask", geom, p, out, halos,
+                          lambda pb, ob, hb: _masked_stencil(
+                              c, pb, mask, a, viol, geom, ob, hb))
 
 
 def box_action_synth_batched_reference(c, p, a, bounds, geom: BoxGeometry,
-                                       out=None
+                                       out=None, halos=None
                                        ) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-    """Plain PyTorch version of the batched synthesized-mask launch: the
-    synthesized-mask plain version over the leading axis of ``p``."""
+    """Plain PyTorch version of the batched synthesized-mask launch (K9,
+    K9w on a window): the synthesized-mask plain version over the leading
+    axis of ``p`` and of each halo."""
     mask, viol = _synth_data(geom, bounds, p.device)
-    return _batched_plain("synth", p, out, lambda pb, ob: _masked_stencil(
-        c, pb, mask, a, viol, geom, ob))
+    return _batched_plain("synth", geom, p, out, halos,
+                          lambda pb, ob, hb: _masked_stencil(
+                              c, pb, mask, a, viol, geom, ob, hb))
 
 
-def box_action_batched(c, p, mask, a, viol, geom: BoxGeometry, out=None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+def box_action_batched(c, p, mask, a, viol, geom: BoxGeometry, out=None,
+                       halos=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`box_action` on each of the ``nb`` vectors ``p [nb, n]`` in
     one launch (K9; the reference package ``vmap``s the action over the
     sensitivity vectors): ``dp [nb, n]`` (written into ``out`` where
-    given) and ``sinks [nb, n_c]``, bitwise ``nb`` single launches'.  The
-    geometry is a whole box.  CUDA tensors launch the kernel; CPU tensors
-    run :func:`box_action_batched_reference`."""
+    given) and ``sinks [nb, n_c]``, bitwise ``nb`` single launches'.  On
+    a window (K9w) ``halos = (up [nb, ...], dn [nb, ...])``, either None
+    where no computed row reads it.  CUDA tensors launch the kernel; CPU
+    tensors run :func:`box_action_batched_reference`."""
     if p.device.type == "cuda":
         return KERNEL.launch("mask", c, p, a, geom, mask=mask, viol=viol,
-                             out=out)
+                             out=out, halos=halos)
     if p.device.type == "cpu":
-        return box_action_batched_reference(c, p, mask, a, viol, geom, out)
+        return box_action_batched_reference(c, p, mask, a, viol, geom, out,
+                                            halos)
     raise ValueError(f"unsupported device {p.device}")
 
 
-def box_action_synth_batched(c, p, a, bounds, geom: BoxGeometry, out=None
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def box_action_synth_batched(c, p, a, bounds, geom: BoxGeometry, out=None,
+                             halos=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`box_action_synth` on each of the ``nb`` vectors ``p [nb,
-    n]`` in one launch (K9), as :func:`box_action_batched`.  CUDA tensors
-    launch the kernel; CPU tensors run
-    :func:`box_action_synth_batched_reference`."""
+    n]`` in one launch (K9, K9w on a window), as
+    :func:`box_action_batched`.  CUDA tensors launch the kernel; CPU
+    tensors run :func:`box_action_synth_batched_reference`."""
     if p.device.type == "cuda":
-        return KERNEL.launch("synth", c, p, a, geom, bounds=bounds, out=out)
+        return KERNEL.launch("synth", c, p, a, geom, bounds=bounds, out=out,
+                             halos=halos)
     if p.device.type == "cpu":
         return box_action_synth_batched_reference(c, p, a, bounds, geom,
-                                                  out)
+                                                  out, halos)
     raise ValueError(f"unsupported device {p.device}")

@@ -350,12 +350,14 @@ class BoxOperator:
     def action_batched(self, t, p: torch.Tensor, c=None, out=None):
         """``(dp [nb, n], sinks [nb, n_c])`` of A(t) applied to each row
         of ``p [nb, n]`` in one launch of the batched kernel (K9) on a
-        CUDA tensor, by its plain version on a CPU tensor; one device
-        only."""
-        if self.sharded is not None:
-            raise ValueError("the batched action runs on one device")
+        CUDA tensor, by its plain version on a CPU tensor; with a mesh on
+        the rank's slab of each vector, behind one halo exchange (K9w,
+        :meth:`~..parallel.halo_box.ShardedBoxAction.batched`)."""
         d = self._data
         c = self.coefficients(t, c)
+        if self.sharded is not None:
+            return self.sharded.batched(c, p, self.props, d.mask, d.viol,
+                                        d.bounds, out)
         if d.mask is None:
             return box_action_synth_batched(c, p, self.props, d.bounds,
                                             self.geom, out=out)

@@ -92,20 +92,31 @@ class EllOperator:
         self._assemble()
         return grew
 
+    def _row_range(self):
+        """The rows ``[lo, hi)`` of the padded state list this operator
+        assembles: all of them on one device."""
+        return 0, self.n_pad
+
     def _assemble(self) -> None:
+        """The arrays of the rows :meth:`_row_range` names, ``[R, hi -
+        lo]``; ``src_idx`` holds global indices, ``sink_x`` indices from
+        ``lo``."""
         ss, dev, dt = self.state_set, self.device, self.dtype
-        states = ss.states
-        n, n_pad = self.n_states, self.n_pad
+        lo, hi = self._row_range()
+        states = ss.states[lo:max(min(hi, self.n_states), lo)]
+        n, width = states.shape[0], hi - lo
         R = len(self.enable_reactions)
         stoich = self.model.stoichiometry
         bounds = ss.constraints.bounds_tensor(dev)
         x = torch.as_tensor(states, device=dev)
         xf = x.to(dt)
-        self.src_idx = torch.zeros((R, n_pad), dtype=torch.int64, device=dev)
-        self.off_val = torch.zeros((R, n_pad), dtype=dt, device=dev)
-        self.diag_val = torch.zeros((R, n_pad), dtype=dt, device=dev)
-        sink_x, sink_r, sink_w = [], [], []
-        for k, r in enumerate(self.enable_reactions):
+        self.src_idx = torch.zeros((R, width), dtype=torch.int64, device=dev)
+        self.off_val = torch.zeros((R, width), dtype=dt, device=dev)
+        self.diag_val = torch.zeros((R, width), dtype=dt, device=dev)
+        sink_x = [torch.zeros(0, dtype=torch.int64, device=dev)]
+        sink_r = list(sink_x)
+        sink_w = [torch.zeros((ss.num_constraints, 0), dtype=dt, device=dev)]
+        for k, r in enumerate(self.enable_reactions if n else ()):
             s = torch.as_tensor(stoich[r], device=dev)
             # inflow to row x from its source x - s_r (the reference's
             # column construction, FspMatrixBase.cpp:132-145)

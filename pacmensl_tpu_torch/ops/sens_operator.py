@@ -30,6 +30,14 @@ together, written straight into the output's rows, and one launch per
 non-empty derivative operator.  K9 is bitwise one launch per vector.  The
 model's time coefficients are evaluated once per action and handed to
 every operator.
+
+With a ``mesh`` every sub-operator is sharded over its ranks, as the
+reference package's meshed sensitivity solve is
+(``pacmensl_tpu/sensfsp/sens_solver.py:73-95``): box operators on each
+rank's slab (the batched action is then K9w behind one halo exchange of
+every vector), compressed ones as
+:class:`~..parallel.halo_ell.ShardedEllOperator`; the stacked vector holds
+the rank's slab or block of each of its rows.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 
 from ..models.model import Model, SensModel
 from ..statespace.state_set import StateSet
+from ..parallel.halo_ell import ShardedEllOperator
 from .box_operator import BoxOperator
 from .ell_operator import EllOperator
 from .vecops import FspVector
@@ -64,28 +73,32 @@ def _prop_model(model: SensModel, j: int) -> Optional[Model]:
 
 
 class SensOperator:
-    """A(t) plus its per-parameter derivative operators, on one device:
-    box operators on a :class:`BoxStateSpace`, compressed ones on a
-    :class:`StateSet` (on ``device``)."""
+    """A(t) plus its per-parameter derivative operators: box operators on
+    a :class:`BoxStateSpace`, compressed ones on a :class:`StateSet` (on
+    ``device``), each sharded over ``mesh``'s ranks where one is given."""
 
     def __init__(self, model: SensModel, space, dtype=torch.float64,
-                 device=None):
+                 device=None, mesh=None):
         self.model = model
         self.dtype = dtype
         self.n_par = model.num_parameters
         if isinstance(space, StateSet):
             def make(m, reactions=None):
+                if mesh is not None:
+                    return ShardedEllOperator(m, space, mesh, dtype=dtype,
+                                              enable_reactions=reactions)
                 return EllOperator(m, space, dtype=dtype, device=device,
                                    enable_reactions=reactions)
             self.base = make(model.base_model())
         else:
-            self.base = BoxOperator(model.base_model(), space, dtype=dtype)
+            self.base = BoxOperator(model.base_model(), space, dtype=dtype,
+                                    mesh=mesh)
             # the derivative operators run in the base operator's kernel
             # mode and change it with it (refresh_data)
             mode = self.base.synth_mask
 
             def make(m, reactions=None):
-                return BoxOperator(m, space, dtype=dtype,
+                return BoxOperator(m, space, dtype=dtype, mesh=mesh,
                                    enable_reactions=reactions,
                                    synth_mask=mode)
         self.dcxA: List[Optional[object]] = []
@@ -120,6 +133,21 @@ class SensOperator:
     @property
     def local_n(self) -> int:
         return self.base.local_n
+
+    @property
+    def n_pad(self) -> int:
+        """Compressed backend: the padded state list's length."""
+        return self.base.n_pad
+
+    @property
+    def exchange(self):
+        """What sends values across ranks in a matvec (its
+        ``comm_values_per_matvec``): the base operator's sharded box
+        action or the sharded compressed base operator; None on one
+        device."""
+        if isinstance(self.base, ShardedEllOperator):
+            return self.base
+        return getattr(self.base, "sharded", None)
 
     @property
     def num_constraints(self) -> int:

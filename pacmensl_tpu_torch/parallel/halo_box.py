@@ -31,6 +31,13 @@ concatenated, and the halos are received into buffers allocated once.
   The second launch sums both launches' sink partials: one reduction per
   matvec.
 * Else one launch on the window after the exchange.
+
+:meth:`ShardedBoxAction.batched` applies the action to ``nb`` vectors of
+the rank's slab at once (the reference's meshed sensitivity solve
+``vmap``s the sharded call): one exchange of every vector's edge planes,
+stacked ``[nb, w0 P]`` each way, one launch of the batched kernel on the
+window (K9w, the single-launch geometry above), and one all-reduce of the
+``[nb, n_c]`` sinks.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.box_kernel import BoxGeometry, box_action, box_action_synth
+from ..ops.box_kernel import (BoxGeometry, box_action, box_action_batched,
+                              box_action_synth, box_action_synth_batched)
 from ..sys.errors import SetupError
 from .mesh import StateMesh, slab_rows
 
@@ -103,12 +111,15 @@ class ShardedBoxAction:
                                   follows=self.geom_int)
         else:
             self.geom = geom((w0, w0 + L0))
+        #: the batched launch's window: the single-launch geometry
+        self.geom_batched = geom((w0, w0 + L0))
         self._up = self._dn = None
         if self.halos:
             self._up = torch.zeros(w0 * P, dtype=torch.float64,
                                    device=mesh.device)
             self._dn = torch.zeros(w0 * P, dtype=torch.float64,
                                    device=mesh.device)
+        self._bufs = {}
 
     def _run(self, geom, c, p, a, mask, viol, bounds, out=None, halos=None):
         """The kernel on ``geom``, a window of the operator's data."""
@@ -136,6 +147,35 @@ class ShardedBoxAction:
             dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds,
                                halos=halos)
         if ks.numel():
+            self.mesh.all_reduce(ks)
+        return dp, ks
+
+    def batched(self, c, p, a, mask: Optional[torch.Tensor],
+                viol: Optional[torch.Tensor], bounds, out=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(dp [nb, L0 P], sinks [nb, n_c])`` of the action on each row
+        of ``p [nb, L0 P]`` (the rank's slab of each vector): one halo
+        exchange of every vector's edge planes, one K9w launch, one
+        all-reduce of the sinks.  ``out``: where to write ``dp``."""
+        w0, L0, P = self.w0, self.L0, self.plane
+        geom = self.geom_batched
+        halos = None
+        if self.halos:
+            nb = p.shape[0]
+            bufs = self._bufs.get(nb)
+            if bufs is None:
+                bufs = self._bufs[nb] = tuple(
+                    torch.zeros((nb, w0 * P), dtype=torch.float64,
+                                device=p.device) for _ in range(2))
+            halos = self.mesh.halo_start(p[:, :w0 * P], p[:, (L0 - w0) * P:],
+                                         *bufs).wait()
+        if mask is None:
+            dp, ks = box_action_synth_batched(c, p, a, bounds, geom, out,
+                                              halos)
+        else:
+            dp, ks = box_action_batched(c, p, mask, a, viol, geom, out,
+                                        halos)
+        if self.halos and ks.numel():
             self.mesh.all_reduce(ks)
         return dp, ks
 

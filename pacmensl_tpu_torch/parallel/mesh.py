@@ -10,9 +10,10 @@ communication is ``torch.distributed`` calls written out:
 * the box is cut into equal axis-0 slabs, rank ``r`` holding rows
   ``[r L0, (r + 1) L0)`` of every box vector (:func:`slab_rows`);
 * sinks and every host value are replicated;
-* reductions are all-reduces, the halo exchange is a pair of sends and
-  receives with each neighbour, and a vector's global box is an
-  all-gather.
+* reductions are all-reduces, the box's halo exchange is a pair of sends
+  and receives with each neighbour, the compressed backend's one
+  all-to-all with uneven splits (``parallel/halo_ell.py``), and a
+  vector's global box is an all-gather.
 
 With the gloo backend and CUDA tensors, each collective stages its data
 through host memory: that backend's transport, always used for it.
@@ -26,7 +27,6 @@ import torch
 import torch.distributed as dist
 
 from ..config import resolve_device
-from ..ops.vecops import FspVector
 from ..sys.environment import init
 from ..sys.errors import SetupError
 
@@ -78,6 +78,23 @@ class StateMesh:
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts).to(t.device)
 
+    def all_to_all(self, send: torch.Tensor, send_splits, recv_splits
+                   ) -> torch.Tensor:
+        """One ``all_to_all_single`` with uneven splits along dim 0: rows
+        ``send_splits[o]`` of ``send`` (in rank order) go to rank o, and
+        the result holds ``recv_splits[o]`` rows from each rank o, in rank
+        order."""
+        recv = send.new_empty((int(sum(recv_splits)),) + send.shape[1:])
+        if self._staged(send):
+            h = recv.cpu()
+            dist.all_to_all_single(h, send.contiguous().cpu(),
+                                   list(recv_splits),
+                                   list(send_splits), group=self.group)
+            return recv.copy_(h)
+        dist.all_to_all_single(recv, send.contiguous(), list(recv_splits),
+                               list(send_splits), group=self.group)
+        return recv
+
     def halo_start(self, first: torch.Tensor, last: torch.Tensor,
                    up: Optional[torch.Tensor] = None,
                    dn: Optional[torch.Tensor] = None) -> "HaloExchange":
@@ -99,7 +116,7 @@ class HaloExchange:
                     dn if dn is not None else torch.zeros_like(first))
         staged = mesh._staged(first)
         if staged:
-            first, last = first.cpu(), last.cpu()
+            first, last = first.contiguous().cpu(), last.contiguous().cpu()
             self.up, self.dn = self.out[0].cpu(), self.out[1].cpu()
         else:
             self.up, self.dn = self.out
@@ -184,14 +201,28 @@ def slab_rows(shape: Tuple[int, ...], mesh: StateMesh) -> Tuple[int, int]:
     return mesh.rank * L0, (mesh.rank + 1) * L0
 
 
-def shard_fsp_vector(y, shape: Tuple[int, ...], mesh: StateMesh):
-    """This rank's part of an FspVector whose ``p`` is the flat global
-    box of ``shape``: the slab of ``p``, and the replicated sinks."""
-    lo, hi = slab_rows(shape, mesh)
-    plane = int(np.prod(shape[1:]))
-    return FspVector(p=y.p[lo * plane:hi * plane].clone(), sinks=y.sinks)
-
-
 def gather_global(p_loc: torch.Tensor, mesh: StateMesh) -> torch.Tensor:
     """The flat global box vector from every rank's slab ``p_loc``."""
     return mesh.all_gather(p_loc)
+
+
+def shard_rows(p: torch.Tensor, m: int, mesh: StateMesh) -> torch.Tensor:
+    """This rank's part of ``m`` stacked rows over the whole state space
+    (flat ``[m n]``, ``n`` divisible by the rank count): block ``rank`` of
+    ``n / size`` entries of each row, the rows stacked again (flat).  On
+    a box the block is the rank's slab."""
+    rows = p.view(m, -1)
+    L = rows.shape[1] // mesh.size
+    if L * mesh.size != rows.shape[1]:
+        raise SetupError(f"rows of {rows.shape[1]} entries do not divide "
+                         f"into {mesh.size} equal blocks")
+    return rows[:, mesh.rank * L:(mesh.rank + 1) * L].reshape(-1).clone()
+
+
+def gather_rows(p_loc: torch.Tensor, m: int, mesh: StateMesh
+                ) -> torch.Tensor:
+    """The ``m`` stacked rows over the whole state space (flat) from every
+    rank's blocks ``p_loc`` (flat ``[m L]``), as :func:`shard_rows` cut
+    them."""
+    parts = mesh.all_gather(p_loc.reshape(1, m, -1))     # [size, m, L]
+    return parts.transpose(0, 1).reshape(-1)

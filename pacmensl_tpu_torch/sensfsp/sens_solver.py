@@ -2,7 +2,9 @@
 
 Counterpart of ``pacmensl_tpu/sensfsp/sens_solver.py`` (reference
 ``SensFspSolverMultiSinks``, ``src/SensFsp/SensFspSolverMultiSinks.
-{h,cpp}``) on one device, on the box and the compressed (ELL) backend:
+{h,cpp}``) on the box and the compressed (ELL) backend, on one device or
+over the ranks of a ``mesh`` (every sub-operator sharded, as the
+reference package's ``sens_solver.py:73-95`` shards them):
 the transient solver's solve -> check sinks -> expand -> resume loop,
 integrating the probability and every parameter sensitivity, all vectors
 expanded with the same map on growth (reference :333-422), and carried
@@ -15,8 +17,9 @@ stop-check and the expansion read the probability's sinks only
 integrator runs it; BDF (CVODE) is the default, as in the reference
 package.  The sink check is the transient driver's.
 
-Not ported here (ROADMAP): a solve over a ``mesh`` (A13), RK/CN (A8) and
-the axis-reordered rebuild (A2a).
+``odes_type="petsc"`` runs the TS method of ``set_ts_type`` on the
+stacked vector (RK's and CN's error norms, as BDF's, cover every row).
+Not ported (ROADMAP A2a): the axis-reordered rebuild.
 """
 from __future__ import annotations
 
@@ -43,13 +46,6 @@ class SensFspSolverMultiSinks(FspSolverMultiSinks):
         self._init_sens: Optional[np.ndarray] = None
 
     # ---------------------------------------------------------- settings
-    def set_mesh(self, mesh) -> "SensFspSolverMultiSinks":
-        if mesh is not None:
-            raise SetupError(
-                "a sensitivity solve over a mesh is not ported yet "
-                "(ROADMAP A13); solve on one device")
-        return super().set_mesh(None)
-
     def set_model(self, model) -> "SensFspSolverMultiSinks":
         if not isinstance(model, SensModel):
             raise SetupError("SensFspSolverMultiSinks requires a SensModel")
@@ -82,7 +78,9 @@ class SensFspSolverMultiSinks(FspSolverMultiSinks):
         self._ode_solver = None     # its basis has the old capacity
         self._operator = None       # free the old operators first
         self._operator = SensOperator(self.model, self._space,
-                                      dtype=self.dtype, device=self.device)
+                                      dtype=self.dtype, device=self.device,
+                                      mesh=self.mesh)
+        self._log_halo(self._operator.exchange)
 
     def _vector_rows(self) -> int:
         return 1 + self.model.num_parameters

@@ -18,13 +18,16 @@ import inspect
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.vecops import FspVector
 
 #: matvec(t, y: FspVector) -> FspVector
 MatVec = Callable[[Any, FspVector], FspVector]
 #: stop_check(t, y[, aux]) -> per-constraint error excess [n_constraints]
-#: (host numpy); any entry > 0 means FSP stop.  The solver records the
+#: (host numpy, or a tensor on y's device that :func:`host_excess` fetches,
+#: so an integrator may fetch it with its other step values in one copy);
+#: any entry > 0 means FSP stop.  The solver records the
 #: elementwise running max over every evaluation (SolveResult.viol_excess),
 #: the reference's per-sink expansion flags (``to_expand_``,
 #: FspSolverMultiSinks.cpp:576-611).  The optional third argument is the
@@ -45,10 +48,19 @@ def wrap_stop_check(fn: Optional[StopCheck]) -> Optional[StopCheck]:
     return lambda t, y, aux: fn(t, y)
 
 
+def host_excess(excess, n_c: int) -> np.ndarray:
+    """A stop-check's excess as a float64 host array of ``n_c``
+    entries."""
+    if torch.is_tensor(excess):
+        excess = excess.cpu().numpy()                   # sync
+    return np.asarray(excess, np.float64).reshape(n_c)
+
+
 class ODESolverType(enum.Enum):
     KRYLOV = "krylov"
     CVODE = "cvode"          # BDF + matrix-free GMRES
-    PETSC = "petsc"          # adaptive explicit RK (Dormand-Prince 5(4))
+    PETSC = "petsc"          # pluggable TS method: RK (Dormand-Prince
+                             # 5(4)), CN or BDF (``set_ts_type``)
     EPIC = "epic"            # alias of KRYLOV (reference: no backend)
 
     @classmethod

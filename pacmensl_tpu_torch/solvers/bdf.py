@@ -33,7 +33,7 @@ from ..ops import vecops as vo
 from ..ops.gmres import gmres
 from .base import (MatVec, StopCheck, SolveResult, SolveStats, StepRing,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
-                   wrap_stop_check)
+                   host_excess, wrap_stop_check)
 
 MAX_ORDER = 5
 ND = MAX_ORDER + 3          # difference-array slots
@@ -190,8 +190,8 @@ class BdfSolver:
         def fsp_excess(tt, y):
             if self.stop_check is None:
                 return np.full(n_c, -1.0)
-            return np.asarray(self.stop_check(float(tt), y, stop_aux),
-                              np.float64).reshape(n_c)
+            return host_excess(self.stop_check(float(tt), y, stop_aux),
+                               n_c)
 
         self._storage(y0)
         D, V = self._D, self._V

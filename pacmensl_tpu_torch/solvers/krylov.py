@@ -29,7 +29,7 @@ from ..ops import vecops as vo
 from ..ops.expm import expm
 from .base import (MatVec, StopCheck, SolveResult, SolveStats, StepRing,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
-                   wrap_stop_check)
+                   host_excess, wrap_stop_check)
 
 
 def _int_ceil(v: float) -> int:
@@ -146,8 +146,7 @@ class KrylovSolver:
         def fsp_excess(t, y):
             if self.stop_check is None:
                 return np.full(n_c, -1.0)
-            return np.asarray(self.stop_check(t, y, stop_aux),
-                              np.float64).reshape(n_c)
+            return host_excess(self.stop_check(t, y, stop_aux), n_c)
 
         def lincomb(F, mx):
             coeffs = torch.from_numpy(beta * F[:M1, 0][:mx].copy())

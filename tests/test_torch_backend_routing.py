@@ -123,8 +123,8 @@ def test_fill_collapse_gate_ignores_headroom_padding():
 def test_auto_routing(monkeypatch):
     """On the host custom constraints take the compressed backend (the
     reference package's choice off the TPU), on a card the box;
-    coordinate constraints the box unless it outgrows the budget; with a
-    mesh "auto" is the box."""
+    coordinate constraints the box unless it outgrows the budget; a mesh
+    follows the same rule."""
     s = _solver(pt, "repressilator", "auto", device="cpu")
     assert s._choose_backend() == "ell"
     # the rule on a card (the device is only read, nothing is allocated)
@@ -142,12 +142,19 @@ def test_auto_routing(monkeypatch):
     s.set_initial_bounds([10 ** 9])
     assert s._choose_backend() == "ell"
     s.mesh = object()
+    assert s._choose_backend() == "ell"
+    s.set_initial_bounds(b.bounds)
     assert s._choose_backend() == "box"
 
 
 def test_mesh_with_ell_raises():
-    with pytest.raises(pt.SetupError, match="A13"):
-        pt.FspSolverMultiSinks(backend="ell", device="cpu", mesh=object())
+    """ELL takes a mesh (it raised before ``parallel/halo_ell.py``); a
+    device other than the mesh's still raises."""
+    from pacmensl_tpu_torch.parallel.mesh import StateMesh
+    mesh = StateMesh(None, 0, 1, "cpu")
+    s = pt.FspSolverMultiSinks(backend="ell", mesh=mesh)
+    assert s.mesh is mesh and s.device == torch.device("cpu")
     s = pt.FspSolverMultiSinks(backend="ell", device="cpu")
-    with pytest.raises(pt.SetupError, match="A13"):
-        s.set_mesh(object())
+    assert s.set_mesh(mesh).mesh is mesh
+    with pytest.raises(pt.SetupError, match="device"):
+        pt.FspSolverMultiSinks(backend="ell", device="cuda", mesh=mesh)

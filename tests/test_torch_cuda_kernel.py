@@ -8,7 +8,8 @@ bitwise; its sinks are summed in another order, hence rtol 1e-12 /
 atol 1e-13.  Two launches of the kernel must agree bitwise, and on a box
 whose mask is constraint-only the synthesized-mask mode (K3) must give
 the mask-reading mode's (K1) ``dp`` and sinks bitwise.  The sharded mode
-(K4) on slabs of a box gives the whole box's ``dp`` bitwise.  Every case
+(K4) on slabs of a box gives the whole box's ``dp`` bitwise, and the
+batched launch on such a window (K9w) nb single K4 launches'.  Every case
 runs on the operators' propensity tables (``tables``) and on their
 ``[R, n]`` fields read as field rows.  A one-rank mesh on the card uses
 NCCL."""
@@ -542,6 +543,9 @@ def test_cuda_batched_kernel_at_each_constraint_width(nc, shape, synth, nb):
 
 @pytest.mark.cuda
 def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
+    """Bad shapes and chained geometries raise; a window (K9w) raises
+    where a halo it reads is missing (windows without halos to read run,
+    see the K9w test)."""
     _needs_cuda()
     b, op = _operator("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], "cuda")
     mask, viol = _k1_data(op)
@@ -554,13 +558,21 @@ def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
         bk.box_action_synth_batched(c, P.t().contiguous().t(), op.props,
                                     bnd, op.geom)
     g0 = op.shape[0]
-    win = bk.BoxGeometry((g0 + 2,) + op.shape[1:], op.geom.stoich,
-                         op.geom.nc, op.geom.form, origin0=-1, g0=g0,
-                         out_rows=(1, 1 + g0))
-    Pw = torch.zeros((2, win.n), dtype=torch.float64, device="cuda")
-    with pytest.raises(ValueError, match="whole box"):
-        bk.box_action_synth_batched(c, Pw, op.props.window(-1, g0 + 2),
-                                    bnd, win)
+    lead = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
+                          op.geom.form, g0=g0, gap=(1, g0))
+    tail = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
+                          op.geom.form, g0=g0, gap=(0, 1), follows=lead)
+    for g in (lead, tail):
+        with pytest.raises(ValueError, match="chain"):
+            bk.box_action_synth_batched(c, P, op.props, bnd, g)
+    # rows 1..g0-2 of the box from a slab of rows 1..g0-2: the rows above
+    # and below are read and not given
+    win = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
+                         op.geom.form, g0=g0, out_rows=(1, g0 - 1),
+                         halo_rows=(1, g0 - 2))
+    Pw = torch.zeros((2, win.p_n), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="not given"):
+        bk.box_action_synth_batched(c, Pw, op.props, bnd, win)
 
 
 @pytest.mark.cuda
@@ -599,3 +611,74 @@ def test_cuda_sens_solve_runs_the_batched_kernel():
     for j in range(2):
         assert np.abs(g.dp[j] - w.dp[j]).sum() <= \
             1e-3 * np.abs(w.dp[j]).sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [2, 3, 5])
+@pytest.mark.parametrize("synth", [True, False])
+@pytest.mark.parametrize("name,bounds,t", CASES[1:] + MIXED)
+def test_cuda_batched_window_kernel_matches_plain_and_k4(name, bounds, t,
+                                                         synth, nb):
+    """The batched launch on a window (K9w), on 4 slabs whose halos hold
+    every vector's neighbouring planes: dp bitwise its plain version's,
+    dp and sinks bitwise nb single K4 launches', the slabs' dp bitwise
+    the whole box's K9."""
+    _needs_cuda()
+    b, op = _operator(name, bounds, "cuda")
+    if synth and not op.synth_mask:
+        pytest.skip("the mask is not constraint-only: K1 only")
+    mask, viol = _k1_data(op)
+    rng = np.random.default_rng(23)
+    P = torch.as_tensor(rng.random((nb, op.geom.n)), device="cuda") * mask
+    c, bnd = b.model.coefficients(t), op.data().bounds
+    shape, plane = op.shape, op.geom.plane
+    w0 = halo_width(op.model.stoichiometry)
+    whole = (bk.box_action_synth_batched(c, P, op.props, bnd, op.geom)
+             if synth else
+             bk.box_action_batched(c, P, mask, op.props, viol, op.geom))
+    key = "batched_sharded_" + ("synth" if synth else "mask")
+    dps, sk, n0 = [], 0, bk.KERNEL.launches[key]
+    for geom, _, wm, wa, wv in _slab_windows(op, P[0], mask, viol):
+        lo = geom.origin0 + w0
+        L0 = geom.out_hi - geom.out_lo
+        g = bk.BoxGeometry(geom.shape, geom.stoich, geom.nc, geom.form,
+                           origin0=geom.origin0, g0=geom.g0,
+                           out_rows=(w0, w0 + L0), halo_rows=(w0, L0))
+        ps = P[:, lo * plane:(lo + L0) * plane].contiguous()
+
+        def rows(a, n):
+            return torch.stack([window_rows(P[i].reshape(shape), a, n)
+                                .reshape(-1) for i in range(nb)])
+        up, dn = rows(lo - w0, w0), rows(lo + L0, w0)
+        if synth:
+            def run(i=None, plain=False):
+                if i is not None:
+                    return bk.box_action_synth(c, ps[i], wa, bnd, g,
+                                               halos=(up[i], dn[i]))
+                fn = (bk.box_action_synth_batched_reference if plain
+                      else bk.box_action_synth_batched)
+                return fn(c, ps, wa, bnd, g, halos=(up, dn))
+        else:
+            def run(i=None, plain=False):
+                if i is not None:
+                    return bk.box_action(c, ps[i], wm, wa, wv, g,
+                                         halos=(up[i], dn[i]))
+                fn = (bk.box_action_batched_reference if plain
+                      else bk.box_action_batched)
+                return fn(c, ps, wm, wa, wv, g, halos=(up, dn))
+        kp, ks = run()
+        kp2, ks2 = run()
+        rp, rs = run(plain=True)
+        one = [run(i) for i in range(nb)]
+        torch.cuda.synchronize()
+        assert torch.equal(kp, kp2) and torch.equal(ks, ks2)
+        assert torch.equal(kp, rp)
+        np.testing.assert_allclose(ks.cpu().numpy(), rs.cpu().numpy(), **TOL)
+        assert torch.equal(kp, torch.stack([o[0] for o in one]))
+        assert torch.equal(ks, torch.stack([o[1] for o in one]))
+        dps.append(kp)
+        sk = sk + ks
+    assert bk.KERNEL.launches[key] == n0 + 8
+    assert torch.equal(torch.cat(dps, dim=1), whole[0])
+    np.testing.assert_allclose(sk.cpu().numpy(), whole[1].cpu().numpy(),
+                               **TOL)

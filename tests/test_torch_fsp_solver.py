@@ -140,14 +140,29 @@ def test_misuse_detection():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(pt.SetupError, match="A13"):
-        pt.FspSolverMultiSinks(backend="ell", device="cpu", mesh=object())
+    """The paths that raised before the port had them now set up: ELL
+    over a mesh (a one-rank mesh, no group needed to build) and
+    ``odes_type="petsc"``, whose TS method is RK unless set; an unknown
+    TS method still raises."""
+    from pacmensl_tpu_torch.parallel.mesh import StateMesh
+    mesh = StateMesh(None, 0, 1, "cpu")
     b = pt.models.hog1p_3d()
+    s = pt.FspSolverMultiSinks(backend="ell", mesh=mesh)
+    assert s.device == torch.device("cpu")
+    s.set_model(b.model)
+    s.set_constraints(b.constraint, b.bounds, b.expansion_factors)
+    s.set_initial_distribution(b.x0, b.p0)
+    s.set_up()
+    assert isinstance(s._operator, pt.ShardedEllOperator)
+    assert s._operator.local_n == s._operator.n_pad
     s = pt.FspSolverMultiSinks(odes_type="petsc", device="cpu")
     s.set_model(b.model)
     s.set_constraints(b.constraint, b.bounds, b.expansion_factors)
     s.set_initial_distribution(b.x0, b.p0)
-    with pytest.raises(pt.SetupError, match="A8"):
+    s.set_up()
+    assert s.ts_type == "rk"
+    s.set_ts_type("euler")
+    with pytest.raises(pt.SetupError, match="euler"):
         s.set_up()
 
 

@@ -38,3 +38,37 @@ def test_indexing_matches_reference(seed):
         for r in range(n_workers):
             assert tidx.get_task_range(n_tasks, n_workers, r) == \
                 jidx.get_task_range(n_tasks, n_workers, r)
+
+
+def test_reference_cases():
+    """The cases of tests/test_indexing.py, each on both packages."""
+    for idx in (tidx, jidx):
+        nmax = np.array([3, 4, 5])
+        rng = np.random.default_rng(0)
+        states = np.stack([rng.integers(0, m + 1, size=50) for m in nmax],
+                          axis=1)
+        keys = idx.sub2ind(nmax, states)
+        assert (keys >= 0).all()
+        np.testing.assert_array_equal(idx.ind2sub(nmax, keys), states)
+        # the first axis varies fastest
+        assert idx.sub2ind(np.array([2, 2]), [[1, 0]])[0] == 1
+        assert idx.sub2ind(np.array([2, 2]), [[0, 1]])[0] == 3
+        # -1 for a negative coordinate, -(i + 2) for coordinate i over
+        # its maximum (reference pacmenMath.h:41-55)
+        keys = idx.sub2ind(np.array([3, 4]),
+                           [[-1, 0], [4, 0], [0, 5], [3, 4]])
+        assert keys.tolist() == [-1, -2, -3, 3 + 4 * 4]
+        st = np.array([[0, 0], [1, 0], [0, 0], [2, 1], [1, 0]])
+        uniq, inv = idx.unique_states(st)
+        assert uniq.shape == (3, 2)
+        np.testing.assert_array_equal(uniq[inv], st)
+        counts = idx.distribute_tasks(10, 3)
+        assert counts.sum() == 10 and counts.tolist() == [4, 3, 3]
+        assert idx.get_task_range(10, 3, 1) == (4, 7)
+    nmax = np.array([5, 6, 7])
+    rng = np.random.default_rng(1)
+    states = np.stack([rng.integers(0, m + 1, size=30) for m in nmax],
+                      axis=1)
+    np.testing.assert_array_equal(
+        tidx.sub2ind_torch(nmax, torch.as_tensor(states)).numpy(),
+        tidx.sub2ind(nmax, states))

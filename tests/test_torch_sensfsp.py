@@ -198,8 +198,12 @@ def test_restart_from_a_sens_distribution():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(pt.SetupError, match="A13"):
-        pt.SensFspSolverMultiSinks(device="cpu", mesh=object())
+    """A mesh is taken (it raised before the sensitivity solve over ranks
+    was ported); a model without sensitivities and a dp0 of the wrong
+    shape raise."""
+    from pacmensl_tpu_torch.parallel.mesh import StateMesh
+    mesh = StateMesh(None, 0, 1, "cpu")
+    assert pt.SensFspSolverMultiSinks(mesh=mesh).mesh is mesh
     s = pt.SensFspSolverMultiSinks(device="cpu")
     with pytest.raises(pt.SetupError, match="SensModel"):
         s.set_model(pt.models.poisson().model)
