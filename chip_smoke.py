@@ -174,16 +174,27 @@ Phases (each check that fails ends the run with a nonzero exit):
       state set (count and checksum); the values crossing ranks per
       matvec beside n_pad.
    d. The batched launch on a window (K9w) at the 128^3 box cut into 4
-      slabs (nb = 2, 3, 4; both modes) and, at the end of phase 9a, on
-      hog1p_5d_sens's final operator cut into 2 and 4 slabs (nb = 3, K3
-      mode): dp bitwise the plain version's and nb single K4 launches',
-      sinks bitwise the single launches' and within 1e-12 of the plain
-      version's, the slabs' dp bitwise the whole box's K9; timed with
-      CUDA events beside nb K4 sweeps, the unsharded K9, the plain version
-      and (128^3) one ``torch.sparse.mm`` of each slab's CSR rows.
+      slabs (nb = 2, 3, 4; both modes), where every slab has an interior
+      (L0 >= 2 w0), in one launch a slab and as the chain of the interior
+      rows and the edge strips; at the end of phase 9a on hog1p_5d_sens's
+      final operator cut into 2 and 4 slabs, and in 11e on the final box
+      of 9c's cut in 2 slabs (nb = 3, K3 mode; no interior: one launch a
+      slab).  One launch: dp bitwise the plain version's and nb single K4
+      launches', sinks bitwise the K4 launches' and within 1e-12 of the
+      plain version's.  The chain: dp bitwise its plain version's, the
+      single launch's and nb K4 chains', sinks bitwise the K4 chains' and
+      within 1e-12 of the plain version's and the single launch's.  The
+      slabs' dp bitwise the whole box's K9.  Timed with CUDA events beside
+      nb K4 sweeps (K4 chains where K9w chains), the unsharded K9, the
+      plain version, one ``torch.sparse.mm`` of each slab's CSR rows and
+      the sweep's time before the chain and the one-pass tail
+      (``K9W_BEFORE_US``).
    e. hog1p_5d_sens at phase 9c's setting under Krylov over two gloo
-      ranks on the box (K9w and K4) and on ELL: the one-device solve's
-      states, p and dp within 1e-10 relative of it.
+      ranks on the box (K9w and K4, the derivative operators on K9w's
+      halos) and on ELL: the one-device solve's states, p and dp within
+      1e-10 relative of it; per sensitivity action on each rank the
+      mesh's halo exchanges and all-reduces (one each on the box) and
+      the K9w and K4 launches.
 
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
@@ -263,6 +274,14 @@ SENS_STATES, SENS_RHS = 21467776, 7482
 #: step in trans, and the limit on the relative L1 of dP/d(trans)
 FD_T_FINAL, FD_TOL, FD_RTOL, FD_ATOL = 3.0, 1.0e-6, 1.0e-9, 1.0e-14
 FD_EPS, FD_LIMIT = 1.0e-3, 5.0e-2
+#: phase 11d: K9w's sweep (us) at each timed shape before the chain and
+#: the one-pass tail (commit 8317c44, this script on an H100 80GB HBM3 at
+#: 700 W; PERF.md section 6), by (shape, slabs, nb)
+K9W_BEFORE_US = {("128^3", 4, 2): "193.6-193.9 us",
+                 ("128^3", 4, 3): "219.1-220.4 us",
+                 ("128^3", 4, 4): "247.5-248.8 us",
+                 ("hog1p_5d_sens final", 2, 3): "3,079.0-3,090.3 us",
+                 ("hog1p_5d_sens final", 4, 3): "3,230.1-3,230.8 us"}
 #: phase 10c: the vector-memory budget (PACMENSL_BOX_MEM_BUDGET, bytes)
 #: under which the repressilator's box solve to t = 2 migrates partway:
 #: 504k box elements under Krylov's 62 vectors (the box reaches 94 x 211 x
@@ -392,6 +411,9 @@ def generator_csr(c, mask, a, viol, shape, stoich, nc, out_range=None):
     ext = torch.tensor(shape, device=dev)
     valid = mask != 0
     x = torch.nonzero(valid).squeeze(1)
+    # the columns the rows [lo, hi) and their sinks read
+    reach = max(abs(int(np.dot(s, strides.tolist()))) for s in stoich)
+    x = x[(x >= lo - reach) & (x < hi + reach)]
     crd = (x[:, None] // strides[None, :]) % ext[None, :]
     rows, cols, vals = [x], [x], []
     diag = torch.zeros(x.numel(), dtype=torch.float64, device=dev)
@@ -1082,7 +1104,6 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         check_batched(label, c, P, op.props, op.geom, bounds=hb)
         check_batched(label, c, P, op.props, op.geom,
                       mask=op.space.mask_bytes(), viol=fviol)
-    del fviol
     nvalid = int(op.space.mask_bytes().sum())
     for P in (P3, P2):
         nb = P.shape[0]
@@ -1110,12 +1131,15 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
               f"{bnd[0] / ms['K9']:.3f} of it; {smi}", flush=True)
     del P, P2, runs
     # phase 11d at full width: K9w on the final operator, cut into 2 and
-    # 4 slabs, with the solve's own vectors
+    # 4 slabs (no slab has an interior: one launch a slab), with the
+    # solve's own vectors
     for slabs in (2, 4):
         k9w_check(dev, smi, f"hog1p_5d_sens final {op.shape}", c, P3,
-                  op.props, op.geom, hb, op.space.mask_bytes(), None, slabs,
-                  max_err, modes=("synth",), time_plain=False)
-    del P3, op
+                  op.props, op.geom, hb, op.space.mask_bytes(), fviol, slabs,
+                  max_err, modes=("synth",), library=True, time_plain=False,
+                  before=K9W_BEFORE_US[("hog1p_5d_sens final", slabs, 3)])
+        torch.cuda.empty_cache()
+    del P3, op, fviol
     torch.cuda.empty_cache()
 
     # (c) the reference package's oracle
@@ -1443,108 +1467,181 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
     return launch10c, launch10e, d10
 
 
-def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
-              max_err, modes=("synth", "mask"), library=False,
-              time_plain=True):
-    """Phase 11d: the batched launch on a window (K9w) on ``geom``'s box
-    cut into ``slabs`` axis-0 slabs, each window holding every vector's
-    halo planes as ShardedBoxAction.batched's exchange delivers them.  In
-    each of ``modes`` on every slab: dp bitwise the plain version's and nb
-    single K4 launches', sinks bitwise the single launches' and within
-    1e-12 of the plain version's (relative to each vector's largest), two
-    launches bitwise equal; the assembled dp bitwise the whole box's K9,
-    the summed sinks within 1e-12 of its.  Timed with CUDA events (100
-    calls) beside nb K4 sweeps, the unsharded K9, the plain version and,
-    with ``library``, one torch.sparse.mm of each slab's CSR rows with
-    the [n, nb] block (the plain version is timed only with
-    ``time_plain``).  Returns K9w's record (ms per sweep)."""
+def k9w_windows(geom, P, slabs):
+    """``geom``'s box cut into ``slabs`` axis-0 slabs, each a window with
+    every vector's halo planes as ShardedBoxAction.batched's exchange
+    delivers them.  Per slab: (the window's geometry, its chain (the
+    interior rows' geometry, the edge strips') where the slab has an
+    interior (``L0 >= 2 w0``) else None, the slab of ``P [nb, n]``, the
+    halos ``(up, dn)``, each ``[nb, w0 P]``, the window's origin and
+    rows).  ``pacmensl_tpu_torch/tools/time_k1.py --k9w`` takes its
+    windows from here too."""
     import numpy as np
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
-    from pacmensl_tpu_torch.ops import probes as pr
     from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
     nb, shape, g0, plane = P.shape[0], geom.shape, geom.shape[0], geom.plane
     w0 = halo_width(geom.stoich)
-    R = geom.num_reactions
 
     def rows_of(lo, rows):
         return torch.stack([window_rows(P[i].reshape(shape), lo, rows)
                             .reshape(-1) for i in range(nb)])
 
-    wins = []
+    out = []
     cuts = np.linspace(0, g0, slabs + 1).astype(int)
     for lo, hi in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
-        o, rows = lo - w0, hi - lo + 2 * w0
-        g = bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
-                           geom.form, origin0=o, g0=g0,
-                           out_rows=(w0, w0 + hi - lo),
-                           halo_rows=(w0, hi - lo))
+        o, rows, L0 = lo - w0, hi - lo + 2 * w0, hi - lo
+
+        def win_geom(out_rows, gap=None, follows=None):
+            return bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
+                                  geom.form, origin0=o, g0=g0,
+                                  out_rows=out_rows, gap=gap,
+                                  halo_rows=(w0, L0), follows=follows)
+        chain = None
+        if L0 >= 2 * w0:
+            gi = win_geom((2 * w0, L0))
+            chain = (gi, win_geom((w0, w0 + L0), gap=(2 * w0, L0),
+                                  follows=gi))
+        out.append((win_geom((w0, w0 + L0)), chain,
+                    P[:, lo * plane:hi * plane].contiguous(),
+                    (rows_of(o, w0), rows_of(hi, w0)), o, rows))
+    return out
+
+
+def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
+              max_err, modes=("synth", "mask"), library=False,
+              time_plain=True, before="not measured"):
+    """Phase 11d: the batched launch on a window (K9w) on ``geom``'s box
+    cut into ``slabs`` axis-0 slabs, each window holding every vector's
+    halo planes as ShardedBoxAction.batched's exchange delivers them, in
+    one launch per slab and, where every slab has an interior
+    (``L0 >= 2 w0``), as the chain of the interior rows and the edge
+    strips.  In each of ``modes`` on every slab: the single launch's dp
+    bitwise the plain version's and nb single K4 launches', sinks bitwise
+    the K4 launches' and within 1e-12 of the plain version's (relative to
+    each vector's largest), two launches bitwise equal; the chain's dp
+    bitwise its plain version's, the single launch's and nb K4 chains',
+    its sinks bitwise the K4 chains' and within 1e-12 of the plain
+    version's and the single launch's; each way, the assembled dp bitwise
+    the whole box's K9, the summed sinks within 1e-12 of its.  Timed with
+    CUDA events (100 calls) beside nb K4 sweeps (K4 chains where K9w
+    chains), the unsharded K9, the plain version (only with
+    ``time_plain``) and, with ``library``, one torch.sparse.mm of each
+    slab's CSR rows with the [n, nb] block; ``before``: the sweep's time
+    for the shape before the chain and the one-pass tail
+    (``K9W_BEFORE_US``), printed beside.  Returns K9w's record (ms per
+    sweep; the chain's in ``chain_ms``; ``graph_ms``: K9w's, the
+    chain's, K9's and the K4 sweeps' replayed from a CUDA graph)."""
+    import numpy as np
+    import torch
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
+    nb, shape, plane = P.shape[0], geom.shape, geom.plane
+    w0 = halo_width(geom.stoich)
+    R = geom.num_reactions
+    wins = []
+    for g, chain, ps, halos, o, rows in k9w_windows(geom, P, slabs):
         wm = window_rows(mask.reshape(shape), o, rows).reshape(-1)
         wv = (torch.stack([window_rows(v.reshape(shape), o, rows)
                            .reshape(-1) for v in viol])
-              if "mask" in modes else None)
-        wins.append((g, P[:, lo * plane:hi * plane].contiguous(),
-                     (rows_of(lo - w0, w0), rows_of(hi, w0)),
-                     a.window(o, rows), wm, wv))
+              if viol is not None else None)
+        wins.append((g, ps, halos, a.window(o, rows), wm, wv, chain))
+    chained = all(w[6] is not None for w in wins)
 
-    def launch(mode, w, i=None, plain=False):
-        g, ps, (up, dn), wa, wm, wv = w
-        if i is not None:
+    def one(mode, w, g, ps, out, halos, plain):
+        wa, wm, wv = w[3:6]
+        if ps.dim() == 1:
             if mode == "synth":
-                return bk.box_action_synth(c, ps[i], wa, bounds, g,
-                                           halos=(up[i], dn[i]))
-            return bk.box_action(c, ps[i], wm, wa, wv, g,
-                                 halos=(up[i], dn[i]))
+                return bk.box_action_synth(c, ps, wa, bounds, g, out, halos)
+            return bk.box_action(c, ps, wm, wa, wv, g, out, halos)
         if mode == "synth":
             fn = (bk.box_action_synth_batched_reference if plain
                   else bk.box_action_synth_batched)
-            return fn(c, ps, wa, bounds, g, halos=(up, dn))
+            return fn(c, ps, wa, bounds, g, out, halos)
         fn = (bk.box_action_batched_reference if plain
               else bk.box_action_batched)
-        return fn(c, ps, wm, wa, wv, g, halos=(up, dn))
+        return fn(c, ps, wm, wa, wv, g, out, halos)
+
+    def launch(mode, w, i=None, plain=False, chain=False):
+        """K9w on window ``w`` (K4 on vector ``i`` where given), in one
+        launch or as the chain."""
+        g, ps, (up, dn) = w[:3]
+        if i is not None:
+            ps, up, dn = ps[i], up[i], dn[i]
+        if not chain:
+            return one(mode, w, g, ps, None, (up, dn), plain)
+        gi, ge = w[6]
+        L0 = g.out_hi - g.out_lo
+        dp = torch.empty_like(ps)
+        one(mode, w, gi, ps, dp[..., w0 * plane:(L0 - w0) * plane], None,
+            plain)
+        return one(mode, w, ge, ps, dp, (up, dn), plain)
+
+    def rel_err(ks, rs):
+        scale = rs.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        return float(((ks - rs).abs() / scale).max())
 
     whole = bk.box_action_synth_batched(c, P, a, bounds, geom)
     for mode in modes:
-        dps, sk, rel = [], 0, 0.0
-        for j, w in enumerate(wins):
-            tag = f"[11d] {label} K9w {mode} slab {j}"
-            kp, ks = same_twice(tag, lambda: launch(mode, w))
-            rp, rs = launch(mode, w, plain=True)
-            err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
-            check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the plain "
-                                       f"version's (max abs {err:.3e})")
-            scale = rs.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
-            rel = max(rel, float(((ks - rs).abs() / scale).max()))
-            check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
-                                "version's, relative")
-            one = [launch(mode, w, i) for i in range(nb)]
-            check(torch.equal(kp, torch.stack([q[0] for q in one]))
-                  and torch.equal(ks, torch.stack([q[1] for q in one])),
-                  f"{tag}: not bitwise {nb} single K4 launches")
-            max_err["batched_sharded"] = max(max_err["batched_sharded"],
-                                             err)
-            dps.append(kp)
-            sk = sk + ks
-        check(torch.equal(torch.cat(dps, dim=1), whole[0]),
-              f"[11d] {label} K9w {mode}: the assembled dp is not bitwise "
-              "the whole box's K9")
-        srel = float(((sk - whole[1]).abs() / whole[1].abs().amax(
-            dim=1, keepdim=True).clamp_min(1e-300)).max())
-        check(srel <= 1e-12, f"[11d] {label} K9w {mode}: summed sinks "
-                             f"{srel:.3e} from the whole box's K9")
-        print(f"[11d] K9w ({mode}) {label}: nb={nb}, {slabs} slabs of "
-              f"{[w[0].out_hi - w[0].out_lo for w in wins]} rows, windows of "
-              f"{[w[0].shape[0] for w in wins]}; dp bitwise the plain "
-              f"version's and {nb} single K4 launches', sinks bitwise the "
-              f"single launches' and within {rel:.3e} of the plain "
-              f"version's; assembled dp bitwise the whole box's K9, summed "
-              f"sinks within {srel:.3e}", flush=True)
+        for chain in ((False, True) if chained else (False,)):
+            way = "chain" if chain else "one launch"
+            dps, sk, rel = [], 0, 0.0
+            for j, w in enumerate(wins):
+                tag = f"[11d] {label} K9w {mode} ({way}) slab {j}"
+                kp, ks = same_twice(tag, lambda: launch(mode, w, chain=chain))
+                rp, rs = launch(mode, w, plain=True, chain=chain)
+                err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
+                check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the "
+                                           f"plain version's (max abs "
+                                           f"{err:.3e})")
+                rel = max(rel, rel_err(ks, rs))
+                check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
+                                    "version's, relative")
+                each = [launch(mode, w, i, chain=chain) for i in range(nb)]
+                check(torch.equal(kp, torch.stack([q[0] for q in each]))
+                      and torch.equal(ks, torch.stack([q[1] for q in each])),
+                      f"{tag}: not bitwise {nb} K4 "
+                      f"{'chains' if chain else 'launches'}")
+                if chain:
+                    sp, ss = launch(mode, w)
+                    rel = max(rel, rel_err(ks, ss))
+                    check(torch.equal(kp, sp) and rel <= 1e-12,
+                          f"{tag}: dp not bitwise the single launch's, or "
+                          f"sinks {rel:.3e} from its")
+                max_err["batched_sharded"] = max(max_err["batched_sharded"],
+                                                 err)
+                dps.append(kp)
+                sk = sk + ks
+            check(torch.equal(torch.cat(dps, dim=1), whole[0]),
+                  f"[11d] {label} K9w {mode} ({way}): the assembled dp is "
+                  "not bitwise the whole box's K9")
+            srel = rel_err(sk, whole[1])
+            check(srel <= 1e-12, f"[11d] {label} K9w {mode} ({way}): summed "
+                                 f"sinks {srel:.3e} from the whole box's K9")
+            print(f"[11d] K9w ({mode}, {way}) {label}: nb={nb}, {slabs} "
+                  f"slabs of {[w[0].out_hi - w[0].out_lo for w in wins]} "
+                  f"rows, windows of {[w[0].shape[0] for w in wins]}; dp "
+                  f"bitwise the plain version's and {nb} K4 "
+                  f"{'chains' if chain else 'launches'}'"
+                  f"{', and the single launch' if chain else ''}; sinks "
+                  f"bitwise the K4 {'chains' if chain else 'launches'}' and "
+                  f"within {rel:.3e} of the plain version's"
+                  f"{' and the single launch' if chain else ''}; assembled "
+                  f"dp bitwise the whole box's K9, summed sinks within "
+                  f"{srel:.3e}", flush=True)
     runs = {"plain": lambda: [launch("synth", w, plain=True) for w in wins],
-            "K4": lambda: [launch("synth", w, i) for i in range(nb)
-                           for w in wins],
+            "K4": lambda: [launch("synth", w, i, chain=chained)
+                           for i in range(nb) for w in wins],
             "K9w": lambda: [launch("synth", w) for w in wins],
+            "K9w_chain": lambda: [launch("synth", w, chain=True)
+                                  for w in wins],
             "K9": lambda: bk.box_action_synth_batched(c, P, a, bounds, geom)}
-    order = ["plain", "K4", "K9w", "K9", "K9", "K9w", "K4", "plain"]
+    order = ["plain", "K4", "K9w", "K9w_chain", "K9", "K9", "K9w_chain",
+             "K9w", "K4", "plain"]
+    if not chained:
+        del runs["K9w_chain"]
+        order = [k for k in order if k != "K9w_chain"]
     if not time_plain:
         del runs["plain"]
         order = order[1:-1]
@@ -1563,30 +1660,46 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
             check(lerr <= 1e-9 * float(kp.abs().max()),
                   f"[11d] {label}: a slab's CSR rows differ from K9w by "
                   f"{lerr:.3e}")
+        del y
         runs["library"] = lambda: [torch.sparse.mm(A, Pt) for A in mats]
-        order = order[:4] + ["library", "library"] + order[4:]
-    reps = {"plain": 3} if P[0].numel() > 1e7 else {"plain": 10}
+        half = len(order) // 2
+        order = order[:half] + ["library", "library"] + order[half:]
+    # the plain version and (at a final capacity, 0.26-0.50 s a call) the
+    # library are timed over fewer calls
+    reps = ({"plain": 3, "library": 5} if P[0].numel() > 1e7
+            else {"plain": 10})
     t = {k: [] for k in runs}
     for k in order:
         t[k].append(time_ms(runs[k], reps=reps.get(k, 100)))
     ms = {k: float(np.mean(v)) for k, v in t.items()}
+    # the device's time without the host's cost per launch
+    dev_ms = {k: graph_ms(runs[k]) for k in ("K9w", "K9w_chain", "K9", "K4")
+              if k in runs}
     tb = a.table_bytes()
     nbytes = sum(nb * pr.box_action_bytes(
         w[0].n, w[0].n_out, R, True, n_valid=sum(
             int((w[4][lo * plane:hi * plane] != 0).sum())
             for lo, hi in w[0].read_spans)) + tb for w in wins)
     bnd = bound(nbytes, nb * 2 * (2 * R + 1) * geom.n)
+    k4 = f"{nb} K4 {'chain ' if chained else ''}sweeps"
     print(f"[11d] {label} nb={nb}, a sweep of {slabs} slabs (us; order "
-          f"{' '.join(order)}): " + ", ".join(
+          f"{' '.join(order)}; K4: {k4}): " + ", ".join(
               f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
               for k, vs in t.items()) + f"; bound {bnd[0] * 1e3:.1f} us "
           f"({nbytes / 1e6:.1f} MB: each vector's p over the rows its "
           f"slab's rows read, halos included, and its dp, the tables once "
-          f"a slab), {bnd[0] / ms['K9w']:.3f} of it; K9w no slower than "
-          f"{nb} K4 sweeps: {ms['K9w'] <= ms['K4']}; {smi}", flush=True)
+          f"a slab): K9w {bnd[0] / ms['K9w']:.3f} of it"
+          + (f", the chain {bnd[0] / ms['K9w_chain']:.3f}" if chained
+             else "")
+          + "; replayed from a CUDA graph: " + ", ".join(
+              f"{k} {v * 1e3:.1f}" for k, v in dev_ms.items())
+          + f"; K9w before the chain and the one-pass tail: {before}; "
+          f"K9w no slower than {k4}: "
+          f"{ms['K9w'] <= ms['K4']}; {smi}", flush=True)
     return {"ms": ms["K9w"], "plain_ms": ms.get("plain"), "bound": bnd,
             "library_ms": ms.get("library"), "k4_ms": ms["K4"],
-            "k9_ms": ms["K9"]}
+            "k9_ms": ms["K9"], "chain_ms": ms.get("K9w_chain"),
+            "graph_ms": dev_ms}
 
 
 def rank_ell_solve(rank, world, port, backend, t_final, tol, queue):
@@ -1654,22 +1767,42 @@ def rank_sens_solve(rank, world, port, backend, queue):
     """Phase 11e on one rank: hog1p_5d_sens at phase 9c's setting under
     Krylov over the mesh of ``world`` ranks on the box (K9w and K4) and
     on ELL (the sharded compressed operator); puts each solve's summary
-    and distribution on ``queue``."""
+    and distribution on ``queue``, with per sensitivity action the mesh's
+    halo exchanges and all-reduces and the K9w and K4 launches."""
     import numpy as np
     import torch
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import pacmensl_tpu_torch as pt
     from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops.sens_operator import SensOperator
     pt.environment.init(backend=backend, world_size=world, rank=rank,
                         init_method=f"tcp://127.0.0.1:{port}",
                         timeout=RANK_TIMEOUT)
     try:
         mesh = pt.make_mesh("cuda")
         out = {"rank": rank}
+        per_action = []
+        action = SensOperator.action
+        k9w_keys = [k for k in bk.MODES if k.startswith("batched_sharded")]
+
+        def counted(self, t, y):
+            n0 = (mesh.halo_exchanges, mesh.all_reduces,
+                  sum(bk.KERNEL.launches[k] for k in k9w_keys),
+                  bk.KERNEL.launches["sharded_synth"]
+                  + bk.KERNEL.launches["sharded_mask"])
+            got = action(self, t, y)
+            n1 = (mesh.halo_exchanges, mesh.all_reduces,
+                  sum(bk.KERNEL.launches[k] for k in k9w_keys),
+                  bk.KERNEL.launches["sharded_synth"]
+                  + bk.KERNEL.launches["sharded_mask"])
+            per_action.append([b - a for a, b in zip(n0, n1)])
+            return got
+        SensOperator.action = counted
         for fsp_backend in ("box", "ell"):
             s = sens_solver(pt, fsp_backend, "krylov", mesh=mesh)
             torch.cuda.synchronize()
             bk.KERNEL.reset_counts()
+            per_action.clear()
             t0 = time.perf_counter()
             d = s.solve(FD_T_FINAL, FD_TOL)
             torch.cuda.synchronize()
@@ -1680,7 +1813,9 @@ def rank_sens_solve(rank, world, port, backend, queue):
                 "launches": dict(bk.KERNEL.launches),
                 "plain": dict(bk.KERNEL.plain_cuda_calls),
                 "rhs": ev["RHSEvaluation"].count,
-                "steps": np.array(s.step_trace.model_time)}
+                "steps": np.array(s.step_trace.model_time),
+                "per_action": np.array(per_action, dtype=np.int64)
+                .reshape(-1, 4)}
             del s
         queue.put(out)
     finally:
@@ -1852,7 +1987,8 @@ def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
         P = torch.rand((nb, n), generator=gen, device=dev,
                        dtype=torch.float64)
         rec = k9w_check(dev, smi, f"{BENCH_EDGE}^3 box", c, P, a, geom, bb,
-                        mask, viol, SLABS, max_err, library=True)
+                        mask, viol, SLABS, max_err, library=True,
+                        before=K9W_BEFORE_US[("128^3", SLABS, nb)])
         if nb == 3:
             k9w = rec
     del a, viol, mask, geom, P
@@ -1865,6 +2001,18 @@ def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
     for fsp_backend in ("box", "ell"):
         one = sens_solver(pt, fsp_backend, "krylov", device=dev)
         d1 = one.solve(FD_T_FINAL, FD_TOL)
+        if fsp_backend == "box":
+            # 11d's small cell: K9w's fixed cost per launch on the final
+            # box of this cut, in 2 slabs (no interior: one launch each)
+            op = one._operator.base
+            c = op.coefficients(FD_T_FINAL)
+            k9w_check(dev, smi, f"hog1p_5d_sens t={FD_T_FINAL:g} final "
+                      f"{op.shape}", c, one._y.p.view(3, op.geom.n).clone(),
+                      op.props, op.geom, op.data().bounds,
+                      op.space.mask_bytes(), bo.violation_bits(
+                          op.space.constraints, op.stoichiometry, op.shape,
+                          dev), 2, max_err, modes=("synth",), library=True)
+            del op
         del one
         res = [r[fsp_backend] | {"rank": r["rank"]} for r in ranks]
         r0 = res[0]
@@ -1879,10 +2027,19 @@ def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
         rel_p = float(np.abs(r0["p"] - d1.p).max() / np.abs(d1.p).max())
         rel_dp = float((np.abs(r0["dp"] - d1.dp).max(axis=1)
                         / np.abs(d1.dp).max(axis=1)).max())
-        k9 = sum(r["launches"]["batched_sharded_synth"]
-                 + r["launches"]["batched_sharded_mask"] for r in res)
+        k9 = sum(r["launches"][k] for r in res for k in bk.MODES
+                 if k.startswith("batched_sharded"))
         k4 = sum(r["launches"]["sharded_synth"]
                  + r["launches"]["sharded_mask"] for r in res)
+        # per action on each rank: halo exchanges, all-reduces, K9w and K4
+        # launches (each column's least and most over the actions)
+        acts = np.concatenate([r["per_action"] for r in res])
+        lo_hi = [(int(acts[:, k].min()), int(acts[:, k].max()))
+                 if acts.size else (0, 0) for k in range(4)]
+        print(f"[11e] {fsp_backend}: {acts.shape[0]} sensitivity actions "
+              f"over both ranks; per action (least, most): halo exchanges "
+              f"{lo_hi[0]}, all-reduces {lo_hi[1]}, K9w launches "
+              f"{lo_hi[2]}, K4 launches {lo_hi[3]}", flush=True)
         print(f"[11e] hog1p_5d_sens t={FD_T_FINAL:g} tol={FD_TOL:g} under "
               f"Krylov on {fsp_backend} over 2 gloo ranks: "
               f"{r0['states'].shape[0]} states (the one-device solve's), "
@@ -1895,6 +2052,10 @@ def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
               f"11e {fsp_backend}: p {rel_p:.3e}, dp {rel_dp:.3e}")
         if fsp_backend == "box":
             check(k9 > 0 and k4 > 0, f"11e box: K9w {k9}, K4 {k4}")
+            check(acts.shape[0] > 0 and lo_hi[0] == (1, 1)
+                  and lo_hi[1] == (1, 1),
+                  f"11e box: per action halo exchanges {lo_hi[0]}, "
+                  f"all-reduces {lo_hi[1]}, not one each")
             k9w_launches = k9
         else:
             check(k9 + k4 == 0, f"11e ell: box launches {k9 + k4}")

@@ -57,15 +57,15 @@
 //     reference's meshed sensitivity solve vmaps the sharded Pallas call,
 //     pacmensl_tpu/ops/sens_operator.py:150-153 over
 //     pacmensl_tpu/ops/box_operator.py:152-170): K9 with K4's window
-//     fields, for one launch over a rank's slab.  Each vector's halos
-//     above and below come in p_up and p_dn with batch strides of their
-//     own (up_bstride, dn_bstride), so the ranks exchange every vector's
-//     edge planes in one message each way.  A source row's vector stride
-//     follows from the part of p it lies in, which depends only on the
-//     reaction (two comparisons a reaction, in an instantiation of its
-//     own, so K9 on a whole box keeps its code).  Its sinks come from the
-//     same per-vector cells and slots as K9's, and each vector's dp and
-//     sinks are bitwise a K4 launch's on that vector.
+//     fields, on a rank's slab.  Each vector's halos above and below come
+//     in p_up and p_dn with batch strides of their own (up_bstride,
+//     dn_bstride), so the ranks exchange every vector's edge planes in one
+//     message each way.  Like K4 it runs as one launch over the slab or
+//     as a chain of two (the interior rows while the exchange is in
+//     flight, then both edge strips), whose last block reduces every
+//     vector's sinks once.  Its sinks come from the same per-vector cells
+//     and slots as K9's, and each vector's dp and sinks are bitwise a K4
+//     launch's (or chain's) on that vector.  See "K9w" below.
 //
 // For every C-order box index x:
 //
@@ -143,6 +143,34 @@
 //     Tensor cores do not apply: the action is a stencil
 //     with per-element coefficients and selections, not a product of
 //     tiles, and it is bound by memory latency, not by operations.
+//   * K9w.  Its element loop is K9's, and three costs come on top.  A
+//     source row in a halo has another vector stride than one in the
+//     slab; the part of p a row's source lies in depends only on the
+//     reaction, so the row's set-up stores each reaction's stride beside
+//     its source pointer and the element loop reads it (no comparisons
+//     there).  Over ranks the exchange would wait in front of the
+//     launch; the chain (ticket_total counting both launches' batched
+//     grids, pair (v, c)'s partial rows at (v nc + c) part_total +
+//     part_base + s) computes the interior while the halos are in flight.
+//     On an H100 it was slower than one launch, on one card and over two
+//     NCCL ranks, one card each (PERF.md), so the sharded batched action
+//     runs one launch a slab, and the chain is held by the tests and
+//     chip_smoke.py's phase 11d.  And every launch pays a fixed cost, of which the last block's
+//     reduction of nb x nc sums is on the critical path: see "The tail".
+//   * The tail (batched launches).  The last block sums each (vector,
+//     constraint) pair over part_total partial rows, alone on one SM, so
+//     its loads, instructions and barriers are on the critical path.  The
+//     partial rows lie pair by pair ([vector][constraint][slot]), so a
+//     warp's loads are coalesced, not strided by nc.  Each strided pass
+//     over the rows sums BOX_TAIL_ILP pairs in registers, BOX_TAIL_ROWS
+//     rows of each loaded together (one load at a time is a round trip to
+//     the L2 a row and pair), into per-thread cells [pair][thread] in the
+//     sink cells' shared memory (free by then; nbv x nc pairs at a time),
+//     then one tree reduces all of them: 9 barriers a chunk of pairs, not
+//     9 a pair.  Each pair adds its terms in the single launch's order
+//     (thread t: rows t, t + 256, ... in turn; then the same tree), so the
+//     sinks stay bitwise nb single launches'.  A single launch keeps its
+//     tail of one pair at a time.
 //
 // The slots make the sinks independent of the grid, so they are bitwise
 // the same in both modes, from run to run and from card to card.  The kernel selects rather
@@ -158,7 +186,10 @@
 #define BOX_MAX_S 8
 #define BOX_MAX_NC 32
 #define BOX_THREADS 256
+#define BOX_LOG_THREADS 8
 #define BOX_WARPS (BOX_THREADS / 32)
+static_assert((1 << BOX_LOG_THREADS) == BOX_THREADS,
+              "BOX_LOG_THREADS is log2(BOX_THREADS)");
 #define BOX_MAX_FNC 16   // constraints a form may describe (K3)
 #define BOX_MAX_PROD 2   // product terms of one constraint's form
 #define BOX_MAX_N 0x7fffffffLL   // box elements: indices fit 31 bits
@@ -184,6 +215,10 @@
 // Most rows of the last axis a warp takes at a time where they are short:
 // G = min(32 / E, BOX_GROUP) rows of E <= 16 elements, a lane each
 #define BOX_GROUP 4
+// The batched tail: (vector, constraint) pairs a pass over the partial
+// rows sums, and rows a step of it loads, each thread: 16 loads in flight
+#define BOX_TAIL_ILP 4
+#define BOX_TAIL_ROWS 4
 // Reactions interleaved in the element loop: K1, K3 (the best of 1, 2
 // and 4 on the H100)
 #define BOX_UNROLL_R 1
@@ -268,7 +303,9 @@ struct BoxParams {
 // Device pointers of one launch (mirrored in ops/box_kernel.py).  In the
 // batched mode p, dp, part and sinks hold nb vectors: vector v's at
 // v * p_bstride, v * dp_bstride, v * part_total * nc and v * nc (and on a
-// window p_up's and p_dn's at v * up_bstride and v * dn_bstride).
+// window p_up's and p_dn's at v * up_bstride and v * dn_bstride); a
+// single launch's part holds [slot][constraint], a batched launch's
+// [vector][constraint][slot], which its tail reads coalesced.
 struct BoxPtrs {
     const double* p_up;
     const double* p;
@@ -374,6 +411,9 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     __shared__ int w_crd[BOX_WARPS][NG][BOX_MAX_S + 1];
     __shared__ const double* w_src[BOX_WARPS][NG][BOX_MAX_R];
     __shared__ int2 w_sint[BOX_WARPS][SYNTH ? NG : 1][SYNTH ? BOX_MAX_R : 1];
+    // K9w: each reaction's vector stride in the part of p its source row
+    // lies in (the unit's rows share a plane, so one per unit)
+    __shared__ long long w_sbs[WIN ? BOX_WARPS : 1][WIN ? BOX_MAX_R : 1];
     // the last block's reduction (K9: in the sink cells, free by then)
     __shared__ double red_s[BAT ? 1 : BOX_THREADS];
     __shared__ int s_last;
@@ -595,6 +635,12 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                           * prm.plane;
                 w_src[warp][g][r] =
                     ok ? base + (long long)(pr0 + g) * E - t_kin[r] : nullptr;
+                if constexpr (WIN) {
+                    if (g == 0)
+                        w_sbs[warp][r] = srow < prm.up_rows ? prm.up_bstride
+                            : srow < prm.up_rows + prm.mid_rows ? pbs
+                            : prm.dn_bstride;
+                }
             }
             if constexpr (SYNTH) {
                 // the pairs' intervals of each row: where the source
@@ -655,6 +701,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
             const double* const* lsrc = w_src[warp][subc];
             const int2* lsint = w_sint[warp][SYNTH ? subc : 0];
             const int2* lint = w_int + (SYNTH && GRP ? subc * prm.ntask : 0);
+            const long long* lsbs = w_sbs[WIN ? warp : 0];
             for (unsigned sr = s_lo; sr <= s_hi; ++sr) {
                 const int xl = (int)(sr * 32u) + xl0;
                 const bool live = rowok && (unsigned)xl < E;
@@ -793,13 +840,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         // flight together, and its term in a single
                         // launch's arithmetic.  K9w: the vector stride of
                         // the part of p the source row lies in
-                        long long sbs = pbs;
-                        if constexpr (WIN) {
-                            const long long srow = wr - t_st[r][0];
-                            sbs = srow < prm.up_rows ? prm.up_bstride
-                                  : srow < prm.up_rows + prm.mid_rows
-                                      ? pbs : prm.dn_bstride;
-                        }
+                        const long long sbs = WIN ? lsbs[r] : pbs;
                         double ap[NBV], p_s[NBV];
 #pragma unroll
                         for (int v = 0; v < NBV; ++v)
@@ -850,8 +891,8 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                     for (int o = 16; o > 0; o >>= 1)
                         t += __shfl_down_sync(0xffffffffu, t, o);
                     if (lane == 0)
-                        ptr.part[((bat + v) * prm.part_total + prm.part_base
-                                  + s) * nc + c] = t;
+                        ptr.part[((bat + v) * nc + c) * prm.part_total
+                                 + prm.part_base + s] = t;
                 }
             }
         } else {
@@ -879,22 +920,78 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     __syncthreads();
     if (!s_last) return;
     // The last block: sinks[c] = sum_b part[b, c] over every partial row
-    // of the chain, in a fixed order (strided per thread, then a tree);
-    // in the batched mode for each vector in turn, each in that order.
+    // of the chain, in a fixed order (strided per thread, then a tree).
     __threadfence();
-    for (int v = 0; v < (BAT ? prm.nb : 1); ++v) {
-        const double* part = ptr.part + (long long)v * prm.part_total * nc;
+    if constexpr (BAT) {
+        // Every (vector, constraint) pair k = v nc + c, whose partial rows
+        // lie at part + k part_total (coalesced), nbv nc pairs (the sink
+        // cells' room) at a time: thread t's strided sum of pair k into
+        // red[k * BOX_THREADS + t], BOX_TAIL_ILP pairs a pass over the
+        // rows, BOX_TAIL_ROWS rows of each loaded together, with their
+        // sums in registers; then one tree for all.
+        const int npair = prm.nb * nc, chunk = prm.nbv * nc;
+        const int pt = prm.part_total;
+        for (int k0 = 0; k0 < npair; k0 += chunk) {
+            const int K = min(chunk, npair - k0);
+            for (int k = 0; k < K; k += BOX_TAIL_ILP) {
+                const double* const col = ptr.part + (long long)(k0 + k) * pt;
+                double sm[BOX_TAIL_ILP];
+#pragma unroll
+                for (int i = 0; i < BOX_TAIL_ILP; ++i) sm[i] = 0.0;
+                int b = threadIdx.x;
+                for (; b + (BOX_TAIL_ROWS - 1) * BOX_THREADS < pt;
+                     b += BOX_TAIL_ROWS * BOX_THREADS) {
+                    double x[BOX_TAIL_ROWS][BOX_TAIL_ILP];
+#pragma unroll
+                    for (int j = 0; j < BOX_TAIL_ROWS; ++j)
+#pragma unroll
+                        for (int i = 0; i < BOX_TAIL_ILP; ++i)
+                            x[j][i] = k + i < K
+                                ? __ldcg(col + (long long)i * pt + b
+                                         + j * BOX_THREADS) : 0.0;
+                    // each pair's rows in order
+#pragma unroll
+                    for (int j = 0; j < BOX_TAIL_ROWS; ++j)
+#pragma unroll
+                        for (int i = 0; i < BOX_TAIL_ILP; ++i)
+                            sm[i] += x[j][i];
+                }
+                for (; b < pt; b += BOX_THREADS) {
+#pragma unroll
+                    for (int i = 0; i < BOX_TAIL_ILP; ++i)
+                        if (k + i < K)
+                            sm[i] += __ldcg(col + (long long)i * pt + b);
+                }
+#pragma unroll
+                for (int i = 0; i < BOX_TAIL_ILP; ++i)
+                    if (k + i < K) red[(k + i) * BOX_THREADS + threadIdx.x]
+                                       = sm[i];
+            }
+            __syncthreads();
+            for (int lw = BOX_LOG_THREADS - 1; lw >= 0; --lw) {
+                const int w = 1 << lw;
+                for (int i = threadIdx.x; i < K << lw; i += BOX_THREADS) {
+                    const int at = (i >> lw) * BOX_THREADS + (i & (w - 1));
+                    red[at] += red[at + w];
+                }
+                __syncthreads();
+            }
+            for (int k = threadIdx.x; k < K; k += BOX_THREADS)
+                ptr.sinks[k0 + k] = red[k * BOX_THREADS];
+            __syncthreads();
+        }
+    } else {
         for (int c = 0; c < nc; ++c) {
             double sm = 0.0;
             for (int b = threadIdx.x; b < prm.part_total; b += BOX_THREADS)
-                sm += __ldcg(part + (long long)b * nc + c);
+                sm += __ldcg(ptr.part + (long long)b * nc + c);
             red[threadIdx.x] = sm;
             __syncthreads();
             for (int w = BOX_THREADS / 2; w > 0; w >>= 1) {
                 if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
                 __syncthreads();
             }
-            if (threadIdx.x == 0) ptr.sinks[v * nc + c] = red[0];
+            if (threadIdx.x == 0) ptr.sinks[c] = red[0];
             __syncthreads();
         }
     }
@@ -938,8 +1035,7 @@ static bool window_ok(const BoxParams* prm, int nblocks)
         && (prm->group == 1 || prm->group * E <= 32)
         && prm->ntab >= 0 && nblocks >= 1 && prm->part_base >= 0
         && prm->nb >= 1 && prm->nb <= 65535
-        && (prm->nb == 1 || (prm->part_base == 0
-                             && prm->p_bstride >= prm->mid_rows * prm->plane
+        && (prm->nb == 1 || (prm->p_bstride >= prm->mid_rows * prm->plane
                              && prm->dp_bstride >= (prm->out_hi - prm->out_lo)
                                                    * prm->plane
                              && prm->up_bstride >= prm->up_rows * prm->plane
@@ -955,9 +1051,13 @@ static bool window_ok(const BoxParams* prm, int nblocks)
     return ok;
 }
 
+// One launch of an instantiation on ``st``, or with ptr == nullptr only
+// the grid it would take.  Where ``grid`` is given it receives the grid's
+// x and y extents, the chunk width and the most blocks a batched launch
+// takes along x (a single launch: nblocks, 1, 1, nblocks).
 template <int NCM, bool SYNTH, typename F, bool GRP, int NBV, bool WIN>
 static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
-                                 int nblocks, cudaStream_t st)
+                                 int nblocks, cudaStream_t st, int* grid)
 {
     auto kern = box_action_kernel<NCM, SYNTH, F, GRP, NBV, WIN>;
     // Dynamic shared memory beyond 48 KB must be asked for, once per
@@ -999,6 +1099,10 @@ static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
                      * sizeof(int2) : 0);
     if constexpr (NBV == 1) {
         if (base > (size_t)max_dyn) return cudaErrorInvalidValue;
+        if (grid) {
+            grid[0] = nblocks; grid[1] = 1; grid[2] = 1; grid[3] = nblocks;
+        }
+        if (!ptr) return cudaSuccess;
         kern<<<nblocks, BOX_THREADS, base, st>>>(*prm, *ptr);
     } else {
         // the widest chunk whose sink cells fit the share (at least one
@@ -1014,9 +1118,16 @@ static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
         const int most_blocks = BOX_BAT_MIN_BLOCKS * sms;
         const int gx = nblocks < most_blocks ? nblocks : most_blocks;
         const int gy = (prm->nb + nbv - 1) / nbv;
+        if (grid) {
+            grid[0] = gx; grid[1] = gy; grid[2] = nbv; grid[3] = most_blocks;
+        }
+        if (!ptr) return cudaSuccess;
+        // the ticket counts this grid's blocks, and a chain's those of
+        // both launches (the caller's ticket_total)
+        if ((long long)gx * gy > prm->ticket_total)
+            return cudaErrorInvalidValue;
         BoxParams q = *prm;
         q.nbv = nbv;
-        q.ticket_total = gx * gy;
         kern<<<dim3(gx, gy), BOX_THREADS, dyn, st>>>(q, *ptr);
     }
     return cudaGetLastError();
@@ -1024,26 +1135,53 @@ static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
 
 template <int NCM, bool SYNTH, typename F, bool GRP>
 static cudaError_t launch_rows(const BoxParams* prm, const BoxPtrs* ptr,
-                               int nblocks, cudaStream_t st)
+                               int nblocks, cudaStream_t st, int* grid)
 {
     if (prm->nb == 1)
         return launch_kernel<NCM, SYNTH, F, GRP, 1, false>(prm, ptr, nblocks,
-                                                           st);
+                                                           st, grid);
     // K9 on a whole box, or on a window with halos (K9w)
     return prm->up_rows == 0 && prm->mid_rows == prm->shape[0]
-        ? launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, false>(prm, ptr,
-                                                                nblocks, st)
-        : launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, true>(prm, ptr,
-                                                               nblocks, st);
+        ? launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, false>(
+              prm, ptr, nblocks, st, grid)
+        : launch_kernel<NCM, SYNTH, F, GRP, BOX_BAT_NBV, true>(
+              prm, ptr, nblocks, st, grid);
 }
 
 template <int NCM, bool SYNTH, typename F>
 static cudaError_t launch(const BoxParams* prm, const BoxPtrs* ptr,
-                          int nblocks, cudaStream_t st)
+                          int nblocks, cudaStream_t st, int* grid)
 {
     return prm->group > 1
-        ? launch_rows<NCM, SYNTH, F, true>(prm, ptr, nblocks, st)
-        : launch_rows<NCM, SYNTH, F, false>(prm, ptr, nblocks, st);
+        ? launch_rows<NCM, SYNTH, F, true>(prm, ptr, nblocks, st, grid)
+        : launch_rows<NCM, SYNTH, F, false>(prm, ptr, nblocks, st, grid);
+}
+
+static int dispatch(const BoxParams* prm, const BoxPtrs* ptr, int nblocks,
+                    int synth, int narrow, int device, void* stream,
+                    int* grid)
+{
+    if (!window_ok(prm, nblocks)
+            || (synth && (prm->nc > BOX_MAX_FNC || prm->ntask < 0
+                          || prm->ntask > 2 * BOX_MAX_FNC * BOX_MAX_R)))
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (!synth)
+        e = prm->nc <= 8
+            ? launch<8, false, long long>(prm, ptr, nblocks, st, grid)
+            : launch<BOX_MAX_NC, false, long long>(prm, ptr, nblocks, st,
+                                                   grid);
+    else if (prm->nc <= 8)
+        e = narrow ? launch<8, true, int>(prm, ptr, nblocks, st, grid)
+            : launch<8, true, long long>(prm, ptr, nblocks, st, grid);
+    else
+        e = narrow ? launch<BOX_MAX_FNC, true, int>(prm, ptr, nblocks, st,
+                                                     grid)
+            : launch<BOX_MAX_FNC, true, long long>(prm, ptr, nblocks, st,
+                                                    grid);
+    return (int)e;
 }
 
 // Launches the box kernel on ``stream`` of CUDA device ``device``: the
@@ -1059,21 +1197,17 @@ extern "C" int box_action_launch(const BoxParams* prm, const BoxPtrs* ptr,
                                  int nblocks, int synth, int narrow,
                                  int device, void* stream)
 {
-    if (!window_ok(prm, nblocks)
-            || (synth && (prm->nc > BOX_MAX_FNC || prm->ntask < 0
-                          || prm->ntask > 2 * BOX_MAX_FNC * BOX_MAX_R)))
-        return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaSetDevice(device);
-    if (e != cudaSuccess) return (int)e;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (!synth)
-        e = prm->nc <= 8 ? launch<8, false, long long>(prm, ptr, nblocks, st)
-            : launch<BOX_MAX_NC, false, long long>(prm, ptr, nblocks, st);
-    else if (prm->nc <= 8)
-        e = narrow ? launch<8, true, int>(prm, ptr, nblocks, st)
-            : launch<8, true, long long>(prm, ptr, nblocks, st);
-    else
-        e = narrow ? launch<BOX_MAX_FNC, true, int>(prm, ptr, nblocks, st)
-            : launch<BOX_MAX_FNC, true, long long>(prm, ptr, nblocks, st);
-    return (int)e;
+    return dispatch(prm, ptr, nblocks, synth, narrow, device, stream,
+                    nullptr);
+}
+
+// The grid box_action_launch would take with the same arguments, into
+// grid[0..3]: blocks along x, chunks along y, the chunk width and the most
+// blocks along x; launches nothing.  A chain's ticket_total is the sum of
+// its launches' grid[0] * grid[1].
+extern "C" int box_action_grid(const BoxParams* prm, int nblocks, int synth,
+                               int narrow, int device, int* grid)
+{
+    return dispatch(prm, nullptr, nblocks, synth, narrow, device, nullptr,
+                    grid);
 }

@@ -23,7 +23,8 @@ reference package's ``vmap`` of the action over the sensitivity vectors);
 their plain versions run the single plain versions over the leading axis.
 On a window (a geometry built with ``g0``) with each vector's halos
 (``[nb, ...]``) they are K9w, the counterpart of the ``vmap`` of the
-sharded action.
+sharded action, in one launch or in a chain of two as K4 (the interior
+rows, then the edge strips, whose launch returns both launches' sinks).
 
 Either mode runs on a window of a box split into axis-0 slabs (K4, the
 TPU kernel's sharded mode) when its :class:`BoxGeometry` is built with the
@@ -57,10 +58,11 @@ MAX_FORM_NC, MAX_PROD = 16, 2
 MAX_ELEMS = 2 ** 31 - 1
 _I32 = 2 ** 31
 #: the kernel's modes, keys of the launch counters: K1, K3, K4 in either
-#: of them, and the batched launch K9 and K9w (on a window) in either of
-#: them
+#: of them, and the batched launch K9 and K9w (on a window; ``_chain``:
+#: a launch of a chain of two) in either of them
 MODES = ("mask", "synth", "sharded_mask", "sharded_synth", "batched_mask",
-         "batched_synth", "batched_sharded_mask", "batched_sharded_synth")
+         "batched_synth", "batched_sharded_mask", "batched_sharded_synth",
+         "batched_sharded_mask_chain", "batched_sharded_synth_chain")
 #: threads of a block, and its warps (one unit of rows of the last axis
 #: each)
 THREADS, WARPS = 256, 8
@@ -397,9 +399,10 @@ class BoxGeometry:
     window or outside the global box; other windows raise ``ValueError``.
     Without ``g0`` the window is the whole box.
 
-    ``follows``: a geometry launched just before this one whose sink
-    partials this launch sums with its own (one reduction for both); its
-    own launches then return no sinks."""
+    ``follows``: a geometry of the same window, moves and constraints
+    launched just before this one, whose sink partials this launch sums
+    with its own (one reduction for both); its own launches then return
+    no sinks.  A batched chain takes both launches at the same ``nb``."""
 
     def __init__(self, shape: Sequence[int], stoich, num_constraints: int,
                  form=None, origin0: int = 0, g0: Optional[int] = None,
@@ -448,11 +451,18 @@ class BoxGeometry:
         self.nblocks = max(1, min(-(-self.nslots // WARPS), GRID_BLOCKS))
         self.follows = follows
         self.leads = False
+        #: the geometry that follows this one in a chain
+        self.follower: Optional["BoxGeometry"] = None
         if follows is not None:
-            if follows.follows is not None or follows.nc != self.nc:
+            if (follows.follows is not None or follows.nc != self.nc
+                    or follows.shape != self.shape
+                    or not np.array_equal(follows.stoich, self.stoich)
+                    or follows.form != self.form):
                 raise ValueError("a geometry follows one leading geometry "
-                                 "of the same constraints")
+                                 "of the same window, moves and "
+                                 "constraints")
             follows.leads = True
+            follows.follower = self
             self.part_base = follows.nslots
             self.part_total = follows.nslots + self.nslots
             follows.part_total = self.part_total
@@ -471,6 +481,9 @@ class BoxGeometry:
         self._scratch = {}
         self._pending = None
         self._synth_plain = None
+        self._grids = {}
+        #: a batched chain's leading launch in flight: (nb, ticket)
+        self._bat_lead = None
         self._form_range: Optional[int] = None
         self.masks = (synth_masks(self.form, self.stoich)
                       if self.form is not None
@@ -529,9 +542,13 @@ class BoxGeometry:
     def mode_key(self, mode: str, batched: bool = False) -> str:
         """The launch counter of ``mode`` ("mask" or "synth") on this
         geometry: K4's own where the geometry is a window; with
-        ``batched`` K9's, or K9w's on a window."""
+        ``batched`` K9's, or K9w's on a window (its chain's own where the
+        geometry leads or follows another)."""
         key = "sharded_" + mode if self.sharded else mode
-        return "batched_" + key if batched else key
+        if not batched:
+            return key
+        chained = self.sharded and (self.leads or self.follows is not None)
+        return "batched_" + key + ("_chain" if chained else "")
 
     def narrow(self, bounds) -> bool:
         """Whether the synthesized-mask kernel may evaluate the form in
@@ -693,6 +710,10 @@ class BoxActionKernel(CudaLibrary):
             [ctypes.POINTER(_BoxParams), ctypes.POINTER(_BoxPtrs)]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.box_action_launch.restype = ctypes.c_int
+        lib.box_action_grid.argtypes = (
+            [ctypes.POINTER(_BoxParams)] + [ctypes.c_int] * 4
+            + [ctypes.POINTER(ctypes.c_int)])
+        lib.box_action_grid.restype = ctypes.c_int
         if lib.box_action_max_form_constraints() != MAX_FORM_NC:
             raise KernelError("MAX_FORM_NC differs between the kernel and "
                               "its wrapper")
@@ -714,16 +735,14 @@ class BoxActionKernel(CudaLibrary):
         window; K9 where ``p`` is ``[nb, n]``, K9w on a window, with
         halos ``[nb, ...]``).  Returns ``(dp, sinks)`` (``[nb, n]`` and
         ``[nb, n_c]`` for K9); sinks is None where ``geom`` leads a chain
-        (the following launch returns both launches')."""
+        (the following launch returns both launches').  ``out`` may be a
+        row range of a wider ``[nb, m]`` tensor (its rows contiguous)."""
         lib = self.lib if self.lib is not None else self.load()
         dev = p.device
         R, n = geom.num_reactions, geom.n
         batched = p.dim() == 2
         nb = p.shape[0] if batched else 1
         if batched:
-            if geom.follows is not None or geom.leads:
-                raise ValueError("the batched launch takes a whole box or "
-                                 "one window, not a chain")
             if not 1 <= nb <= 65535:
                 raise ValueError(f"a batch of {nb} vectors; the batched "
                                  "launch takes 1 to 65535")
@@ -746,16 +765,21 @@ class BoxActionKernel(CudaLibrary):
             prm = geom.params(c, None, props)
             prm.vstride = viol.stride(0) if R > 1 else n
         # vectors of the launch; a batched launch picks its chunks of
-        # vectors and its grid, and the blocks its ticket counts, itself
+        # vectors and its grid itself
         prm.nb = nb
+        narrow = int(synth and geom._narrow_of(bounds))
         nsk = 0 if geom.leads else geom.nc
         if batched:
             if out is None:
                 dp = torch.empty((nb, geom.n_out), dtype=torch.float64,
                                  device=dev)
             else:
-                _check(out, (nb, geom.n_out), torch.float64, dev, "out")
+                _check(out, (nb, geom.n_out), torch.float64, dev, "out",
+                       rows=True)
                 dp = out
+            prm.p_bstride, prm.dp_bstride = p.stride(0), dp.stride(0)
+            prm.ticket_total = _batched_ticket(lib, prm, geom, nb, synth,
+                                               narrow, dev)
             sinks = torch.empty((nb, nsk), dtype=torch.float64, device=dev)
         elif out is None:
             # dp and the sinks in one allocation
@@ -766,6 +790,8 @@ class BoxActionKernel(CudaLibrary):
             _check(out, (geom.n_out,), torch.float64, dev, "out")
             dp = out
             sinks = torch.empty(nsk, dtype=torch.float64, device=dev)
+        if not batched:
+            prm.ticket_total = geom.ticket_total
         if geom.leads:
             sinks = None
         part, ticket = geom.scratch(dev, nb)
@@ -785,16 +811,65 @@ class BoxActionKernel(CudaLibrary):
         q.dp = dp.data_ptr()
         q.part, q.ticket = part.data_ptr(), ticket.data_ptr()
         q.sinks = sinks.data_ptr() if sinks is not None else None
+        if batched:
+            _chain_check(geom, nb, prm.ticket_total, ticket)
         rc = lib.box_action_launch(
             ctypes.byref(prm), ctypes.byref(q), geom.nblocks, int(synth),
-            int(synth and geom._narrow_of(bounds)), dev.index,
-            torch._C._cuda_getCurrentRawStream(dev.index))
+            narrow, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
         if rc != 0:
             raise KernelError(f"box_action launch ({mode}"
                               f"{', batched' if batched else ''}) failed: "
                               f"cudaError {rc}")
+        if batched and geom.leads:
+            geom._bat_lead = (nb, prm.ticket_total)
         self.launches[geom.mode_key(mode, batched)] += 1
         return dp, sinks
+
+
+def _batched_ticket(lib, prm, geom: BoxGeometry, nb: int, synth: bool,
+                    narrow: int, dev) -> int:
+    """The blocks a batched launch's ticket counts: its grid's, and
+    in a chain the other launch's at the same ``nb`` (the chunk width
+    depends on what both geometries share), from the kernel's own
+    rule (``box_action_grid``), kept per geometry and layout."""
+    key = (nb, synth, narrow, prm.ntab, prm.tab_smem, dev.index)
+    got = geom._grids.get(key)
+    if got is None:
+        prm.ticket_total = geom.ticket_total
+        grid = (ctypes.c_int * 4)()
+        rc = lib.box_action_grid(ctypes.byref(prm), geom.nblocks,
+                                 int(synth), narrow, dev.index, grid)
+        if rc != 0:
+            raise KernelError(f"box_action grid failed: cudaError {rc}")
+        gx, gy, _, most = grid
+        other = geom.follows if geom.follows is not None \
+            else geom.follower
+        got = gx * gy
+        if other is not None:
+            got += min(other.nblocks, most) * gy
+        geom._grids[key] = got
+    return got
+
+
+def _chain_check(geom: BoxGeometry, nb: int, ticket: int,
+                 counter: torch.Tensor) -> None:
+    """Refuses a batched launch that would leave a chain's ticket count
+    wrong: a leading launch while one is in flight, or a following launch
+    without its leading one, or at another ``nb`` or ticket.  The counter
+    is then reset, so that the next chain starts clean."""
+    if geom.leads and geom._bat_lead is not None:
+        geom._bat_lead = None
+        counter.zero_()
+        raise KernelError("a batched chain's leading launch was not "
+                          "followed: refused")
+    if geom.follows is not None:
+        lead, geom.follows._bat_lead = geom.follows._bat_lead, None
+        if lead != (nb, ticket):
+            counter.zero_()
+            raise KernelError(
+                f"a batched chain's following launch (nb {nb}, ticket "
+                f"{ticket}) does not complete its leading one "
+                f"({'none' if lead is None else lead}): refused")
 
 
 def _halo_ptr(t, shape, read: bool, device, name: str):
@@ -882,9 +957,9 @@ def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry, out=None,
                     halos=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero-filled box shifts (``shift_nd``) and dense masked sink sums,
     in the kernel's order of accumulation over reactions, over the whole
-    window; ``dp`` and the sinks of its computed rows.  Rows outside the
-    global box count as invalid, as the kernel's axis-0 source test makes
-    them."""
+    window; ``dp`` and the sinks of its computed rows (this launch's own:
+    :func:`_chained` sums a chain's).  Rows outside the global box count
+    as invalid, as the kernel's axis-0 source test makes them."""
     c = [float(v) for v in (c.tolist() if torch.is_tensor(c) else c)]
     shape = geom.shape
     a = as_props(a, geom).dense()
@@ -918,14 +993,20 @@ def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry, out=None,
         out = torch.zeros(geom.n_out, dtype=p.dtype, device=p.device)
     ov = out.view(dp.shape)
     ov.copy_(torch.where(keep, dp, ov))
-    # a chain's partial sinks wait on its head for the following launch
+    return out, sk
+
+
+def _chained(geom: BoxGeometry, sk: torch.Tensor) -> Optional[torch.Tensor]:
+    """A plain launch's sinks as the kernel returns them: a chain's
+    partial sinks wait on its head for the following launch, which
+    returns both launches' (None for the leading one)."""
     if geom.leads:
         geom._pending = sk
-        return out, None
+        return None
     if geom.follows is not None and geom.follows._pending is not None:
         sk = geom.follows._pending + sk
         geom.follows._pending = None
-    return out, sk
+    return sk
 
 
 def _count_plain(geom: BoxGeometry, mode: str, p) -> None:
@@ -940,7 +1021,8 @@ def box_action_reference(c, p, mask, a, viol, geom: BoxGeometry, out=None,
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of the mask-reading kernel."""
     _count_plain(geom, "mask", p)
-    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+    dp, sk = _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+    return dp, _chained(geom, sk)
 
 
 def box_action_synth_reference(c, p, a, bounds, geom: BoxGeometry,
@@ -952,7 +1034,8 @@ def box_action_synth_reference(c, p, a, bounds, geom: BoxGeometry,
     masked stencil and sink sums."""
     _count_plain(geom, "synth", p)
     mask, viol = _synth_data(geom, bounds, p.device)
-    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+    dp, sk = _masked_stencil(c, p, mask, a, viol, geom, out, halos)
+    return dp, _chained(geom, sk)
 
 
 def _synth_data(geom: BoxGeometry, bounds, device
@@ -1006,9 +1089,10 @@ def box_action_synth(c, p, a, bounds, geom: BoxGeometry, out=None,
 
 
 def _batched_plain(mode: str, geom: BoxGeometry, p, out, halos, one
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A plain version over the leading axis of ``p [nb, n]``: ``one(row,
-    out_row, halos_row)`` for each vector, stacked."""
+    out_row, halos_row)`` for each vector, stacked; a chain's sinks as
+    :func:`_chained` gives them."""
     if p.dim() != 2:
         raise ValueError(f"p has shape {tuple(p.shape)}, expected [nb, n]")
     key = geom.mode_key(mode, batched=True)
@@ -1022,7 +1106,8 @@ def _batched_plain(mode: str, geom: BoxGeometry, p, out, halos, one
         dp, sk = one(p[b], None if out is None else out[b], hb)
         dps.append(dp)
         sks.append(sk)
-    return (out if out is not None else torch.stack(dps)), torch.stack(sks)
+    return ((out if out is not None else torch.stack(dps)),
+            _chained(geom, torch.stack(sks)))
 
 
 def box_action_batched_reference(c, p, mask, a, viol, geom: BoxGeometry,

@@ -34,10 +34,14 @@ every operator.
 With a ``mesh`` every sub-operator is sharded over its ranks, as the
 reference package's meshed sensitivity solve is
 (``pacmensl_tpu/sensfsp/sens_solver.py:73-95``): box operators on each
-rank's slab (the batched action is then K9w behind one halo exchange of
-every vector), compressed ones as
+rank's slab, compressed ones as
 :class:`~..parallel.halo_ell.ShardedEllOperator`; the stacked vector holds
-the rank's slab or block of each of its rows.
+the rank's slab or block of each of its rows.  On the box over two or
+more ranks an action makes one halo exchange (K9w's, of every vector's
+edge planes) and one all-reduce (of every operator's sink partials,
+concatenated); the derivative operators act on ``p`` with K9w's halos of
+vector 0 and add their sinks after the all-reduce, in the order of one
+all-reduce each.
 """
 from __future__ import annotations
 
@@ -179,6 +183,9 @@ class SensOperator:
         P = y.p.view(m, n)
         c = self.model.coefficients(t, self.dtype)
         out = torch.empty_like(y.p)
+        sh = getattr(self.base, "sharded", None)
+        if sh is not None and sh.halos:
+            return self._action_over_ranks(t, P, c, out)
         # A p and A s_j for all j in one launch, into the output's rows
         _, sinks = self.base.action_batched(t, P, c=c, out=out.view(m, n))
         sinks = sinks.reshape(-1)
@@ -189,6 +196,40 @@ class SensOperator:
             g = self.sens_action(j, t, pv, c=c)
             out[(j + 1) * n:(j + 2) * n].add_(g.p)
             sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
+        return FspVector(p=out, sinks=sinks)
+
+    def _action_over_ranks(self, t, P, c, out) -> FspVector:
+        """:meth:`action` on the box over two or more ranks: one halo
+        exchange and one all-reduce."""
+        n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
+
+        def slab_action(op, cj, p, out=None, halos=None):
+            d = op.data()
+            return op.sharded.apply(op.coefficients(t, cj), p, op.props,
+                                    d.mask, d.viol, d.bounds, out, halos,
+                                    reduce=False)
+        _, sinks, (up, dn) = slab_action(self.base, c, P, out.view(m, n))
+        terms = []     # (j, dp, partial sinks) of each derivative operator
+        for j in range(self.n_par):
+            for op, cj in ((self.dcxA[j], None), (self.cxdA[j], c)):
+                if op is not None:
+                    gp, gs, _ = slab_action(op, cj, P[0],
+                                            halos=(up[0], dn[0]))
+                    terms.append((j, gp, gs))
+        flat = torch.cat([sinks.reshape(-1)] + [gs for _, _, gs in terms])
+        if flat.numel():
+            self.base.sharded.mesh.all_reduce(flat)
+        sinks = flat[:m * nc]
+        # each parameter's derivative dp and sinks, summed as sens_action
+        # sums them, then added to its row
+        per = {}
+        for k, (j, gp, _) in enumerate(terms):
+            gs = flat[(m + k) * nc:(m + k + 1) * nc]
+            got = per.get(j)
+            per[j] = (gp, gs) if got is None else (got[0] + gp, got[1] + gs)
+        for j, (gp, gs) in per.items():
+            out[(j + 1) * n:(j + 2) * n].add_(gp)
+            sinks[(j + 1) * nc:(j + 2) * nc].add_(gs)
         return FspVector(p=out, sinks=sinks)
 
     # ------------------------------------------------------------------

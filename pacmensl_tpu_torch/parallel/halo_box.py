@@ -35,9 +35,17 @@ concatenated, and the halos are received into buffers allocated once.
 :meth:`ShardedBoxAction.batched` applies the action to ``nb`` vectors of
 the rank's slab at once (the reference's meshed sensitivity solve
 ``vmap``s the sharded call): one exchange of every vector's edge planes,
-stacked ``[nb, w0 P]`` each way, one launch of the batched kernel on the
-window (K9w, the single-launch geometry above), and one all-reduce of the
-``[nb, n_c]`` sinks.
+stacked ``[nb, w0 P]`` each way, the batched kernel on the window (K9w),
+and one all-reduce of the ``[nb, n_c]`` sinks.  K9w runs in one launch
+on the window after the exchange, also where K4 chains: its chain (the
+interior rows of every vector with the halos in flight, then every
+vector's edge strips; ``ops/box_kernel.py``) was slower on one card and
+over two NCCL ranks, one card each (``PERF.md``).
+:meth:`ShardedBoxAction.apply` is the action on either, given halos that
+another action received (``halos=``, planes of a width of at least
+``w0``: then no exchange) and with the sinks left unreduced on request
+(``reduce=False``), so that a sensitivity action makes one exchange and
+one all-reduce for all its operators (``ops/sens_operator.py``).
 """
 from __future__ import annotations
 
@@ -109,45 +117,74 @@ class ShardedBoxAction:
             self.geom_int = geom((2 * w0, L0))
             self.geom_edge = geom((w0, w0 + L0), gap=(2 * w0, L0),
                                   follows=self.geom_int)
-        else:
-            self.geom = geom((w0, w0 + L0))
-        #: the batched launch's window: the single-launch geometry
-        self.geom_batched = geom((w0, w0 + L0))
-        self._up = self._dn = None
-        if self.halos:
-            self._up = torch.zeros(w0 * P, dtype=torch.float64,
-                                   device=mesh.device)
-            self._dn = torch.zeros(w0 * P, dtype=torch.float64,
-                                   device=mesh.device)
+        #: one launch on the window: K4 without the overlap, K9w always
+        self.geom = geom((w0, w0 + L0))
+        # the received halos, per leading shape of p: () or (nb,)
         self._bufs = {}
 
     def _run(self, geom, c, p, a, mask, viol, bounds, out=None, halos=None):
-        """The kernel on ``geom``, a window of the operator's data."""
+        """The kernel on ``geom``, a window of the operator's data: K4 on
+        a vector ``p``, K9w on a batch ``[nb, L0 P]``."""
+        if p.dim() == 2:
+            if mask is None:
+                return box_action_synth_batched(c, p, a, bounds, geom, out,
+                                                halos)
+            return box_action_batched(c, p, mask, a, viol, geom, out, halos)
         if mask is None:
             return box_action_synth(c, p, a, bounds, geom, out, halos)
         return box_action(c, p, mask, a, viol, geom, out, halos)
 
-    def __call__(self, c, p, a, mask: Optional[torch.Tensor],
-                 viol: Optional[torch.Tensor], bounds
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def apply(self, c, p, a, mask: Optional[torch.Tensor],
+              viol: Optional[torch.Tensor], bounds, out=None, halos=None,
+              reduce: bool = True):
+        """``(dp, sinks, halos)`` of the action on the rank's slab ``p``
+        (``[L0 P]``, or ``[nb, L0 P]``: the slab of each vector), the
+        halos as the kernel read them (None on one rank).  ``halos = (up,
+        dn)``: planes above and below the slab that another action's
+        exchange received, at least ``w0`` wide (then no exchange);
+        ``reduce=False`` leaves this rank's partial sinks; ``out``: where
+        to write ``dp``."""
         w0, L0, P = self.w0, self.L0, self.plane
         if not self.halos:
-            return self._run(self.geom, c, p, a, mask, viol, bounds)
-        ex = self.mesh.halo_start(p[:w0 * P], p[(L0 - w0) * P:], self._up,
-                                  self._dn)
-        if self.overlap:
-            dp = torch.empty_like(p)
+            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out)
+            return dp, ks, None
+        ex = None
+        if halos is None:
+            bufs = self._bufs.get(p.shape[:-1])
+            if bufs is None:
+                bufs = self._bufs[p.shape[:-1]] = tuple(
+                    torch.zeros(p.shape[:-1] + (w0 * P,),
+                                dtype=torch.float64, device=p.device)
+                    for _ in range(2))
+            ex = self.mesh.halo_start(p[..., :w0 * P],
+                                      p[..., (L0 - w0) * P:], *bufs)
+        else:
+            # the planes next to the slab, of halos at least w0 planes wide
+            up, dn = halos
+            halos = (up[..., up.shape[-1] - w0 * P:], dn[..., :w0 * P])
+        if self.overlap and p.dim() == 1:
+            dp = out if out is not None else torch.empty_like(p)
             self._run(self.geom_int, c, p, a, mask, viol, bounds,
                       dp[w0 * P:(L0 - w0) * P])
-            halos = ex.wait()
+            if ex is not None:
+                halos = ex.wait()
             _, ks = self._run(self.geom_edge, c, p, a, mask, viol, bounds,
                               dp, halos)
         else:
-            halos = ex.wait()
-            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds,
-                               halos=halos)
-        if ks.numel():
+            if ex is not None:
+                halos = ex.wait()
+            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out,
+                               halos)
+        if reduce and ks.numel():
             self.mesh.all_reduce(ks)
+        return dp, ks, halos
+
+    def __call__(self, c, p, a, mask: Optional[torch.Tensor],
+                 viol: Optional[torch.Tensor], bounds
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(dp [L0 P], sinks [n_c])`` of the action on the rank's slab
+        ``p``: one halo exchange, K4, one all-reduce of the sinks."""
+        dp, ks, _ = self.apply(c, p, a, mask, viol, bounds)
         return dp, ks
 
     def batched(self, c, p, a, mask: Optional[torch.Tensor],
@@ -157,26 +194,7 @@ class ShardedBoxAction:
         of ``p [nb, L0 P]`` (the rank's slab of each vector): one halo
         exchange of every vector's edge planes, one K9w launch, one
         all-reduce of the sinks.  ``out``: where to write ``dp``."""
-        w0, L0, P = self.w0, self.L0, self.plane
-        geom = self.geom_batched
-        halos = None
-        if self.halos:
-            nb = p.shape[0]
-            bufs = self._bufs.get(nb)
-            if bufs is None:
-                bufs = self._bufs[nb] = tuple(
-                    torch.zeros((nb, w0 * P), dtype=torch.float64,
-                                device=p.device) for _ in range(2))
-            halos = self.mesh.halo_start(p[:, :w0 * P], p[:, (L0 - w0) * P:],
-                                         *bufs).wait()
-        if mask is None:
-            dp, ks = box_action_synth_batched(c, p, a, bounds, geom, out,
-                                              halos)
-        else:
-            dp, ks = box_action_batched(c, p, mask, a, viol, geom, out,
-                                        halos)
-        if self.halos and ks.numel():
-            self.mesh.all_reduce(ks)
+        dp, ks, _ = self.apply(c, p, a, mask, viol, bounds, out)
         return dp, ks
 
     def comm_values_per_matvec(self) -> int:

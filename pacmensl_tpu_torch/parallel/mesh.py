@@ -38,7 +38,9 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
 
 class StateMesh:
     """The ranks of a process group as a 1-D mesh over the state axis:
-    the group, this rank, the rank count and this rank's device."""
+    the group, this rank, the rank count and this rank's device.
+    ``halo_exchanges`` and ``all_reduces`` count the calls of
+    :meth:`halo_start` and :meth:`all_reduce` on this rank."""
 
     def __init__(self, group, rank: int, size: int, device: torch.device):
         self.group = group
@@ -47,6 +49,8 @@ class StateMesh:
         self.device = torch.device(device)
         self.backend = (dist.get_backend(group) if group is not None
                         or dist.is_initialized() else None)
+        self.halo_exchanges = 0
+        self.all_reduces = 0
 
     def __repr__(self):
         return (f"StateMesh(rank={self.rank}, size={self.size}, "
@@ -62,6 +66,7 @@ class StateMesh:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """In-place all-reduce of ``t`` over the ranks (``"sum"`` or
         ``"min"``); every rank gets the same bits."""
+        self.all_reduces += 1
         if self._staged(t):
             h = t.cpu()
             dist.all_reduce(h, _OPS[op], group=self.group)
@@ -104,6 +109,7 @@ class StateMesh:
         planes of rank - 1 and the first planes of rank + 1, received into
         the buffers ``up`` and ``dn`` where given (a halo at an end of the
         box is left as the buffer holds it: zeros in a new one)."""
+        self.halo_exchanges += 1
         return HaloExchange(self, first, last, up, dn)
 
 

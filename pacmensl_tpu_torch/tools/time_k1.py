@@ -23,6 +23,20 @@ capacity after a solve to t = 180 (4 x 42 x 94 x 42 x 63, the capacity
 hog1p_5d_sens ends at) with nb = 3, each beside nb single K3 launches on
 the same vectors, three rounds, each launch first checked bitwise against
 the single launches.  Prints one line per case.  Needs a CUDA card.
+
+    python <path to this file> [label] --k9w
+
+times the batched launch on a window (K9w, synthesized-mask mode, nb = 3)
+in one launch a slab, as a sweep over the slabs: the 128^3 repressilator
+box in 4 slabs, hog1p_5d's final capacity after a solve to t = 180 in 2
+slabs, and the final box of hog1p_5d_sens to t = 3 (fsp_tol 1e-6,
+Krylov) in 2 slabs, where the fixed cost of a launch dominates; beside
+each, K9 on the whole box, and on the last box one K3 launch.  Three
+rounds, each sweep first checked bitwise against nb single K4 launches
+a slab; each also replayed from a CUDA graph (the device's time without
+the host's cost per launch).  The slab windows and the graph's timing
+are ``chip_smoke.py``'s (phase 11d), from the repository this file lies
+in.  Prints one line per case.  Needs a CUDA card.
 """
 import argparse
 import os
@@ -45,6 +59,19 @@ def _time_ms(torch, fn) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / REPS
+
+
+def _smoke():
+    """The repository's ``chip_smoke.py`` as a module: ``--k9w`` takes its
+    slab windows (``k9w_windows``) and its CUDA graph timing
+    (``graph_ms``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _solve(pt, bundle, odes, t_final, dev):
@@ -140,7 +167,81 @@ def _k9(torch, pt, bk, bo, dev, smi, label) -> None:
               f"{min(t['single']) / nb * 1e3:.1f}; {smi}", flush=True)
 
 
-def main(label: str = "", k9: bool = False) -> None:
+def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
+    """K9w sweeps of one launch a slab, beside K9 on the whole box."""
+    smoke = _smoke()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rep = pt.models.repressilator()
+    shape = (128,) * 3
+    cs = pt.ConstraintSet(None, [127] * 3, None, 3)
+    geom = bk.BoxGeometry(shape, rep.model.stoichiometry, 3, cs.form)
+    P = torch.rand((3, 128 ** 3), generator=gen, device=dev,
+                   dtype=torch.float64)
+    cases = [("128^3 in 4 slabs", geom,
+              bo.propensity_tables(rep.model, shape, dev), [127] * 3,
+              rep.model.coefficients(0.0), P, 4)]
+    s, d = _solve(pt, pt.models.hog1p_5d(), "auto", 180.0, dev)
+    op = s._operator
+    noise = torch.rand((2, op.geom.n), generator=gen, device=dev,
+                       dtype=torch.float64) - 0.5
+    cases.append((f"hog1p_5d t=180 final {op.shape} in 2 slabs", op.geom,
+                  op.props, op.data().bounds, op.model.coefficients(180.0),
+                  torch.cat([s._y.p[None], s._y.p[None] * noise]), 2))
+    del s, d, noise, op
+    hs = pt.models.hog1p_5d_sens()
+    s = pt.SensFspSolverMultiSinks(backend="box", odes_type="krylov",
+                                   device=dev)
+    s.set_model(hs.model)
+    s.set_constraint_functions(hs.constraint)
+    s.set_initial_bounds(hs.bounds)
+    s.set_expansion_factors(hs.expansion_factors)
+    s.set_initial_distribution(hs.x0, hs.p0)
+    s.set_ode_tolerances(1.0e-9, 1.0e-14)
+    d = s.solve(3.0, 1.0e-6)
+    op = s._operator.base
+    cases.append((f"hog1p_5d_sens t=3 final {op.shape} ({d.num_states} "
+                  "states) in 2 slabs", op.geom, op.props, op.data().bounds,
+                  op.coefficients(3.0), s._y.p.view(3, op.geom.n).clone(),
+                  2))
+    del s, d, op
+    times = {c[0]: {"K9w": [], "K9": [], "K3": [], "K9w graph": [],
+                    "K9 graph": [], "K3 graph": []} for c in cases}
+    for rnd in range(ROUNDS):
+        for name, g, pa, b, c, Q, slabs in cases:
+            wins = [((wg, ps, h), pa.window(o, rows)) for wg, _, ps, h, o,
+                    rows in smoke.k9w_windows(g, Q, slabs)]
+
+            def k9w():
+                return [bk.box_action_synth_batched(c, ps, wa, b, wg,
+                                                    halos=h)
+                        for (wg, ps, h), wa in wins]
+            runs = {"K9w": k9w,
+                    "K9": lambda: bk.box_action_synth_batched(c, Q, pa, b,
+                                                              g)}
+            if name.startswith("hog1p_5d_sens"):
+                runs["K3"] = lambda: bk.box_action_synth(c, Q[0], pa, b, g)
+            if rnd == 0:
+                for ((wg, ps, (up, dn)), wa), (kp, ks) in zip(wins, k9w()):
+                    one = [bk.box_action_synth(c, ps[i], wa, b, wg,
+                                               halos=(up[i], dn[i]))
+                           for i in range(Q.shape[0])]
+                    torch.cuda.synchronize()
+                    if not (torch.equal(kp, torch.stack([o[0] for o in one]))
+                            and torch.equal(ks, torch.stack(
+                                [o[1] for o in one]))):
+                        raise AssertionError(f"{name}: K9w is not bitwise "
+                                             "the K4 launches")
+            for k, fn in runs.items():
+                times[name][k].append(_time_ms(torch, fn))
+                times[name][k + " graph"].append(smoke.graph_ms(fn, REPS))
+    for name, t in times.items():
+        print(f"{label}: {name}, nb=3: us per call "
+              + ", ".join(f"{k} " + " / ".join(f"{x * 1e3:.1f}" for x in v)
+                          for k, v in t.items() if v)
+              + f"; {smi}", flush=True)
+
+
+def main(label: str = "", k9: bool = False, k9w: bool = False) -> None:
     import torch
     import pacmensl_tpu_torch as pt
     from pacmensl_tpu_torch.ops import box_kernel as bk
@@ -149,11 +250,11 @@ def main(label: str = "", k9: bool = False) -> None:
     if not torch.cuda.is_available():
         raise SetupError("time_k1 needs a CUDA card")
     dev = torch.device("cuda", 0)
-    if k9:
+    if k9 or k9w:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip()
-        _k9(torch, pt, bk, bo, dev, smi, label)
+        (_k9w if k9w else _k9)(torch, pt, bk, bo, dev, smi, label)
         return
     t0 = time.perf_counter()
     s, d = _solve(pt, pt.models.transcription_regulation_6d(), "auto",
@@ -199,5 +300,7 @@ if __name__ == "__main__":
     ap.add_argument("label", nargs="?", default="")
     ap.add_argument("--k9", action="store_true",
                     help="time the batched launch K9 instead")
+    ap.add_argument("--k9w", action="store_true",
+                    help="time the batched launch on a window K9w instead")
     args = ap.parse_args()
-    main(args.label, args.k9)
+    main(args.label, args.k9, args.k9w)

@@ -21,8 +21,19 @@ workers import no JAX.
 * The sensitivity solve over 2 ranks on both backends (the box: K9w's
   plain version behind the halo exchange of every vector) against one
   device within 1e-10 (``tests/test_sensfsp.py:196-223``).
-* The batched window plain version bitwise against the sharded plain
-  version applied to each vector.
+* The batched window plain version against the sharded plain version
+  applied to each vector, under ``PACMENSL_HALO_OVERLAP=0`` and ``"1"``:
+  one launch on the window in both (K4 takes its chain under ``"1"``),
+  one halo exchange and one all-reduce a call, the same ``dp`` on every
+  rank and in both settings, the sinks bitwise one K4 launch's a vector
+  and within 1e-12 of the K4 chains' and of one device.
+* A sensitivity action on the box over 2 ranks (poisson_sens, whose slabs
+  have an interior; hog1p_3d_sens, whose derivative operators read no
+  halo; and births of one and two molecules, whose derivative operator
+  reads a halo one plane narrower than the base operator's): one halo
+  exchange and one all-reduce a call by the mesh's counters, ``p`` and
+  the sinks bitwise the sub-operators called one by one with their own
+  exchanges and all-reduces.
 """
 import os
 import subprocess
@@ -150,15 +161,99 @@ def _work_solves(pt, mesh):
         out[f"sens_{backend}_states"] = d.states
         out[f"sens_{backend}_p"] = d.p
         out[f"sens_{backend}_dp"] = d.dp
+    out.update(_sens_actions(pt, mesh))
     return out
+
+
+def _sens_actions(pt, mesh):
+    """One sensitivity action on the box over the ranks, against its
+    sub-operators called one by one (the batched action, then each
+    parameter's derivative operators, each with its own exchange and
+    all-reduce), under both ``PACMENSL_HALO_OVERLAP`` settings."""
+    import torch
+    from pacmensl_tpu_torch.ops.sens_operator import SensOperator
+    from pacmensl_tpu_torch.parallel.mesh import shard_rows
+    out = {}
+    rng = np.random.default_rng(9)
+    for name, bounds in (("poisson_sens", [39]),
+                         ("hog1p_3d_sens", [3, 4, 4, 1, 10, 10, 10]),
+                         ("births_1_2", [47])):
+        b = (_births_1_2(pt) if name == "births_1_2"
+             else getattr(pt.models, name)())
+        cs = (pt.ConstraintSet(None, bounds, None, 1) if b.constraint is None
+              else pt.ConstraintSet(b.constraint, bounds,
+                                    b.expansion_factors))
+        pad = np.ones(b.model.num_species, np.int64)
+        pad[0] = mesh.size
+        space = pt.BoxStateSpace(b.model.stoichiometry, cs, b.x0,
+                                 device="cpu", pad_quanta=pad)
+        m = 1 + b.model.num_parameters
+        Y = torch.as_tensor(rng.random((m, space.size))) \
+            * space.mask.reshape(1, -1)
+        for ov in ("1", "0"):
+            os.environ["PACMENSL_HALO_OVERLAP"] = ov
+            sop = SensOperator(b.model, space, mesh=mesh)
+            n, nc = sop.local_n, sop.num_constraints
+            y = pt.FspVector(p=shard_rows(Y.reshape(-1), m, mesh),
+                             sinks=torch.zeros(m * nc, dtype=torch.float64))
+            t = 0.7
+            ex, ar = mesh.halo_exchanges, mesh.all_reduces
+            got = sop.action(t, y)
+            counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
+            c = sop.model.coefficients(t, torch.float64)
+            want = torch.empty_like(y.p)
+            _, sk = sop.base.action_batched(t, y.p.view(m, n), c=c,
+                                            out=want.view(m, n))
+            sk = sk.reshape(-1)
+            pv = pt.FspVector(p=y.p.view(m, n)[0], sinks=y.sinks[:nc])
+            for j in range(sop.n_par):
+                if sop.dcxA[j] is None and sop.cxdA[j] is None:
+                    continue
+                g = sop.sens_action(j, t, pv, c=c)
+                want[(j + 1) * n:(j + 2) * n].add_(g.p)
+                sk[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
+            key = f"act_{name}_{ov}_"
+            out[key + "counts"] = np.array(counts)
+            out[key + "overlap"] = np.array(
+                [op.sharded.overlap for op in sop.sub_ops()])
+            out[key + "p"] = got.p.numpy()
+            out[key + "sinks"] = got.sinks.numpy()
+            out[key + "p_each"] = want.numpy()
+            out[key + "sinks_each"] = sk.numpy()
+    os.environ.pop("PACMENSL_HALO_OVERLAP")
+    return out
+
+
+def _births_1_2(pt):
+    """Births of one and of two molecules and deaths, sensitive to the
+    rate of the first: the base operator's halo is 3 planes, the
+    derivative operator's (births of one) 2."""
+    import torch
+    from types import SimpleNamespace
+    stoich = np.array([[1], [2], [-1]])
+
+    def prop(x, r):
+        x = x.to(torch.float64)
+        return x[:, 0] if r == 2 else torch.ones_like(x[:, 0])
+    m = pt.SensModel(stoich, prop,
+                     lambda t: torch.tensor([2.0, 0.5, 0.3],
+                                            dtype=torch.float64),
+                     tv_reactions=(0,), num_parameters=1,
+                     d_t_coeff=lambda j, t: torch.tensor(
+                         [1.0], dtype=torch.float64),
+                     dtcoef_sparsity=((0,),), d_propensity=None,
+                     dprop_sparsity=())
+    return SimpleNamespace(model=m, constraint=None, x0=np.array([[0]]))
 
 
 def _work_window(pt, mesh):
     """ShardedBoxAction.batched (K9w's plain version behind one halo
     exchange of every vector) against the sharded action on each vector,
-    in its single-launch geometry (the batched call's own)."""
+    under ``PACMENSL_HALO_OVERLAP=0`` (keys ``s1_*``, ``s0_*``) and
+    ``"1"`` (keys ``o1_s1_*``, ``o1_s0_*``, where the sharded action on
+    each vector takes K4's chain)."""
     import torch
-    os.environ["PACMENSL_HALO_OVERLAP"] = "0"
+    from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
     from pacmensl_tpu_torch.parallel.mesh import gather_rows
     b = pt.models.repressilator()
@@ -172,16 +267,27 @@ def _work_window(pt, mesh):
     P = torch.as_tensor(rng.random((3, space.size))) \
         * space.mask.reshape(1, -1)
     out = {}
-    for synth in (True, False):
+    for ov, synth in ((ov, synth) for ov in ("0", "1")
+                      for synth in (True, False)):
+        os.environ["PACMENSL_HALO_OVERLAP"] = ov
         bo.USE_SYNTH_MASK = synth
         op = pt.BoxOperator(b.model, space, mesh=mesh)
         sh = op.sharded
         lo = (sh.origin0 + sh.w0) * sh.plane
         loc = P[:, lo:lo + op.local_n].contiguous()
+        ex, ar = mesh.halo_exchanges, mesh.all_reduces
+        k9w = "batched_sharded_" + ("synth" if synth else "mask")
+        n0 = dict(bk.KERNEL.plain_calls)
         dp, sk = op.action_batched(0.3, loc)
+        counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
+        calls = [bk.KERNEL.plain_calls[k] - n0[k]
+                 for k in (k9w, k9w + "_chain")]
         each = [op.action(0.3, pt.FspVector(p=loc[i], sinks=None))
                 for i in range(3)]
-        key = f"s{int(synth)}"
+        key = ("o1_" if ov == "1" else "") + f"s{int(synth)}"
+        out[key + "_overlap"] = np.array(sh.overlap)
+        out[key + "_calls"] = np.array(calls)
+        out[key + "_counts"] = np.array(counts)
         out[key + "_mode"] = np.array(op.synth_mask)
         out[key + "_dp"] = gather_rows(dp.reshape(-1), 3, mesh).numpy()
         out[key + "_dp_each"] = gather_rows(
@@ -193,6 +299,7 @@ def _work_window(pt, mesh):
         out[key + "_dp1"] = d1.numpy().reshape(-1)
         out[key + "_sk1"] = s1.numpy()
     bo.USE_SYNTH_MASK = True
+    os.environ.pop("PACMENSL_HALO_OVERLAP")
     return out
 
 
@@ -350,6 +457,59 @@ def test_batched_window_plain_matches_sharded_each(window_run):
             assert np.array_equal(o[key + "_dp"], o[key + "_dp1"])
             np.testing.assert_allclose(o[key + "_sk"], o[key + "_sk1"],
                                        rtol=1e-12, atol=1e-13)
+
+
+def test_batched_window_chain_over_ranks(window_run):
+    """ShardedBoxAction.batched where K4 chains (``PACMENSL_HALO_OVERLAP=1``,
+    slabs with an interior): K9w still in one launch on the window, not
+    its chain (slower on one card and over two NCCL ranks), one exchange
+    and one all-reduce; dp bitwise each vector's K4 chain, the same on
+    every rank and in both settings; sinks bitwise one K4 launch's a
+    vector, within 1e-12 of the K4 chains', the other setting's and one
+    device's."""
+    for o in window_run:
+        for synth in (1, 0):
+            key, one = f"o1_s{synth}", f"s{synth}"
+            assert bool(o[key + "_overlap"]) and not bool(o[one + "_overlap"])
+            # one K9w launch on the window, none of its chain's, also where
+            # K4 chains
+            for k in (key, one):
+                assert o[k + "_calls"].tolist() == [1, 0]
+            assert bool(o[key + "_mode"]) == bool(synth)
+            for k in (key, one):
+                assert o[k + "_counts"].tolist() == [1, 1]
+            assert np.array_equal(o[key + "_dp"], o[key + "_dp_each"])
+            assert np.array_equal(o[key + "_sk"], o[one + "_sk_each"])
+            assert np.array_equal(o[key + "_dp"], o[one + "_dp"])
+            assert np.array_equal(o[key + "_dp"], window_run[0][key + "_dp"])
+            for ref in (one + "_sk", key + "_sk_each", key + "_sk1"):
+                np.testing.assert_allclose(o[key + "_sk"], o[ref],
+                                           rtol=1e-12, atol=1e-13)
+
+
+def test_sensitivity_action_over_ranks_makes_one_exchange(solves_run):
+    """One action on the box over 2 ranks: one halo exchange and one
+    all-reduce, p and the sinks bitwise the sub-operators called one by
+    one, under either overlap setting; poisson_sens's slabs have an
+    interior, so its derivative operator takes K4's chain there (the
+    batched action one launch); hog1p_3d_sens's base operator has none,
+    its derivative operators (halos of one plane) do; births of one and two take the base operator's halos of 3 planes
+    to a derivative operator's of 2."""
+    want_overlap = {"poisson_sens": [True, True],
+                    "hog1p_3d_sens": [False, True, True],
+                    "births_1_2": [True, True]}
+    for o in solves_run:
+        for name, ov in ((name, ov) for name in want_overlap
+                         for ov in ("1", "0")):
+            key = f"act_{name}_{ov}_"
+            assert o[key + "counts"].tolist() == [1, 1], key
+            assert o[key + "overlap"].tolist() == (
+                want_overlap[name] if ov == "1"
+                else [False] * len(want_overlap[name])), key
+            assert np.array_equal(o[key + "p"], o[key + "p_each"]), key
+            assert np.array_equal(o[key + "sinks"], o[key + "sinks_each"])
+            assert np.array_equal(o[key + "sinks"],
+                                  solves_run[0][key + "sinks"])
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ and both agree with the reference within 1e-12 relative; so do the sinks
 (summed in another order).  Cases: the toggle ``[39, 17]`` box of
 ``tests/test_sharded_pallas.py:19-74`` in both kernel modes, and the
 repressilator case of ``:105-145`` through the overlap split and the
-monolithic path.
+monolithic path.  On the repressilator's slabs the batched plain version
+(K9w's) also runs the chain of two launches, against one launch on the
+window and against each vector's chain of K4 launches; the batched
+action itself takes one launch on the window.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from pacmensl_tpu.statespace.constraints import (  # noqa: E402
     ConstraintSet as JConstraintSet)
 
 import pacmensl_tpu_torch as pt  # noqa: E402
+from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
 from pacmensl_tpu_torch.ops import box_operator as bo  # noqa: E402
 from pacmensl_tpu_torch.parallel.halo_box import window_rows  # noqa: E402
 from pacmensl_tpu_torch.parallel import mesh as tmesh  # noqa: E402
@@ -57,6 +61,25 @@ class _LocalMesh(StateMesh):
         L0 = self.p_box.shape[0] // RANKS
         got = (window_rows(self.p_box, self.rank * L0 - w0, w0).reshape(-1),
                window_rows(self.p_box, (self.rank + 1) * L0, w0).reshape(-1))
+        up, dn = [g if b is None else b.copy_(g)
+                  for g, b in zip(got, (up, dn))]
+
+        class _Done:
+            def wait(self):
+                return up, dn
+        return _Done()
+
+
+class _LocalBatchMesh(_LocalMesh):
+    """:class:`_LocalMesh` for a batch: ``p_box`` is ``[nb, *shape]``, the
+    halos ``[nb, w0 P]``."""
+
+    def halo_start(self, first, last, up=None, dn=None):
+        w0 = first.shape[-1] // int(np.prod(self.p_box.shape[2:]))
+        L0 = self.p_box.shape[1] // RANKS
+        got = [torch.stack([window_rows(b, o, w0).reshape(-1)
+                            for b in self.p_box])
+               for o in (self.rank * L0 - w0, (self.rank + 1) * L0)]
         up, dn = [g if b is None else b.copy_(g)
                   for g, b in zip(got, (up, dn))]
 
@@ -167,6 +190,66 @@ def test_overlap_split_matches_monolithic(monkeypatch):
     np.testing.assert_allclose(out["1"][1].numpy(), jks, **TOL)
 
 
+@pytest.mark.parametrize("synth", [True, False])
+def test_batched_chain_plain_matches_one_window_and_k4(synth, monkeypatch):
+    """K9w's plain version as a chain (the interior rows of every vector,
+    then every vector's edge strips from the halos, which returns both
+    launches' sinks) on each rank's window of the repressilator: dp
+    bitwise one launch on the window and each vector's K4 chain, the
+    sinks bitwise the K4 chains' and within TOL of the one launch's."""
+    monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
+    monkeypatch.setenv("PACMENSL_HALO_OVERLAP", "1")
+    _, _, _, tb, tsp = _spaces(
+        "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
+    nb = 3
+    rng = np.random.default_rng(17)
+    P = (torch.as_tensor(rng.random((nb, tsp.size)))
+         * tsp.mask.reshape(1, -1)).to(torch.float64)
+    c = rng.random(tb.model.num_reactions) + 0.5
+    for r in range(RANKS):
+        op = pt.BoxOperator(tb.model, tsp,
+                            mesh=_LocalMesh(r, P[0].reshape(tsp.shape)))
+        assert op.synth_mask == synth
+        sh, d = op.sharded, op.data()
+        w0, L0, P_ = sh.w0, sh.L0, sh.plane
+        lo = sh.origin0 + w0
+        ps = P[:, lo * P_:(lo + L0) * P_].contiguous()
+        up = torch.stack([window_rows(P[i].reshape(tsp.shape), lo - w0, w0)
+                          .reshape(-1) for i in range(nb)])
+        dn = torch.stack([window_rows(P[i].reshape(tsp.shape), lo + L0, w0)
+                          .reshape(-1) for i in range(nb)])
+        one = bk.BoxGeometry(sh.window_shape, op.stoichiometry, op.geom.nc,
+                             op.geom.form, origin0=sh.origin0,
+                             g0=tsp.shape[0], out_rows=(w0, w0 + L0),
+                             halo_rows=(w0, L0))
+
+        def run(geom, pv, out=None, halos=None):
+            if synth:
+                return ((bk.box_action_synth_batched if pv.dim() == 2
+                         else bk.box_action_synth)(
+                    c, pv, op.props, d.bounds, geom, out, halos))
+            return ((bk.box_action_batched if pv.dim() == 2
+                     else bk.box_action)(
+                c, pv, d.mask, op.props, d.viol, geom, out, halos))
+        key = "batched_sharded_" + ("synth" if synth else "mask")
+        n0 = dict(bk.KERNEL.plain_calls)
+        dp = torch.empty_like(ps)
+        lead = run(sh.geom_int, ps, dp[:, w0 * P_:(L0 - w0) * P_])
+        assert lead[1] is None
+        got, sk = run(sh.geom_edge, ps, dp, (up, dn))
+        assert got is dp and sk.shape == (nb, op.geom.nc)
+        assert bk.KERNEL.plain_calls[key + "_chain"] == n0[key + "_chain"] + 2
+        dp1, sk1 = run(one, ps, halos=(up, dn))
+        assert torch.equal(dp, dp1)
+        np.testing.assert_allclose(sk.numpy(), sk1.numpy(), **TOL)
+        for i in range(nb):
+            dpi = torch.empty_like(ps[i])
+            run(sh.geom_int, ps[i], dpi[w0 * P_:(L0 - w0) * P_])
+            _, ski = run(sh.geom_edge, ps[i], dpi, (up[i], dn[i]))
+            assert torch.equal(dp[i], dpi)
+            assert torch.equal(sk[i], ski)
+
+
 def test_window_geometry():
     """The window fields of the slabs' two launches: the interior rows,
     then both edge strips with the interior as their gap, over the rank's
@@ -195,6 +278,43 @@ def test_window_geometry():
         assert op.prop_fields.shape[1] == (L0 + 2 * w0) * sh.plane
         assert op.props.shape == sh.window_shape
         assert sh.comm_values_per_matvec() == 2 * w0 * sh.plane * (RANKS - 1)
+
+
+@pytest.mark.parametrize("synth,overlap", [(True, "1"), (False, "1"),
+                                           (True, "0"), (False, "0")])
+def test_batched_action_takes_one_launch_on_the_window(synth, overlap,
+                                                       monkeypatch):
+    """ShardedBoxAction.batched runs K9w in one launch on each rank's
+    window after the exchange, also where K4 takes its chain: one batched
+    plain call, none of the chain's; dp bitwise each vector's K4 action,
+    the sinks within TOL of its."""
+    monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
+    monkeypatch.setenv("PACMENSL_HALO_OVERLAP", overlap)
+    _, _, _, tb, tsp = _spaces(
+        "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
+    nb = 3
+    rng = np.random.default_rng(5)
+    P = (torch.as_tensor(rng.random((nb, tsp.size)))
+         * tsp.mask.reshape(1, -1)).to(torch.float64)
+    key = "batched_sharded_" + ("synth" if synth else "mask")
+    for r in range(RANKS):
+        op = pt.BoxOperator(tb.model, tsp, mesh=_LocalBatchMesh(
+            r, P.reshape((nb,) + tuple(tsp.shape))))
+        sh = op.sharded
+        assert sh.overlap == (overlap == "1")
+        lo = sh.origin0 + sh.w0
+        loc = P[:, lo * sh.plane:(lo + sh.L0) * sh.plane].contiguous()
+        n0 = dict(bk.KERNEL.plain_calls)
+        dp, sk = op.action_batched(0.3, loc)
+        assert bk.KERNEL.plain_calls[key] == n0[key] + 1
+        assert bk.KERNEL.plain_calls[key + "_chain"] == n0[key + "_chain"]
+        for i in range(nb):
+            one = pt.BoxOperator(tb.model, tsp, mesh=_LocalMesh(
+                r, P[i].reshape(tsp.shape)))
+            want = one.action(0.3, pt.FspVector(p=loc[i], sinks=None))
+            assert torch.equal(dp[i], want.p)
+            np.testing.assert_allclose(sk[i].numpy(), want.sinks.numpy(),
+                                       **TOL)
 
 
 @pytest.mark.parametrize("shape,n", [((211, 316, 211), 4), ((40, 18), 4),
