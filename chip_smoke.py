@@ -112,7 +112,7 @@ Phases (each check that fails ends the run with a nonzero exit):
       1e-4, ``"auto"`` -> BDF, every operator on K3 and on tables:
       phase 5's output checks, per action one K9 (p and the two
       sensitivities) and two K3 launches (the derivative operators),
-      21,467,776 states after 7,482 RHS evaluations, finite ``dp``, L1
+      27,440,236 states after 7,507 RHS evaluations, finite ``dp``, L1
       of p to phase 5's distribution <= 2 * fsp_tol, and the FIM finite,
       symmetric to 1e-12 relative, its eigenvalues >= -1e-10 times the
       largest.
@@ -196,11 +196,37 @@ Phases (each check that fails ends the run with a nonzero exit):
       mesh's halo exchanges and all-reduces (one each on the box) and
       the K9w and K4 launches.
 
+12. The box's axis order (``statespace/permute.py``: every box solve above
+    lays its species axes out by descending extent, as the reference
+    package does, and rebuilds in a new order where a capacity outgrowth
+    finds it stale) and eager capacity (``preallocate``):
+
+   a. Each box solve prints its axis orders at set-up and at every
+      reordered rebuild, and the count and time of those rebuilds (the
+      ``BoxReorder`` event); phase 12 lists them for phases 4, 5, 6 and
+      9b.
+   b. hog1p_5d and hog1p_5d_sens from their set-up to their first
+      reordered rebuild: every row (p and each s_j) carried bitwise by
+      state, the new states 0.
+   c. After phases 4, 5 and 6: K3 on the repressilator's and hog1p_5d's
+      final capacities and K1 on transcr_reg_6d's, in the box's order
+      (the solve's operator and p) and in user order (the parent's
+      layout: the same capacity transposed, built at the final bounds,
+      p carried by state), each against its plain version, dp bitwise
+      by state across the layouts where both hold the same states; CUDA
+      events over 100 calls beside the bound.
+   d. 11e's box over two ranks: its orders, capacity and halo values per
+      matvec and per vector.
+   e. hog1p_5d to t = 180 with ``preallocate=True``: phase 5's checks,
+      L1 <= 2 * fsp_tol to phase 5's solve on the capacity ladder, and
+      both walls.  (hog1p_5d_sens on eager capacity took 1.59x its
+      ladder's wall in PERF.md's measurement; it is not rerun here.)
+
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
-migration), 10e, 11a and 11b, K4 in phases 7b and 7c (over all ranks),
-K5-K8 in phase 8's two entry points, K9 in phase 9b, K9w in phase 11e
-(over both ranks).
+migration), 10e, 11a, 11b and 12e, K4 in phases 7b and 7c (over all
+ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b,
+K9w in phase 11e (over both ranks).
 ``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
 bound: the float operations over its 34 TFLOP/s in float64 and 67 in
@@ -265,15 +291,22 @@ RANK_TIMEOUT = 300
 #: phase 9a: the batches the batched launch K9 is checked and timed at
 #: (3: hog1p_5d_sens's own, p and two sensitivities)
 BATCHES = (2, 3, 4)
-#: phase 9b: hog1p_5d_sens to t = 180 ends at phase 5's state count after
-#: this many RHS evaluations; K9 is bitwise single launches, so folding p
-#: into the batched launch leaves the solve as it was
-SENS_STATES, SENS_RHS = 21467776, 7482
+#: phase 9b: hog1p_5d_sens to t = 180 ends at this state count after this
+#: many RHS evaluations; K9 is bitwise single launches, so folding p into
+#: the batched launch leaves the solve as it was.  In the reference
+#: package's axis order the solve ends one expansion of two bounds past
+#: phase 5's 21,467,776 states (in user order: 21,467,776 after 7,482;
+#: this script on an H100 80GB HBM3 at 700 W)
+SENS_STATES, SENS_RHS = 27440236, 7507
 #: phase 9c: the reference package's finite-difference oracle
 #: (tests/test_sensfsp.py:225-277): t, fsp_tol, BDF's rtol and atol, the
 #: step in trans, and the limit on the relative L1 of dP/d(trans)
 FD_T_FINAL, FD_TOL, FD_RTOL, FD_ATOL = 3.0, 1.0e-6, 1.0e-9, 1.0e-14
 FD_EPS, FD_LIMIT = 1.0e-3, 5.0e-2
+#: phase 11d: K9w's sinks are held to 1e-12 of each vector's largest sink,
+#: or of its summed terms where the sinks cancel to less than 1/SINK_CANCEL
+#: of them (two summation orders then differ by more than 1e-12 of the sum)
+SINK_CANCEL = 1.0e3
 #: phase 11d: K9w's sweep (us) at each timed shape before the chain and
 #: the one-pass tail (commit 8317c44, this script on an H100 80GB HBM3 at
 #: 700 W; PERF.md section 6), by (shape, slabs, nb)
@@ -530,7 +563,7 @@ def rank_solve(rank, world, port, backend, t_final, tol, queue):
         dp_all = gather_global(dp.p, mesh)
         p_all = gather_global(s._y.p, mesh)
         if rank == 0:
-            one = pt.BoxOperator(rep.model, s._space)
+            one = pt.BoxOperator(s._model_int, s._space)
             want = one.action(t_final, pt.FspVector(p=p_all,
                                                     sinks=s._y.sinks))
             out["matvec_dp_bitwise"] = bool(torch.equal(dp_all, want.p))
@@ -1519,7 +1552,12 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     strips.  In each of ``modes`` on every slab: the single launch's dp
     bitwise the plain version's and nb single K4 launches', sinks bitwise
     the K4 launches' and within 1e-12 of the plain version's (relative to
-    each vector's largest), two launches bitwise equal; the chain's dp
+    each vector's largest sink, or, where that vector's sinks cancel to
+    less than 1/SINK_CANCEL of its summed terms (its largest sink of |p|),
+    relative to those terms: a sensitivity's sinks on a slab can cancel to
+    1e-8 of their terms, where two summation orders differ by more than
+    1e-12 of the sum; both readings are printed), two launches bitwise
+    equal; the chain's dp
     bitwise its plain version's, the single launch's and nb K4 chains',
     its sinks bitwise the K4 chains' and within 1e-12 of the plain
     version's and the single launch's; each way, the assembled dp bitwise
@@ -1578,24 +1616,36 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
             plain)
         return one(mode, w, ge, ps, dp, (up, dn), plain)
 
-    def rel_err(ks, rs):
-        scale = rs.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
-        return float(((ks - rs).abs() / scale).max())
+    def rel_err(ks, rs, mag):
+        """``(held, old)``: ``ks`` against ``rs`` per vector, relative to
+        its largest sink (old), and, where its sinks cancel to less than
+        1/SINK_CANCEL of its summed terms (``mag``, the sinks of |p|),
+        relative to those terms instead (held)."""
+        big = rs.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        terms = mag.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+        d = (ks - rs).abs().amax(dim=-1, keepdim=True)
+        held = torch.where(terms > SINK_CANCEL * big, d / terms, d / big)
+        return float(held.max()), float((d / big).max())
 
     whole = bk.box_action_synth_batched(c, P, a, bounds, geom)
+    whole_mag = bk.box_action_synth_batched(c, P.abs(), a, bounds, geom)[1]
     for mode in modes:
         for chain in ((False, True) if chained else (False,)):
             way = "chain" if chain else "one launch"
-            dps, sk, rel = [], 0, 0.0
+            dps, sk, rel, old = [], 0, 0.0, 0.0
             for j, w in enumerate(wins):
                 tag = f"[11d] {label} K9w {mode} ({way}) slab {j}"
                 kp, ks = same_twice(tag, lambda: launch(mode, w, chain=chain))
                 rp, rs = launch(mode, w, plain=True, chain=chain)
+                g, ps, (up, dn) = w[:3]
+                mag = launch(mode, (g, ps.abs(), (up.abs(), dn.abs()))
+                             + w[3:], plain=True, chain=chain)[1]
                 err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
                 check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the "
                                            f"plain version's (max abs "
                                            f"{err:.3e})")
-                rel = max(rel, rel_err(ks, rs))
+                held, o = rel_err(ks, rs, mag)
+                rel, old = max(rel, held), max(old, o)
                 check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
                                     "version's, relative")
                 each = [launch(mode, w, i, chain=chain) for i in range(nb)]
@@ -1605,7 +1655,8 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
                       f"{'chains' if chain else 'launches'}")
                 if chain:
                     sp, ss = launch(mode, w)
-                    rel = max(rel, rel_err(ks, ss))
+                    held, o = rel_err(ks, ss, mag)
+                    rel, old = max(rel, held), max(old, o)
                     check(torch.equal(kp, sp) and rel <= 1e-12,
                           f"{tag}: dp not bitwise the single launch's, or "
                           f"sinks {rel:.3e} from its")
@@ -1616,7 +1667,7 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
             check(torch.equal(torch.cat(dps, dim=1), whole[0]),
                   f"[11d] {label} K9w {mode} ({way}): the assembled dp is "
                   "not bitwise the whole box's K9")
-            srel = rel_err(sk, whole[1])
+            srel, sold = rel_err(sk, whole[1], whole_mag)
             check(srel <= 1e-12, f"[11d] {label} K9w {mode} ({way}): summed "
                                  f"sinks {srel:.3e} from the whole box's K9")
             print(f"[11d] K9w ({mode}, {way}) {label}: nb={nb}, {slabs} "
@@ -1627,9 +1678,10 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
                   f"{', and the single launch' if chain else ''}; sinks "
                   f"bitwise the K4 {'chains' if chain else 'launches'}' and "
                   f"within {rel:.3e} of the plain version's"
-                  f"{' and the single launch' if chain else ''}; assembled "
-                  f"dp bitwise the whole box's K9, summed sinks within "
-                  f"{srel:.3e}", flush=True)
+                  f"{' and the single launch' if chain else ''} ({old:.3e} "
+                  f"of the largest sink); assembled dp bitwise the whole "
+                  f"box's K9, summed sinks within {srel:.3e} ({sold:.3e} of "
+                  f"the largest sink)", flush=True)
     runs = {"plain": lambda: [launch("synth", w, plain=True) for w in wins],
             "K4": lambda: [launch("synth", w, i, chain=chained)
                            for i in range(nb) for w in wins],
@@ -1808,6 +1860,15 @@ def rank_sens_solve(rank, world, port, backend, queue):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ev = s.get_event_log().events
+            sh = (s._operator.base.sharded if fsp_backend == "box"
+                  else None)
+            if sh is not None:      # phase 12d: the halo of the box order
+                out["layout"] = {
+                    "orders": list(s.axis_orders_),
+                    "capacity": tuple(s._space.shape), "w0": sh.w0,
+                    "plane": sh.plane,
+                    "per_matvec": sh.comm_values_per_matvec(),
+                    "per_rank": sh.w0 * sh.plane}
             out[fsp_backend] = {
                 "wall": wall, "states": d.states, "p": d.p, "dp": d.dp,
                 "launches": dict(bk.KERNEL.launches),
@@ -2059,7 +2120,218 @@ def petsc_phase(dev, smi, run_solve, rep, d4, d_t2, d10, max_err):
             k9w_launches = k9
         else:
             check(k9 + k4 == 0, f"11e ell: box launches {k9 + k4}")
-    return launches["11a"], launches["11b"], k9w_launches, k9w
+    return (launches["11a"], launches["11b"], k9w_launches, k9w,
+            ranks[0]["layout"])
+
+
+class _FirstReorder(Exception):
+    """Ends a phase-12b solve after its first reordered rebuild."""
+
+
+def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err):
+    """Phase 12c: the kernel of a box path (K3 where ``synth``, else K1)
+    on the path's final capacity in the box's axis order (the solve's own
+    operator and p) and in user order (the parent's layout: the same
+    capacity transposed, built afresh at the final bounds, p carried
+    there by state).  Where both masks hold the same states, dp must be
+    bitwise the same by state and the sinks within 1e-12 relative; each
+    kernel bitwise its plain version.  CUDA events over 100 calls (the
+    plain versions over 3), the bound from ``ops/probes.box_action_bytes``
+    over 3.35 TB/s.  Returns {order: (ms, plain ms, bound ms)}."""
+    import numpy as np
+    import torch
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import box_operator as bo
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.statespace.permute import permute_box
+    new = s._operator
+    S = bundle.model.num_species
+    inv = np.argsort(s._current_order())      # user axis i = internal inv[i]
+    shape_user = tuple(int(new.shape[int(inv[i])]) for i in range(S))
+    cs = pt.ConstraintSet(bundle.constraint, s.constraints.bounds,
+                          bundle.expansion_factors, S)
+    # seeded with the solve's own states: a BFS from x0 at the final
+    # bounds stops at sum(shape) + 1 dilations, short of hog1p_5d's far
+    # states, whose paths convert one species into another
+    space = pt.BoxStateSpace(
+        bundle.model.stoichiometry, cs, bundle.x0, device=dev,
+        extent_floor=shape_user, seed_mask_fn=lambda shape: permute_box(
+            new.space.mask, new.shape, inv, shape))
+    old = bo.BoxOperator(bundle.model, space, synth_mask=synth)
+    check(old.synth_mask == synth == new.synth_mask,
+          f"12c {label}: kernel modes {old.synth_mask}, {new.synth_mask}")
+    c = new.model.coefficients(t)
+    p_new = s._y.p
+    p_old = permute_box(p_new.view(new.shape), new.shape, inv,
+                        space.shape).reshape(-1)
+    same_set = torch.equal(
+        permute_box(new.space.mask, new.shape, inv, space.shape),
+        space.mask)
+    out, dps = {}, {}
+    for key, op, p in (("user order", old, p_old),
+                       ("box order", new, p_new)):
+        b = op.data().bounds
+        if synth:
+            def run(op=op, p=p, b=b):
+                return bk.box_action_synth(c, p, op.props, b, op.geom)
+
+            def plain(op=op, p=p, b=b):
+                return bk.box_action_synth_reference(c, p, op.props, b,
+                                                     op.geom)
+        else:
+            mask = op.space.mask.reshape(-1).to(torch.uint8)
+            viol = bo.violation_bits(op.space.constraints, op.stoichiometry,
+                                     op.shape, dev)
+
+            def run(op=op, p=p, mask=mask, viol=viol):
+                return bk.box_action(c, p, mask, op.props, viol, op.geom)
+
+            def plain(op=op, p=p, mask=mask, viol=viol):
+                return bk.box_action_reference(c, p, mask, op.props, viol,
+                                               op.geom)
+        got = same_twice(f"12c {label} {key}", run)
+        want = plain()
+        err = float(max((got[0] - want[0]).abs().max(),
+                        (got[1] - want[1]).abs().max()))
+        check(torch.equal(got[0], want[0])
+              and torch.allclose(got[1], want[1], rtol=1e-12, atol=1e-13),
+              f"12c {label} {key}: not its plain version's (max abs "
+              f"{err:.3e})")
+        mode = "synth" if synth else "mask"
+        max_err[mode] = max(max_err[mode], err)
+        dps[key] = got
+        ms = [time_ms(run) for _ in range(2)]
+        ms_plain = time_ms(plain, reps=3)
+        n = op.geom.n
+        nbytes = pr.box_action_bytes(
+            n, n, op.props.num_reactions, synth, n_valid=op.space.num_states,
+            table_bytes=op.props.table_bytes(),
+            field_rows=op.props.num_field_rows)
+        bms = bound(nbytes, 2 * (2 * op.props.num_reactions + 1) * n)[0]
+        out[key] = (min(ms), ms_plain, bms, tuple(op.shape))
+        print(f"[12c] {label} {'K3' if synth else 'K1'} in {key} "
+              f"{tuple(op.shape)} ({n} elements, {op.space.num_states} "
+              f"states, rows of {op.shape[-1]}): "
+              + " / ".join(f"{v * 1e3:.1f}" for v in ms)
+              + f" us, plain {ms_plain * 1e3:.1f} us, bound {bms * 1e3:.1f} "
+              f"us ({nbytes / 1e6:.1f} MB), {bms / min(ms):.3f} of it; "
+              f"{smi}", flush=True)
+    if same_set:
+        dp_t = permute_box(dps["box order"][0].view(new.shape), new.shape,
+                           inv, space.shape).reshape(-1)
+        rel = float((dps["box order"][1] - dps["user order"][1]).abs().max()
+                    / dps["user order"][1].abs().max().clamp_min(1e-300))
+        check(torch.equal(dp_t, dps["user order"][0]) and rel <= 1e-12,
+              f"12c {label}: the two layouts' dp differ by state "
+              f"(sinks {rel:.3e})")
+    print(f"[12c] {label}: the same states in both layouts {same_set}"
+          + (", dp bitwise by state, sinks within 1e-12" if same_set
+             else " (the user-order mask is a fresh BFS)"), flush=True)
+    return out
+
+
+def reorder_carry_check(dev, pt, bundle, sens):
+    """Phase 12b: ``bundle`` on the box from its set-up, stopped right
+    after its first reordered rebuild; every row of the solution (p, and
+    each s_j of a sensitivity solve) must be the old one's by state, bit
+    for bit, and zero at the states the rebuild adds.  Returns (t, old
+    order, new order, states before and after)."""
+    import numpy as np
+    base = pt.SensFspSolverMultiSinks if sens else pt.FspSolverMultiSinks
+    seen = {}
+
+    class Check(base):
+        def _rebuild_box_reordered(self, *args):
+            st0, rows0 = self._valid_rows()
+            o0 = self._current_order().tolist()
+            super()._rebuild_box_reordered(*args)
+            st1, rows1 = self._valid_rows()
+            at = {tuple(x): i for i, x in enumerate(st1)}
+            idx = np.array([at.get(tuple(x), -1) for x in st0])
+            rest = np.setdiff1d(np.arange(len(st1)), idx)
+            seen.update(t=self._t_now, old=o0,
+                        new=self._current_order().tolist(), n0=len(st0),
+                        n1=len(st1), rows=rows0.shape[0],
+                        carried=bool((idx >= 0).all()
+                                     and np.array_equal(rows1[:, idx], rows0)
+                                     and not rows1[:, rest].any()))
+            raise _FirstReorder
+
+    s = Check(backend="box", device=dev)
+    s.set_model(bundle.model)
+    s.set_constraint_functions(bundle.constraint)
+    s.set_initial_bounds(bundle.bounds)
+    s.set_expansion_factors(bundle.expansion_factors)
+    s.set_initial_distribution(bundle.x0, bundle.p0)
+    try:
+        s.solve(HOG_T_FINAL, HOG_TOL)
+    except _FirstReorder:
+        pass
+    check(bool(seen), f"12b {bundle.name}: no reordered rebuild")
+    print(f"[12b] {bundle.name}{' (sensitivities)' if sens else ''}: at t = "
+          f"{seen['t']:.6g} the order {seen['old']} became {seen['new']}; "
+          f"{seen['n0']} states before, {seen['n1']} after; every one of "
+          f"the {seen['rows']} rows carried bitwise by state (new states "
+          f"0): {seen['carried']}", flush=True)
+    check(seen["carried"], f"12b {bundle.name}: a row was not carried "
+                           "bitwise by state")
+    return seen
+
+
+def layout_phase(dev, smi, run_solve, layouts, k12, halo12, wall5, d5,
+                 mass_tol):
+    """Phase 12, the box's axis order and eager capacity: (a) each box
+    path's axis orders and reordered rebuilds, (b) a reordered rebuild
+    carries p and every s_j bitwise by state, (c) the kernel times of
+    each order (measured at phases 4-6), (d) 11e's halo per matvec and
+    per vector, (e) hog1p_5d with ``preallocate=True`` against phase 5's
+    solve on the capacity ladder (``wall5``, ``d5``).  Returns the
+    launches of (e)'s solve."""
+    import torch
+    import pacmensl_tpu_torch as pt
+    for key, (orders, n, sec, cap) in layouts.items():
+        if key.split()[0] in ("4", "5", "6", "9"):
+            print(f"[12a] {key}: axis orders {orders}, reordered rebuilds "
+                  f"{n} in {sec:.3f} s, final capacity {cap}", flush=True)
+    reorder_carry_check(dev, pt, pt.models.hog1p_5d(), False)
+    reorder_carry_check(dev, pt, pt.models.hog1p_5d_sens(), True)
+    torch.cuda.empty_cache()
+    for label, per in k12.items():
+        u, b = per["user order"], per["box order"]
+        print(f"[12c] {label}: user order {u[3]} {u[0] * 1e3:.1f} us "
+              f"(bound {u[2] * 1e3:.1f}), box order {b[3]} "
+              f"{b[0] * 1e3:.1f} us (bound {b[2] * 1e3:.1f}); box / user "
+              f"{b[0] / u[0]:.3f}; {smi}", flush=True)
+    print(f"[12d] 11e's box over 2 ranks: axis orders {halo12['orders']}, "
+          f"final capacity {halo12['capacity']}, w0 {halo12['w0']}, plane "
+          f"{halo12['plane']} values; halo values per matvec (both "
+          f"boundaries' planes, one vector) {halo12['per_matvec']}, per "
+          f"rank, neighbour and vector {halo12['per_rank']}, per K9w "
+          f"exchange of "
+          f"nb = 3 vectors {3 * halo12['per_matvec']}", flush=True)
+    bundle = pt.models.hog1p_5d()
+    s = pt.FspSolverMultiSinks(backend="box", device=dev, preallocate=True)
+    s.set_model(bundle.model)
+    s.set_constraint_functions(bundle.constraint)
+    s.set_initial_bounds(bundle.bounds)
+    s.set_expansion_factors(bundle.expansion_factors)
+    s.set_initial_distribution(bundle.x0, bundle.p0)
+    d, launches, wall = run_solve(
+        12, f"hog1p_5d t={HOG_T_FINAL:g} preallocate=True", s, HOG_T_FINAL,
+        HOG_TOL, mass_tol)
+    check(s._space.prealloc_budget is not None,
+          "12e hog1p_5d: not on eager capacity")
+    l1 = l1_by_state(d, d5)
+    print(f"[12e] hog1p_5d: eager capacity {tuple(s._space.shape)} "
+          f"(budget {s._space.prealloc_budget:.4g} elements), wall "
+          f"{wall:.2f} s against the ladder's {wall5:.2f} s (phase 5), "
+          f"ratio {wall / wall5:.3f}; {d.num_states} states, L1 to the "
+          f"ladder's {l1:.3e} (limit {2 * HOG_TOL:g}); {smi}", flush=True)
+    check(l1 <= 2 * HOG_TOL, f"12e hog1p_5d: L1 to the ladder {l1:.3e}")
+    del s, d
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2268,11 +2540,15 @@ def main():
                       for k, vs in times.items()) + f"; {smi}", flush=True)
     R = rep.model.num_reactions
 
-    def library(label, c, p, mask, a, viol, shape, nc, k1, reps=100):
+    def library(label, c, p, mask, a, viol, shape, nc, k1, reps=100,
+                stoich=None):
         """One torch.mv of the generator as CSR on ``p``, checked against
-        K1's (dp, sinks) ``k1``; its time in ms over ``reps`` calls."""
+        K1's (dp, sinks) ``k1``; its time in ms over ``reps`` calls.
+        ``stoich``: the operator's (default: the repressilator's in user
+        order)."""
         A = generator_csr(c, mask, a.dense(), viol, shape,
-                          rep.model.stoichiometry, nc)
+                          rep.model.stoichiometry if stoich is None
+                          else stoich, nc)
         y = torch.mv(A, p)
         scale = float(k1[0].abs().max())
         err = max(float((y[:-nc] - k1[0]).abs().max()),
@@ -2373,9 +2649,16 @@ def main():
     check(l1 <= 1.0e-6, f"poisson oracle L1 {l1:.3e} > 1e-6")
 
     # ------------------------------------------------ phases 4 and 5
-    def solver_for(bundle, odes_type):
+    #: phase 12a: per solve (its phase and label) the box's axis orders,
+    #: reordered rebuilds and their seconds, and the final capacity
+    layouts = {}
+    #: phase 12c: the kernel's times on each path's final capacity in
+    #: both axis orders
+    k12 = {}
+
+    def solver_for(bundle, odes_type, preallocate="auto"):
         s = pt.FspSolverMultiSinks(backend="box", odes_type=odes_type,
-                                   device=dev)
+                                   device=dev, preallocate=preallocate)
         s.set_model(bundle.model)
         s.set_constraint_functions(bundle.constraint)
         s.set_initial_bounds(bundle.bounds)
@@ -2407,6 +2690,10 @@ def main():
         rej = ev["ODEStepsRejected"].count if "ODEStepsRejected" in ev else 0
         cap = (tuple(s._space.shape) if s._backend_used == "box"
                else f"n_pad {s._operator.local_n}")
+        reo = ev.get("BoxReorder")
+        layouts[f"{phase} {label}"] = (list(s.axis_orders_),
+                                       reo.count if reo else 0,
+                                       reo.total_s if reo else 0.0, cap)
         print(f"[{phase}] {label}: {d.num_states} states, bounds "
               f"{d.bounds.tolist()}, capacity {cap}, "
               f"epochs {ev['ODESolve'].count}, RHS evaluations "
@@ -2416,6 +2703,10 @@ def main():
               f"{mass:.10f}, sum(sinks) {sinks.sum():.3e}, "
               f"kernel launches {launches}, plain calls on CUDA {plain}",
               flush=True)
+        print(f"[{phase}] {label}: box axis orders (t at the rebuild, "
+              f"order) {s.axis_orders_}, reordered rebuilds "
+              f"{layouts[f'{phase} {label}'][1]} in "
+              f"{layouts[f'{phase} {label}'][2]:.3f} s", flush=True)
         print(s.get_event_log().report(), flush=True)
         check(np.isfinite(d.p).all() and np.isfinite(sinks).all(),
               f"{label}: non-finite solution")
@@ -2461,6 +2752,8 @@ def main():
                                SLICE_TOL, lambda k: 1.0e-8)
     tables(4, "repressilator final operator", s._operator)
     final_operator(4, "repressilator", s, SLICE_T_FINAL)
+    k12["repressilator"] = layout_kernel_times(
+        dev, smi, "repressilator", s, rep, SLICE_T_FINAL, True, max_err)
     op4, p4 = s._operator, s._y.p      # for phase 7a
     del s
     torch.cuda.empty_cache()
@@ -2520,6 +2813,8 @@ def main():
           flush=True)
     tables(5, "hog1p_5d final operator", s._operator)
     final_operator(5, "hog1p_5d", s, HOG_T_FINAL)
+    k12["hog1p_5d"] = layout_kernel_times(
+        dev, smi, "hog1p_5d", s, hog, HOG_T_FINAL, True, max_err)
     del s
     torch.cuda.empty_cache()
 
@@ -2562,6 +2857,8 @@ def main():
                               f"no expansion beyond the initial {n0}")
     tables(6, "transcr_reg_6d final operator", s._operator, (4, 6))
     final_operator(6, "transcr_reg_6d", s, TR6_T_FINAL, synth=False)
+    k12["transcr_reg_6d"] = layout_kernel_times(
+        dev, smi, "transcr_reg_6d", s, tr6, TR6_T_FINAL, False, max_err)
     # K1 where the rows of the last axis are short and two reactions read
     # field rows
     op6 = s._operator
@@ -2744,7 +3041,7 @@ def main():
           f"us, K1 {ms4f['K1'] * 1e3:.1f} us; K3 no slower than K1: "
           f"{ms4f['K3'] <= ms4f['K1']}", flush=True)
     library("7a", c4, p4, mask4, op4.props, viol4, op4.shape,
-            op4.geom.nc, k1_4, reps=10)
+            op4.geom.nc, k1_4, reps=10, stoich=op4.stoichiometry)
     del win4, k1_4, mask4, viol4
     torch.cuda.empty_cache()
 
@@ -2852,7 +3149,8 @@ def main():
         "K4": (ms4["K4_synth"], roof_bytes["K4"])})
 
     # ---------------------------------------------------------- phase 9
-    launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_solve, tables,
+    launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_solve,
+                                     tables,
                              same_twice, max_err)
 
     # --------------------------------------------------------- phase 10
@@ -2863,11 +3161,15 @@ def main():
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- phase 11
-    launch11a, launch11b, k9w_launches, k9w = petsc_phase(
+    launch11a, launch11b, k9w_launches, k9w, halo12 = petsc_phase(
         dev, smi, run_solve, rep, d4, d1, d10, max_err)
 
+    # --------------------------------------------------------- phase 12
+    launch12 = layout_phase(dev, smi, run_solve, layouts, k12, halo12,
+                            wall5, d5, bdf_mass_tol)
+
     paths = (launch4, launch5, launch6, launch9, launch10c, launch10e,
-             launch11a, launch11b)
+             launch11a, launch11b, launch12)
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",

@@ -41,8 +41,17 @@ re-ordering, assembly and scatter run on the gathered vector.  ``backend="auto"`
 routes (:meth:`_choose_backend`) and a box solve migrates to the
 compressed backend mid-solve (:meth:`_should_leave_box`,
 :meth:`_migrate_box_to_ell`) where the box outgrows the memory budget, or
-under ``"auto"`` where its fill falls below :data:`BOX_FILL_FLOOR`.  The
-axis reordering of the reference package is not ported (ROADMAP A2a).
+under ``"auto"`` where its fill falls below :data:`BOX_FILL_FLOOR`.
+
+The box lays its species axes out in the reference package's order
+(:mod:`..statespace.permute`): by descending extent, derived from the
+user-order extents at set-up and again where a capacity outgrowth finds
+the order stale (:meth:`_box_reorder_needed`).  The solve then runs on a
+permuted model, constraint set and initial states (:attr:`_model_int`,
+:attr:`_init_int`), the rebuild carries the solution on the device
+(:meth:`_rebuild_box_reordered`), and the output, the compressed backend
+and the user's setters see user order.  ``preallocate`` water-fills the
+box's capacity up-front (:meth:`_prealloc_budget`).
 """
 from __future__ import annotations
 
@@ -59,10 +68,12 @@ from ..models.model import Model
 from ..sys.errors import SetupError, IntegratorError, StateSpaceError
 from ..sys.events import (EventLog, StepTrace, EVT_SETUP, EVT_PARTITION,
                           EVT_MATGEN, EVT_ODESOLVE, EVT_RHS, EVT_SCATTER,
-                          EVT_TOTAL, EVT_STEPS, EVT_REJECTED)
+                          EVT_TOTAL, EVT_STEPS, EVT_REJECTED, EVT_REORDER)
 from ..statespace.constraints import ConstraintSet
 from ..statespace.box_space import (BoxStateSpace, MAX_BOX_ELEMS,
-                                    _round_capacity)
+                                    _round_capacity, _round_fine)
+from ..statespace.permute import (choose_axis_order, permute_box,
+                                  permute_constraints, permute_model)
 from ..statespace.partitioner import (PartitioningApproach,
                                       PartitioningType, StatePartitioner)
 from ..statespace.state_set import StateSet
@@ -112,14 +123,20 @@ class FspSolverMultiSinks:
     def __init__(self,
                  backend: str = "auto",
                  odes_type: Union[ODESolverType, str] = "auto",
-                 device=None, mesh=None):
+                 device=None, mesh=None, preallocate="auto"):
         """``backend``: ``"box"``, ``"ell"`` or ``"auto"``
         (:meth:`_choose_backend`).  ``device`` defaults to the mesh's
-        where a ``mesh`` is given, else to ``"cuda"``."""
+        where a ``mesh`` is given, else to ``"cuda"``.  ``preallocate``:
+        the box's capacity, True (eager: water-filled up-front), False or
+        ``"auto"`` (the capacity ladder; :meth:`_prealloc_budget`)."""
         if backend not in ("box", "ell", "auto"):
             raise SetupError(f"unknown backend {backend!r} (box, ell or "
                              "auto)")
+        if preallocate not in (True, False, "auto"):
+            raise SetupError(f"unknown preallocate {preallocate!r} (True, "
+                             "False or 'auto')")
         self.backend = backend
+        self.preallocate = preallocate
         self._device_arg = device
         self.set_mesh(mesh)
         self.dtype = DEFAULT_DTYPE
@@ -159,6 +176,18 @@ class FspSolverMultiSinks:
         self._t_prev_epoch: Optional[float] = None
         self._set_up = False
         self.sinks_: Optional[np.ndarray] = None
+        #: the box's internal species order (internal axis j = user
+        #: species ``_axis_order[j]``) and its inverse; None in user order
+        self._axis_order: Optional[np.ndarray] = None
+        self._axis_inv: Optional[np.ndarray] = None
+        self._int_model: Optional[Model] = None
+        self._int_init: Optional[np.ndarray] = None
+        #: the user's constraint set while the solve runs a permuted one
+        self._user_constraints: Optional[ConstraintSet] = None
+        #: every axis order the box took since set-up: ``(t, order)``, t
+        #: None at set-up and the epoch's time at each reordered rebuild
+        #: (the identity where user order applies)
+        self.axis_orders_: List[tuple] = []
 
     # ---------------------------------------------------------- settings
     def set_mesh(self, mesh) -> "FspSolverMultiSinks":
@@ -185,6 +214,7 @@ class FspSolverMultiSinks:
                         ) -> "FspSolverMultiSinks":
         """Custom constraint function + bounds (reference
         SetConstraintFunctions + SetInitialBounds)."""
+        self._restore_user_order()
         ns = self.model.num_species if self.model is not None else None
         self.constraints = ConstraintSet(fn, bounds, expansion_factors, ns)
         self._set_up = False
@@ -194,6 +224,7 @@ class FspSolverMultiSinks:
         """Set only the constraint function, keeping bounds if present
         (call before set_initial_bounds when the custom constraint count
         differs from the species count)."""
+        self._restore_user_order()
         if self.constraints is not None:
             self.constraints = ConstraintSet(
                 fn, self.constraints.bounds,
@@ -206,6 +237,7 @@ class FspSolverMultiSinks:
     def set_initial_bounds(self, bounds) -> "FspSolverMultiSinks":
         """Constraint bounds; coordinate-wise constraints unless a custom
         function was set."""
+        self._restore_user_order()
         fn = self._pending_constraint_fn
         if self.constraints is not None and self.constraints.fn is not None:
             fn = self.constraints.fn
@@ -414,20 +446,123 @@ class FspSolverMultiSinks:
             return False
         cs_new = self.constraints.with_bounds(new_bounds)
         box = cs_new.derive_box_bounds(self.model.num_species,
-                                       self._init_states)
-        need = [_round_capacity(int(b) + 1, int(q))
+                                       self._init_int)
+        rnd = self._capacity_rounding()
+        need = [rnd(int(b) + 1, int(q))
                 for b, q in zip(box, self.pad_quanta_for_space())]
         cap = float(np.prod(np.asarray(need, np.float64)))
-        if cap > min(float(MAX_BOX_ELEMS), self._box_elem_budget()):
+        if cap > self._capacity_budget():
             return True
         if self.backend != "auto":
             return False
         tight_new = float(np.prod(np.asarray(box, np.float64) + 1.0))
         box_cur = self.constraints.derive_box_bounds(
-            self.model.num_species, self._init_states)
+            self.model.num_species, self._init_int)
         tight_cur = float(np.prod(np.asarray(box_cur, np.float64) + 1.0))
         return tight_new > 2.0e6 and \
             self._space.num_states < BOX_FILL_FLOOR * tight_cur
+
+    def _capacity_rounding(self):
+        """The box's rounding of an extent to a capacity axis: eager
+        capacity's multiples of 8, else the ladder."""
+        return (_round_fine if getattr(self._space, "prealloc_budget", None)
+                is not None else _round_capacity)
+
+    def _capacity_budget(self) -> float:
+        """Box elements the capacity may take: eager capacity's budget
+        (a share per row of the solution), else the element budget."""
+        pre = getattr(self._space, "prealloc_budget", None)
+        return (pre if pre is not None
+                else min(float(MAX_BOX_ELEMS), self._box_elem_budget()))
+
+    def _box_reorder_needed(self, new_bounds) -> bool:
+        """Whether growing the box to ``new_bounds`` rebuilds it in a new
+        axis order (reference ``_box_reorder_needed``, conditions (a) and
+        (b); (c) is the TPU tile budget's): the grown extents outgrow the
+        capacity, and (a) the order derived from the grown user-order
+        extents is not the current one, or (b) growing in the current
+        order would exceed the element budget while a fresh build fits.
+        (a) compares orders derived from user-order extents: the
+        reference package derives one from the internal extents, and on
+        tied extents :func:`~..statespace.permute.choose_axis_order`
+        names another permutation of the ties, so it rebuilds at every
+        outgrowth with an identity transpose."""
+        if self._backend_used != "box":
+            return False
+        S = self.model.num_species
+        box = self.constraints.with_bounds(new_bounds).derive_box_bounds(
+            S, self._init_int)
+        ext = np.asarray(box, np.int64) + 1
+        if all(int(e) <= int(c) for e, c in zip(ext, self._space.shape)):
+            return False        # within capacity: no rebuild
+        inv = np.argsort(self._current_order())
+        if not np.array_equal(self._order_for(ext[inv]),
+                              self._current_order()):
+            return True
+        quanta = self.pad_quanta_for_space()
+        budget = self._capacity_budget()
+        rnd = self._capacity_rounding()
+        clamped = [max(rnd(int(e), int(q)), int(c))
+                   for e, q, c in zip(ext, quanta, self._space.shape)]
+        fresh = [rnd(int(e), int(q)) for e, q in zip(ext, quanta)]
+        return (float(np.prod(np.asarray(clamped, np.float64))) > budget
+                >= float(np.prod(np.asarray(fresh, np.float64))))
+
+    @staticmethod
+    def _order_for(user_extents) -> np.ndarray:
+        """The box's axis order for these user-order extents (the
+        identity where :func:`choose_axis_order` keeps user order)."""
+        order = choose_axis_order(user_extents)
+        return (np.arange(len(user_extents), dtype=np.int64)
+                if order is None else order)
+
+    def _current_order(self) -> np.ndarray:
+        return (self._axis_order if self._axis_inv is not None
+                else np.arange(self.model.num_species, dtype=np.int64))
+
+    def _rebuild_box_reordered(self, new_bounds, n_before, to_expand
+                               ) -> None:
+        """Rebuild the box at ``new_bounds`` in the order derived from
+        them, and carry every row of the solution over on the device
+        (reference ``_reorder_prep`` + ``_rebuild_box_reordered``): a
+        state's coordinates are its identity, so the old box embeds into
+        the new one as slice, permute, zero-pad
+        (:func:`~..statespace.permute.permute_box`), each value keeping
+        its bits.  The new space is built with the old extents as a floor
+        and its BFS seeded with the transposed old mask, which is then
+        unioned in (:meth:`BoxStateSpace.absorb_mask`): a fresh closure
+        can miss states an earlier one held.  Over a mesh the rows are
+        gathered, permuted and cut into slabs again."""
+        if self.verbosity:
+            print(f"[fsp] t = {self._t_now:.4g}: re-deriving the box's axis "
+                  "order at capacity growth")
+        old = self._space
+        E1 = np.asarray(old._box_bounds, np.int64) + 1   # internal extents
+        o1 = self._current_order()
+        with self.events.timed(EVT_MATGEN):
+            rows = self._global_p().view(self._vector_rows(), *old.shape)
+            sinks, old_mask = self._y.sinks, old.mask
+            self._y = self._space = self._operator = self._ode_solver = None
+            self._restore_user_order()
+            self.constraints = self.constraints.with_bounds(new_bounds)
+            o2 = self._order_for(self.constraints.derive_box_bounds(
+                self.model.num_species, self._init_states) + 1)
+            # new internal axis j <- old internal axis axes[j]
+            inv1 = np.argsort(o1)
+            axes = [int(inv1[int(u)]) for u in o2]
+
+            def carried(box, shape):
+                return permute_box(box, E1, axes, shape)
+            self._build_space(floor=E1[axes],
+                              seed_mask_fn=lambda shape: carried(old_mask,
+                                                                 shape))
+            self._space.absorb_mask(carried(old_mask, self._space.shape))
+            self._escalate_if_stuck(n_before, to_expand)
+            self._build_operator()
+        with self.events.timed(EVT_SCATTER):
+            shape = self._space.shape
+            p = torch.cat([carried(r, shape).reshape(-1) for r in rows])
+            self._y = self._place(FspVector(p=p, sinks=sinks))
 
     def _migrate_box_to_ell(self) -> None:
         """Switch a running box solve to the compressed backend, carrying
@@ -440,11 +575,12 @@ class FspSolverMultiSinks:
             print(f"[fsp] t = {self._t_now:.4g}: the box exceeds the "
                   "budget or the fill floor, migrating to the compressed "
                   "backend")
-        states, rows = self._valid_rows()
+        states, rows = self._valid_rows()          # user order
         sinks = self._y.sinks
         self._y = self._space = self._operator = self._ode_solver = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+        self._restore_user_order()    # the compressed backend's order
         self._backend_used = "ell"
         self._space = StateSet(self.model.stoichiometry, self.constraints,
                                init_states=states)
@@ -470,6 +606,9 @@ class FspSolverMultiSinks:
         if self._resolve_odes_type() == ODESolverType.PETSC:
             self._ts_class()
 
+        self._restore_user_order()
+        self._set_up = False
+        self.axis_orders_ = []
         self._ode_solver = None
         self._operator = None
         with self.events.timed(EVT_SETUP):
@@ -489,12 +628,104 @@ class FspSolverMultiSinks:
             pad_quanta[0] = self.mesh.size
         return pad_quanta
 
-    def _build_space(self):
+    # ---------------------------------------------------------- axis order
+    @property
+    def _model_int(self) -> Model:
+        """The model in the box's internal species order (the user's in
+        user order and on the compressed backend)."""
+        return self._int_model if self._int_model is not None else self.model
+
+    @property
+    def _init_int(self) -> np.ndarray:
+        """The initial states in the box's internal species order."""
+        return (self._int_init if self._int_init is not None
+                else self._init_states)
+
+    def _restore_user_order(self) -> None:
+        """Leave the box's internal species order: the user's constraint
+        function back, with the current bounds and expansion factors, so
+        a later set-up never wraps a wrapped callable (reference
+        ``_setup_axis_order``, :668-672)."""
+        if self._axis_inv is not None:
+            cur, user = self.constraints, self._user_constraints
+            self.constraints = ConstraintSet(
+                user.fn, cur.bounds, cur.expansion_factors,
+                user.num_species, box_cache=user._box_cache)
+        self._axis_order = self._axis_inv = None
+        self._int_model = self._int_init = self._user_constraints = None
+
+    def _setup_axis_order(self) -> None:
+        """Lay the box's species axes out by descending extent of the
+        user-order box (reference ``_setup_axis_order``): permute the
+        model, the constraint set and the initial states where that order
+        is not the user's.  Over a mesh every rank derives it from the
+        same replicated bounds; the ranks check that they agree, since
+        ranks on different boxes would hang in their first exchange."""
+        self._restore_user_order()
+        S = self.model.num_species
+        order = self._order_for(self.constraints.derive_box_bounds(
+            S, self._init_states) + 1)
+        if self.mesh is not None and self.mesh.size > 1:
+            mine = torch.as_tensor(order, device=self.mesh.device)
+            every = self.mesh.all_gather(mine[None]).cpu().numpy()
+            if not (every == order[None, :]).all():
+                raise StateSpaceError(
+                    f"the ranks derived different box axis orders: "
+                    f"{every.tolist()}")
+        self.axis_orders_.append((self._t_now if self._set_up else None,
+                                  order.tolist()))
+        if self.verbosity:
+            print(f"[fsp] box axis order (by extent): {order.tolist()}")
+        if (order == np.arange(S)).all():
+            return
+        self._axis_order = order
+        self._axis_inv = np.argsort(order)
+        self._user_constraints = self.constraints
+        self._int_model = permute_model(self.model, order)
+        self.constraints = permute_constraints(self.constraints, order, S)
+        self._int_init = self._init_states[:, order]
+
+    def _prealloc_budget(self) -> Optional[float]:
+        """Eager capacity's element budget under ``preallocate=True``
+        (reference ``_build_space``, :700-745), shared by the solution's
+        rows; None for the capacity ladder, which ``False`` and ``"auto"``
+        take on every device (eager capacity took 2.2-2.4x the ladder's
+        wall on hog1p_5d on an H100 80GB HBM3: PERF.md §6)."""
+        if self.preallocate is not True:
+            return None
+        # the solution stacks its rows (a sensitivity solve's p and each
+        # s_j) as one vector: each row gets its share of the budget
+        return min(self._box_elem_budget() / self._vector_rows(),
+                   float(MAX_BOX_ELEMS))
+
+    def _growable_axes(self) -> np.ndarray:
+        """The box axes eager capacity water-fills (reference
+        :730-744): under coordinate constraints those with a growing
+        bound; under custom ones those whose extent grows when every
+        growable bound grows (hog1p's gene axis is capped by a bound that
+        never grows)."""
+        cs, S = self.constraints, self.model.num_species
+        if cs.fn is None:
+            return cs.expansion_factors > 0
+        grown = cs.with_bounds(cs.expanded_bounds(cs.expansion_factors > 0))
+        return (grown.derive_box_bounds(S, self._init_int)
+                > cs.derive_box_bounds(S, self._init_int))
+
+    def _build_space(self, floor=None, seed_mask_fn=None):
+        """The state space of the current bounds: on the box, in the axis
+        order of their extents, ``floor`` and ``seed_mask_fn`` as
+        :class:`BoxStateSpace` takes them (the reordered rebuild's)."""
         if self._backend_used == "box":
+            self._setup_axis_order()
+            budget = self._prealloc_budget()
             self._space = BoxStateSpace(
-                self.model.stoichiometry, self.constraints,
-                self._init_states, device=self.device,
-                pad_quanta=self.pad_quanta_for_space())
+                self._model_int.stoichiometry, self.constraints,
+                self._init_int, device=self.device,
+                pad_quanta=self.pad_quanta_for_space(),
+                prealloc_budget=budget,
+                growable_axes=(None if budget is None
+                               else self._growable_axes()),
+                extent_floor=floor, seed_mask_fn=seed_mask_fn)
             self._space.events = self.events   # MaskBFS sub-timer
         else:
             self._space = StateSet(self.model.stoichiometry,
@@ -549,7 +780,7 @@ class FspSolverMultiSinks:
                                              dtype=self.dtype,
                                              device=self.device)
             return
-        self._operator = BoxOperator(self.model, self._space,
+        self._operator = BoxOperator(self._model_int, self._space,
                                      dtype=self.dtype, mesh=self.mesh)
         self._log_halo(self._operator.sharded)
         if self.verbosity:
@@ -575,7 +806,9 @@ class FspSolverMultiSinks:
         return self._init_probs[None, :]
 
     def _initial_vector(self) -> FspVector:
-        idx = self._space.state2index(self._init_states)
+        idx = self._space.state2index(
+            self._init_int if self._backend_used == "box"
+            else self._init_states)
         if (idx < 0).any():
             raise StateSpaceError(
                 "initial states outside the FSP state space")
@@ -680,6 +913,11 @@ class FspSolverMultiSinks:
 
     def _expand_box(self, new_bounds, to_expand) -> None:
         n_before = self._space.num_states
+        if self._box_reorder_needed(new_bounds):
+            with self.events.timed(EVT_REORDER), \
+                    self.events.timed(EVT_PARTITION):
+                self._rebuild_box_reordered(new_bounds, n_before, to_expand)
+            return
         with self.events.timed(EVT_PARTITION):
             old_shape = self._space.shape
             self._space.set_bounds(new_bounds)
@@ -879,6 +1117,7 @@ class FspSolverMultiSinks:
         return out
 
     def clear_state(self) -> None:
+        self._restore_user_order()
         self._set_up = False
         self._space = None
         self._operator = None
@@ -891,12 +1130,15 @@ class FspSolverMultiSinks:
         return self._space.num_states if self._space is not None else 0
 
     def _valid_rows(self):
-        """(states [n, S], the solution's rows at them [rows, n]) on the
-        host, the states in the space's order."""
+        """(states [n, S] in user species order, the solution's rows at
+        them [rows, n]) on the host, the states in the space's order."""
         m = self._vector_rows()
         if self._backend_used == "box":
             rows = self._global_p().view(m, -1)
-            return self._space.states(), np.stack(
+            states = self._space.states()
+            if self._axis_inv is not None:
+                states = states[:, self._axis_inv]   # back to user order
+            return states, np.stack(
                 [self._space.extract_valid(r) for r in rows])
         states = self._space.copy_states()
         return states, self._global_p().view(m, -1)[:, :states.shape[0]

@@ -120,22 +120,22 @@ class HaloExchange:
         self.device = first.device
         self.out = (up if up is not None else torch.zeros_like(last),
                     dn if dn is not None else torch.zeros_like(first))
-        staged = mesh._staged(first)
-        if staged:
-            first, last = first.contiguous().cpu(), last.contiguous().cpu()
+        # the very tensors the sends read: a strided plane of a batch is
+        # copied here, and the copy must outlive the send
+        first, last = first.contiguous(), last.contiguous()
+        if mesh._staged(first):
+            first, last = first.cpu(), last.cpu()
             self.up, self.dn = self.out[0].cpu(), self.out[1].cpu()
         else:
             self.up, self.dn = self.out
         ops = []
         if mesh.rank > 0:
             peer = mesh._peer(mesh.rank - 1)
-            ops += [dist.P2POp(dist.isend, first.contiguous(), peer,
-                               mesh.group),
+            ops += [dist.P2POp(dist.isend, first, peer, mesh.group),
                     dist.P2POp(dist.irecv, self.up, peer, mesh.group)]
         if mesh.rank < mesh.size - 1:
             peer = mesh._peer(mesh.rank + 1)
-            ops += [dist.P2POp(dist.isend, last.contiguous(), peer,
-                               mesh.group),
+            ops += [dist.P2POp(dist.isend, last, peer, mesh.group),
                     dist.P2POp(dist.irecv, self.dn, peer, mesh.group)]
         self._reqs = dist.batch_isend_irecv(ops) if ops else []
         self._sent = (first, last)    # alive until the sends complete

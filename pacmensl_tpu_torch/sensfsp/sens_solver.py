@@ -19,7 +19,10 @@ package.  The sink check is the transient driver's.
 
 ``odes_type="petsc"`` runs the TS method of ``set_ts_type`` on the
 stacked vector (RK's and CN's error norms, as BDF's, cover every row).
-Not ported (ROADMAP A2a): the axis-reordered rebuild.
+The box runs in the transient driver's axis order: its operators take the
+permuted model (the derivative propensities included), and the reordered
+rebuild carries p and every s_j by the same map, the rows of the stacked
+vector (reference ``sens_solver.py:207-230``).
 """
 from __future__ import annotations
 
@@ -77,7 +80,7 @@ class SensFspSolverMultiSinks(FspSolverMultiSinks):
     def _build_operator(self):
         self._ode_solver = None     # its basis has the old capacity
         self._operator = None       # free the old operators first
-        self._operator = SensOperator(self.model, self._space,
+        self._operator = SensOperator(self._model_int, self._space,
                                       dtype=self.dtype, device=self.device,
                                       mesh=self.mesh)
         self._log_halo(self._operator.exchange)

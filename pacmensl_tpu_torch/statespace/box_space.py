@@ -15,13 +15,20 @@ constraint set with a boolean validity mask = (constraints satisfied) AND
   reachability pruned nothing, so the mask is the constraint test alone.
 
 Box axes are allocated on a x1.5 capacity ladder (:func:`_ladder`), so most
-expansion epochs keep the capacity and change only the mask.  The
-reference package additionally water-fills a preallocated capacity and
-builds masks in a device-build mode; those exist to avoid TPU recompiles
-and are not ported (ROADMAP).
+expansion epochs keep the capacity and change only the mask.  With a
+``prealloc_budget`` (eager capacity, reference ``box_space.py:117-173,
+260-378``) the capacity is water-filled instead: the growable axes share
+one cap, chosen so the box fills up to 8x the elements it needs
+(``PACMENSL_BOX_HEADROOM``; 0 fills the budget), so an adaptive solve
+reallocates its vectors at few epochs.  The mask is built where the space
+lives (``device``): the BFS, the constraint test and the face-closure test
+all run on the mask's device, which is the reference package's
+``build_on_device`` mode on a card.
 """
 from __future__ import annotations
 
+import math
+import os
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -72,6 +79,21 @@ def _round_capacity(n: int, quantum: int = 1) -> int:
     return -(-c // q) * q
 
 
+def _round_fine(n: int, quantum: int = 1) -> int:
+    """Capacity rounding of eager capacity (reference ``_round_fine``):
+    a multiple of lcm(8, quantum) above 32, of the quantum below."""
+    q = max(int(quantum), 1)
+    m = 8 * q // math.gcd(8, q) if int(n) > 32 else q
+    return max(-(-int(n) // m) * m, m)
+
+
+def _lane_snap(dims, quanta) -> bool:
+    """Whether the last axis of capacity ``dims`` may snap to 128, the
+    reference package's TPU lane group: kept so both packages run at the
+    same capacity, whose size feeds the Krylov cost model."""
+    return len(dims) >= 2 and 128 % int(quanta[-1]) == 0
+
+
 def constraint_ok(constraints: ConstraintSet, shape, device,
                   offset=None, by_form=False) -> torch.Tensor:
     """Flat [n] bool: every constraint holds at box point x (+ ``offset``),
@@ -103,11 +125,22 @@ class BoxStateSpace:
     only the mask."""
 
     def __init__(self, stoichiometry, constraints: ConstraintSet,
-                 init_states, device="cpu", pad_quanta=None):
+                 init_states, device="cpu", pad_quanta=None,
+                 prealloc_budget: Optional[float] = None,
+                 growable_axes=None, extent_floor=None, seed_mask_fn=None):
         """``pad_quanta``: per-axis size quanta; each capacity axis is
         rounded up to a multiple of its quantum (a sharded solve makes
         axis 0 divisible by its rank count, reference
-        ``box_space.py:122-162``)."""
+        ``box_space.py:122-162``).
+
+        ``prealloc_budget``: an element budget for eager capacity
+        (:meth:`_prealloc_shape`), water-filled over ``growable_axes``
+        (bool per axis; all by default).  ``extent_floor``: per-axis
+        least extents (the reordered rebuild passes the old box's, so the
+        new box holds it).  ``seed_mask_fn``: ``callable(shape)`` giving
+        a mask of states already known reachable at the first capacity,
+        the first build's BFS seed (the reordered rebuild's transposed old
+        mask: a few dilations instead of the set's diameter)."""
         self.stoich = np.atleast_2d(np.asarray(stoichiometry, dtype=np.int64))
         self.constraints = constraints
         self.device = torch.device(device)
@@ -126,6 +159,14 @@ class BoxStateSpace:
         self._mask_host: Optional[np.ndarray] = None
         self._mask_bytes: Optional[torch.Tensor] = None
         self._box_floor = np.zeros(self.num_species, np.int64)
+        self.prealloc_budget = (None if prealloc_budget is None
+                                else float(prealloc_budget))
+        self.growable_axes = (np.ones(self.num_species, dtype=bool)
+                              if growable_axes is None
+                              else np.asarray(growable_axes, dtype=bool))
+        self.extent_floor = (None if extent_floor is None
+                             else np.asarray(extent_floor, np.int64))
+        self._seed_mask_fn = seed_mask_fn
         self.events = None
         self._build()
 
@@ -183,10 +224,63 @@ class BoxStateSpace:
             "unbounded along axes "
             f"{np.nonzero(self._leaks)[0].tolist()}")
 
+    def _prealloc_shape(self, raw_shape) -> Tuple[int, ...]:
+        """Water-filled capacity (reference ``_prealloc_shape``, without
+        its TPU halo cap ``minor_limit``): every growable axis is at
+        least a common cap C, the largest for which the box stays within
+        the target; the other axes keep their extents.  The target is
+        ``min(budget, max(need x PACMENSL_BOX_HEADROOM, current size))``
+        (headroom 8; 0 fills the budget), where ``need`` is the box the
+        extents need.  Raises :class:`StateSpaceError` when even that
+        exceeds the budget.  Never shrinks the current capacity."""
+        ext = np.maximum(np.asarray(raw_shape, np.int64),
+                         np.asarray(self._shape or [0] * len(raw_shape),
+                                    np.int64))
+        grow = self.growable_axes
+        budget = min(self.prealloc_budget, float(MAX_BOX_ELEMS))
+
+        def dims_for(C):
+            return tuple(
+                _round_fine(max(int(e), C if g else 0), int(q))
+                for e, g, q in zip(ext, grow, self.pad_quanta))
+
+        def size(dims):
+            return float(np.prod(np.asarray(dims, np.float64)))
+
+        need = size(dims_for(1))
+        if need > budget:
+            raise StateSpaceError(
+                f"FSP box extents {tuple(int(e) for e in ext)} exceed the "
+                f"preallocation budget {budget:.3g} elements: use the "
+                "compressed backend or raise PACMENSL_BOX_MEM_BUDGET")
+        headroom = float(os.environ.get("PACMENSL_BOX_HEADROOM", "8"))
+        target = budget
+        if headroom > 0:
+            target = min(budget, max(need * headroom,
+                                     size(self._shape or [0])))
+        lo, hi = 1, int(max(ext)) + int(budget)
+        while lo < hi:                      # the largest C within target
+            mid = (lo + hi + 1) // 2
+            if size(dims_for(mid)) <= target:
+                lo = mid
+            else:
+                hi = mid - 1
+        dims = np.asarray(dims_for(lo), np.int64)
+        if _lane_snap(dims, self.pad_quanta) and 102 < int(dims[-1]) < 128:
+            snapped = dims.copy()
+            snapped[-1] = 128
+            if size(snapped) <= budget:
+                dims = snapped
+        if self._shape is not None:         # monotone: never shrink
+            dims = np.maximum(dims, np.asarray(self._shape, np.int64))
+        return tuple(int(d) for d in dims)
+
     def _build_once(self):
         box_bounds = self.constraints.derive_box_bounds(
             self.num_species, self.init_states)
         box_bounds = np.maximum(box_bounds, self._box_floor)
+        if self.extent_floor is not None:
+            box_bounds = np.maximum(box_bounds, self.extent_floor - 1)
         self._box_bounds = box_bounds
         raw_shape = np.asarray(box_shape_from_bounds(box_bounds))
 
@@ -201,19 +295,20 @@ class BoxStateSpace:
 
         if self._shape is None or \
                 any(int(s) > c for s, c in zip(raw_shape, self._shape)):
-            new_shape = [max(_round_capacity(int(s), int(q)), c)
-                         for s, c, q in zip(raw_shape, self._shape or
-                                            (0,) * len(raw_shape),
-                                            self.pad_quanta)]
-            # The reference package snaps a minor extent in (94, 128] to 128
-            # (a TPU lane group) instead of the ladder's 141; kept so both
-            # packages run at the same capacity, whose size feeds the
-            # Krylov cost model.
-            if len(new_shape) >= 2 and int(raw_shape[-1]) <= 128 \
-                    < int(new_shape[-1]) <= 141 \
-                    and 128 % int(self.pad_quanta[-1]) == 0:
-                new_shape[-1] = max(128, (self._shape or [0])[-1])
-            new_shape = tuple(new_shape)
+            if self.prealloc_budget is not None:
+                new_shape = self._prealloc_shape(raw_shape)
+            else:
+                new_shape = [max(_round_capacity(int(s), int(q)), c)
+                             for s, c, q in zip(raw_shape, self._shape or
+                                                (0,) * len(raw_shape),
+                                                self.pad_quanta)]
+                # a minor extent in (94, 128] snaps to 128, not the
+                # ladder's 141 (:func:`_lane_snap`)
+                if _lane_snap(new_shape, self.pad_quanta) and \
+                        int(raw_shape[-1]) <= 128 < int(new_shape[-1]) \
+                        <= 141:
+                    new_shape[-1] = max(128, (self._shape or [0])[-1])
+                new_shape = tuple(new_shape)
             new_size = int(np.prod(np.asarray(new_shape, np.float64)))
             if new_size > MAX_BOX_ELEMS:
                 raise StateSpaceError(
@@ -230,6 +325,9 @@ class BoxStateSpace:
 
         t0 = time.perf_counter()
         shape = self._shape
+        if self._prev_mask is None and self._seed_mask_fn is not None:
+            self._prev_mask = self._seed_mask_fn(shape).to(self.device)
+            self._seed_mask_fn = None       # one-shot
         ok = constraint_ok(self.constraints, shape, self.device).reshape(shape)
         seed = (self._prev_mask.clone() if self._prev_mask is not None
                 else torch.zeros(shape, dtype=torch.bool, device=self.device))
@@ -244,10 +342,11 @@ class BoxStateSpace:
         self._mask_host = None
         self._mask_bytes = None
         self._num_states = int(mask.sum())
+        self._n_ok = int(ok.sum())
         # reachability pruned nothing: the mask is "every constraint
         # holds", which the box kernel can recompute from the bounds
         # instead of reading it (reference box_space.py:495-499)
-        self.mask_is_constraint_only = self._num_states == int(ok.sum())
+        self.mask_is_constraint_only = self._num_states == self._n_ok
         if self.events is not None:
             self.events.add("MaskBFS", time.perf_counter() - t0)
         if not self._leaks.any():
@@ -283,6 +382,21 @@ class BoxStateSpace:
                     leaks[i] = True
                     break
         return leaks
+
+    def absorb_mask(self, mask_add: torch.Tensor) -> None:
+        """OR ``mask_add`` (box-shaped bool, states that satisfy the
+        current constraints) into the valid set (reference
+        ``absorb_mask``): the reordered rebuild unions the transposed old
+        mask in, since a fresh BFS stops after ``sum(shape) + 1``
+        dilations, fewer than the set's diameter where reactions convert
+        one species into another, and so can miss states that the
+        incremental builds held."""
+        mask = self._mask | mask_add.to(self._mask.device)
+        self._mask = self._prev_mask = mask
+        self._mask_host = None
+        self._mask_bytes = None
+        self._num_states = int(mask.sum())
+        self.mask_is_constraint_only = self._num_states == self._n_ok
 
     # ------------------------------------------------------- expansion ---
     def set_bounds(self, new_bounds) -> None:

@@ -26,6 +26,8 @@ EVT_TOTAL = "Solving"
 #: integrator step counts (accepted, rejected), summed over epochs
 EVT_STEPS = "ODESteps"
 EVT_REJECTED = "ODEStepsRejected"
+#: the box's rebuilds in a new axis order (count and time; port only)
+EVT_REORDER = "BoxReorder"
 
 
 @dataclass

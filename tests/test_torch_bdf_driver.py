@@ -92,12 +92,14 @@ def test_bdf_vector_budget():
 
 def test_hog1p_3d_matches_reference():
     """hog1p_3d to t = 30 with fsp_tol = 1e-4: the same 350 states and
-    bounds as the reference package's box backend with BDF.  The two take
-    the same epochs and step sequences up to rounding: the reference
-    package reorders the box axes, so its Arnoldi sums run in another
-    order, GMRES occasionally stops one iteration apart, and the corrector
-    differs at its 1e-10 tolerance.  Measured TV 6.97e-7 and sinks
-    2.85e-9 apart; the bounds below are those values with headroom."""
+    bounds as the reference package's box backend with BDF, in the same
+    rows.  Both lay the box out in the same axis order ([1, 0, 2]: the
+    gene axis is not axis 0) and capacity, and take the same epochs and
+    step sequences up to rounding: the two packages' reductions sum in
+    other orders, so GMRES occasionally stops one iteration apart and the
+    corrector differs at its 1e-10 tolerance.  Measured TV 4.97e-7 and
+    sinks 4.86e-9 apart (6.97e-7 and 2.85e-9 while the port kept user
+    order); the bounds below hold both."""
     js = _hog3(pm, _OneDispatch, odes_type="cvode", backend="box")
     jd = js.solve(30.0, 1.0e-4)
     ts = _hog3(pt, device="cpu", backend="box")
@@ -106,6 +108,9 @@ def test_hog1p_3d_matches_reference():
     assert ts._operator.synth_mask
     assert td.num_states == jd.num_states == 350
     np.testing.assert_array_equal(td.bounds, jd.bounds)
+    assert ts.axis_orders_ == [(None, [1, 0, 2])]
+    assert tuple(ts._space.shape) == tuple(js._space.shape)
+    np.testing.assert_array_equal(td.states, jd.states)
     jst, jp = _by_state(jd)
     tst, tp = _by_state(td)
     np.testing.assert_array_equal(tst, jst)

@@ -14,7 +14,8 @@ reference package.  The workers import no JAX.
   (``tests/test_multichip.py:48-68``); it also agrees with the
   reference package's solve.
 * A BDF solve of hog1p_3d (time-varying) at a CPU size agrees with the
-  single-device solve.
+  single-device solve; its box is sharded along its largest extent, in
+  the same axis order on every rank.
 * Every rank takes the same steps (the same times, sizes and Krylov
   dimensions or BDF orders, bit for bit).
 * Slabs thinner than the halo, and an axis 0 that does not divide by the
@@ -159,6 +160,9 @@ def _work_bdf(pt, mesh):
     s = _hog_solver(pt, mesh)
     out = _solve_out(pt, s, s.solve(BDF_T, 1.0e-4))
     out["bdf"] = np.array(isinstance(s._ode_solver, pt.BdfSolver))
+    out["orders"] = np.array([o for _, o in s.axis_orders_])
+    out["extents"] = np.asarray(s._space._box_bounds) + 1
+    out["shape"] = np.array(s._space.shape)
     return out
 
 
@@ -319,6 +323,20 @@ def test_ranks_take_the_same_steps(poisson_run, bdf_run):
         for other in outs[1:]:
             for k in ("t", "h", "aux"):
                 assert np.array_equal(other[k], o[k]), k
+
+
+def test_sharded_box_takes_the_largest_extent_as_slab_axis(bdf_run):
+    """hog1p_3d's box over two ranks is laid out by descending extent:
+    its slab axis, axis 0, is the largest extent (not the 4-state gene),
+    its capacity divides by the rank count, and every rank took the same
+    orders."""
+    o = bdf_run[0]
+    assert o["orders"][0].tolist() == [1, 0, 2]
+    assert o["extents"][0] == o["extents"].max() > 4
+    assert o["shape"][0] % 2 == 0
+    for other in bdf_run[1:]:
+        assert np.array_equal(other["orders"], o["orders"])
+        assert np.array_equal(other["shape"], o["shape"])
 
 
 def test_sharded_bdf_solve_matches_single_device(bdf_run):

@@ -34,8 +34,10 @@ def _setup_poisson(pkg, **kw):
 
 
 def _by_state(d):
-    """(states, p) sorted by state: the reference package may reorder the
-    box axes, so distributions are compared by state identity."""
+    """(states, p) sorted by state.  Both packages lay the box's axes out
+    in the same order and so return the same rows in the same order; the
+    sort compares by state identity whatever the backend or the
+    restart."""
     order = np.lexsort(d.states.T[::-1])
     return d.states[order], d.p[order]
 

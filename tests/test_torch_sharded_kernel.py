@@ -328,3 +328,28 @@ def test_shard_axis_rule_matches_reference(shape, n):
     want = tuple(jmesh.box_spec(shape, n))
     want = want + (None,) * (len(shape) - len(want))
     assert tmesh.box_spec(shape, n) == want
+
+
+def test_halo_exchange_keeps_the_tensors_it_sends(monkeypatch):
+    """A batch's edge planes are strided views, copied for the sends; the
+    exchange keeps those very copies alive until ``wait``, not the
+    views (rank 1 of 3 sends both ways)."""
+    sent = []
+
+    class P2POp:
+        def __init__(self, op, tensor, peer, group=None):
+            if op is tmesh.dist.isend:
+                sent.append((tensor, peer))
+
+    monkeypatch.setattr(tmesh.dist, "P2POp", P2POp)
+    monkeypatch.setattr(tmesh.dist, "batch_isend_irecv", lambda ops: [])
+    mesh = tmesh.StateMesh(None, 1, 3, "cpu")
+    p = torch.arange(3 * 40, dtype=torch.float64).view(3, 40)
+    first, last = p[:, :8], p[:, 32:]
+    assert not first.is_contiguous() and not last.is_contiguous()
+    ex = mesh.halo_start(first, last)
+    assert [peer for _, peer in sent] == [0, 2]
+    assert ex._sent[0] is sent[0][0] and ex._sent[1] is sent[1][0]
+    assert torch.equal(sent[0][0], first) and torch.equal(sent[1][0], last)
+    up, dn = ex.wait()
+    assert ex._sent is None and up.shape == last.shape
