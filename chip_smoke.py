@@ -54,10 +54,14 @@ Phases (each check that fails ends the run with a nonzero exit):
       bitwise the whole box's K1 dp and K3 dp and each slab's dp bitwise
       the plain K4's; the summed sinks lie within 1e-12 relative of the
       whole box's; two launches are bitwise equal.  Timed per slab and
-      per sweep of the 4 slabs beside K1 and K3, and against one
-      ``torch.mv`` of each slab's rows of the same generator as a CSR
-      matrix with the slab's sink rows appended (the library yardstick,
-      per slab and per sweep; the port never calls it).
+      per sweep of the 4 slabs beside K1 and K3, and against the library
+      yardstick (the port never calls it), per slab and per sweep in two
+      readings: one ``torch.mv`` of each slab's rows of the same
+      generator as a CSR matrix with the slab's sink rows appended, and
+      one of its state rows with the sinks as a separate dense reduction
+      (a sink row holds every state with a transition out of the
+      constraints: one long row in the first reading).  The same two
+      readings wherever the library is timed below.
    b. The repressilator solve of phase 4 sharded over one rank per
       visible card (NCCL, ``torch.multiprocessing`` spawn): phase 4's
       checks, and L1 <= 2 * fsp_tol to phase 4's distribution.
@@ -72,8 +76,7 @@ Phases (each check that fails ends the run with a nonzero exit):
    In 7b and 7c one matvec of the final operator, with the halos the
    ranks exchange, must give the whole box's dp bitwise and its sinks
    within 1e-12 relative, and every matvec of the solve makes exactly one
-   box launch on one rank (no halo in flight) and two with halos (the
-   interior rows, then both edge strips), sinks reduced in the launch.
+   box launch (also with halos), sinks reduced in the launch.
 8. The probes (``csrc/probes.cu``): the stream copy K5 and the probes
    K6-K8 of the box kernel's memory path.  Their path is the port's two
    measurement entry points, ``ops.probes.stream_bandwidth()`` (K5 at 2^26
@@ -106,8 +109,8 @@ Phases (each check that fails ends the run with a nonzero exit):
       1e-12 of the plain version's (relative to each vector's largest),
       two launches bitwise equal.  Timed with CUDA events beside nb
       single K3 launches (also per vector) and the plain version; at
-      128^3 also beside one ``torch.sparse.mm`` of the generator as CSR
-      with the ``[n, nb]`` block.
+      128^3 and at the final operator also beside ``torch.sparse.mm`` of
+      the generator as CSR with the ``[n, nb]`` block (both readings).
    b. hog1p_5d_sens with its custom constraints, t = 180, fsp_tol =
       1e-4, ``"auto"`` -> BDF, every operator on K3 and on tables:
       phase 5's output checks, per action one K9 (p and the two
@@ -186,7 +189,8 @@ Phases (each check that fails ends the run with a nonzero exit):
       within 1e-12 of the plain version's and the single launch's.  The
       slabs' dp bitwise the whole box's K9.  Timed with CUDA events beside
       nb K4 sweeps (K4 chains where K9w chains), the unsharded K9, the
-      plain version, one ``torch.sparse.mm`` of each slab's CSR rows and
+      plain version, one ``torch.sparse.mm`` of each slab's CSR state
+      rows with the sinks' dense reduction, and
       the sweep's time before the chain and the one-pass tail
       (``K9W_BEFORE_US``).
    e. hog1p_5d_sens at phase 9c's setting under Krylov over two gloo
@@ -222,10 +226,47 @@ Phases (each check that fails ends the run with a nonzero exit):
       both walls.  (hog1p_5d_sens on eager capacity took 1.59x its
       ladder's wall in PERF.md's measurement; it is not rerun here.)
 
+13. The port's entry points (``pacmensl_tpu_torch/examples/``,
+    ``pacmensl_tpu_torch/tools/``), called as a user calls them.  Phases
+    4, 5, 9b and 10e already run their solves through them (phase 4
+    through ``examples.repressilator.run_stage``, 5, 9b and 10e through
+    ``tools.bench_configs``' configs; 4, 5 and 9b with the option
+    ``-fsp_backend box``, since under ``"auto"`` the fill rule moves the
+    repressilator to ELL partway), and 10b times the ELL action with
+    ``tools.ell_bench.time_action``.
+
+   a. The repressilator example's stages 2-4 from phase 4's
+      distribution (adaptive under the default hyper-rectangle
+      constraints from [22, 2, 2], and both fixed stages at the adaptive
+      stages' final bounds): phase 4's output checks; the two adaptive
+      stages within 2 * fsp_tol in L1; each fixed stage keeps its bounds
+      (no expansion) and lies within 2 * fsp_tol of its adaptive stage.
+   b. transcr_reg_6d to the example's t = 300 (``examples.
+      transcr_reg_6d.main``): K1 on the box until the fill rule moves it
+      to ELL; phase 6's output checks; at the migration, K1 against its
+      plain version on the last box epoch's operator and p, and K1's
+      and the library's times there (both readings); the migration's time and
+      state count, the K1 launches before it; the final states and
+      bounds beside the TPU's record (context only); the ELL action
+      against a CSR ``torch.mv`` of the final set (1e-12); L1 <= 2 *
+      fsp_tol to an independent ELL solve from the start, reduced to the
+      time of the migration.
+   c. The scaling sweep at a 256^3 box over n = 1, 2, 4 ranks up to the
+      visible cards (``examples.scaling_sweep.main``, NCCL): on every n
+      the assembled box dp bitwise one card's K3 dp and the ELL dp
+      within 1e-12 of one card's; µs per matvec, efficiency, values sent
+      per matvec.
+   d. ``tools.dryrun.entry()`` once on the card (one K3 launch, finite,
+      mass-conserving), then ``dryrun_multichip`` over one NCCL rank per
+      card.
+   e. ``python -m pacmensl_tpu_torch.tools.flagship -repeat 2`` as a
+      subprocess: exit 0 and both walls.
+
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
-migration), 10e, 11a, 11b and 12e, K4 in phases 7b and 7c (over all
-ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b,
+migration), 10e, 11a, 11b, 12e, 13a, 13b (before the migration), 13c
+(one card) and 13d (``entry()``), K4 in phases 7b, 7c, 13c and 13d
+(over all ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b,
 K9w in phase 11e (over both ranks).
 ``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
@@ -335,6 +376,17 @@ SENS_BDF_LIMIT = 1.0e-5
 STAT_TOL = 0.08
 
 
+#: phase 13b: transcr_reg_6d to the example's t_final; the TPU's record
+#: of it (the JAX package's float32 run, BASELINE.md:144-160), context only
+TR6_EXAMPLE_T = 300.0
+TR6_TPU_STATES, TR6_TPU_BOUNDS = 2303250, [82, 124, 6, 2, 10, 36]
+#: phase 13c: the scaling sweep's box edge less one (256^3 = 16.8M
+#: elements, the scale of the repressilator's final capacity)
+SWEEP_BOUND = 255
+#: where the entry points write their CSVs
+OUT_DIR = Path(__file__).resolve().parent / "_local" / "smoke"
+
+
 def fail(msg):
     print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -358,14 +410,6 @@ def l1_by_state(d1, d2):
     return float(np.abs(diff).sum())
 
 
-def free_port():
-    """A free TCP port on the loopback interface, for a rendezvous."""
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def bound(nbytes, flops, rate=F64_RATE):
     """(bound_ms, bound_by): the least time the card takes to move
     ``nbytes`` and do ``flops`` operations at ``rate`` FLOP/s."""
@@ -373,11 +417,11 @@ def bound(nbytes, flops, rate=F64_RATE):
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
-def time_ms(fn, reps=100):
+def time_ms(fn, reps=100, warm=5):
     """ms per call of ``fn``: CUDA events around ``reps`` back-to-back
-    calls after 5 warm-up calls."""
+    calls after ``warm`` warm-up calls."""
     import torch
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -474,6 +518,131 @@ def generator_csr(c, mask, a, viol, shape, stoich, nc, out_range=None):
     return torch.sparse_coo_tensor(
         torch.stack([r, cl[keep]]), v[keep],
         (hi - lo + nc, n)).coalesce().to_sparse_csr()
+
+
+def split_sinks(A, nc):
+    """``A`` of :func:`generator_csr` (``nc`` sink rows last) as ``(rows,
+    xs, W)``: the CSR matrix of its state rows, and its sink rows as a
+    dense ``[nc, m]`` block over the ``m`` columns ``xs`` that they read,
+    so that ``A @ p`` is ``rows @ p`` followed by ``W @ p[xs]``.  A sink
+    row holds an entry for every state with a transition out of the
+    constraints; in one CSR matrix each is one long row.  The library
+    yardstick only."""
+    import torch
+    k = A.shape[0] - nc
+    crow, col, val = A.crow_indices(), A.col_indices(), A.values()
+    e = int(crow[k])
+    rows = torch.sparse_csr_tensor(crow[:k + 1], col[:e], val[:e],
+                                   (k, A.shape[1]))
+    srow = torch.repeat_interleave(
+        torch.arange(nc, device=val.device), (crow[k + 1:] - crow[k:-1]).long())
+    xs, inv = torch.unique(col[e:].long(), return_inverse=True)
+    W = torch.zeros((nc, xs.numel()), dtype=val.dtype, device=val.device)
+    W.index_put_((srow, inv), val[e:], accumulate=True)
+    return rows, xs, W
+
+
+def split_apply(S, v):
+    """``(dp, sinks)`` of :func:`split_sinks`'s ``S`` on ``v`` (``[n]``,
+    or ``[n, nb]``: then ``[k, nb]`` and ``[nc, nb]``)."""
+    import torch
+    rows, xs, W = S
+    x = v.index_select(0, xs)
+    if v.dim() == 1:
+        return torch.mv(rows, v), torch.mv(W, x)
+    return torch.sparse.mm(rows, v), W @ x
+
+
+def library_readings(label, A, nc, v, want, reps=20, warm=5, rounds=2,
+                     readings=("csr", "split")):
+    """The library yardstick of ``A`` (:func:`generator_csr`) on ``v``
+    (``[n]``, or ``[n, nb]``) in two readings: ``"csr"``, one product with
+    ``A`` with its sink rows (``torch.mv``, ``torch.sparse.mm``), and
+    ``"split"``, the product with its state rows and the sinks as a
+    separate dense reduction (:func:`split_sinks`); ``readings``: which.
+    Each is checked against the kernel's ``want = (dp,
+    sinks)`` (``[nb, k]`` and ``[nb, nc]`` for a block) within 1e-9 of
+    dp's largest and timed as the least of ``rounds`` rounds of ``reps``
+    calls.  Returns ``{reading: ms}``."""
+    import torch
+    k = A.shape[0] - nc
+    S = split_sinks(A, nc) if "split" in readings else None
+    mul = torch.mv if v.dim() == 1 else torch.sparse.mm
+    runs = {"csr": lambda: mul(A, v), "split": lambda: split_apply(S, v)}
+    out = {}
+    for key in readings:
+        run = runs[key]
+        y = run()
+        dp, sk = (y[:k], y[k:]) if key == "csr" else y
+        if v.dim() == 2:
+            dp, sk = dp.T, sk.T
+        err = max(float((dp - want[0]).abs().max()),
+                  float((sk - want[1]).abs().max()))
+        check(err <= 1e-9 * float(want[0].abs().max()),
+              f"{label}: the library's {key} reading differs from the "
+              f"kernel by {err:.3e}")
+        del y, dp, sk
+        out[key] = min(time_ms(run, reps, warm) for _ in range(rounds))
+    return out
+
+
+def readings_text(r):
+    """``library_readings``' result as text."""
+    names = {"csr": "one CSR product with the sink rows",
+             "split": "the state rows' CSR product and the sinks' dense "
+                      "reduction"}
+    return ", ".join(f"{names[k.split()[0]]}{k[len(k.split()[0]):]} "
+                     f"{v * 1e3:.1f} us" for k, v in r.items())
+
+
+def uncounted(run):
+    """``run`` (kernels against their plain versions or the library)
+    without adding to the paths' counts; returns what ``run`` returns."""
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    counts = (bk.KERNEL.launches, bk.KERNEL.plain_calls,
+              bk.KERNEL.plain_cuda_calls)
+    held = [dict(d) for d in counts]
+    out = run()
+    for d, h in zip(counts, held):
+        d.update(h)
+    return out
+
+
+def add_launches(*dicts):
+    """The launch counts of several runs, summed by mode."""
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def csr_library_ms(label, op, c, p, want, smi, reps=20):
+    """The library yardstick on a box operator: ``op``'s generator at
+    coefficients ``c`` as CSR on ``p`` in both readings of
+    :func:`library_readings`, with 64- and 32-bit indices, checked
+    against the kernel's ``want = (dp, sinks)``; the least, ms per call.
+    The port never calls it."""
+    import torch
+    from pacmensl_tpu_torch.ops import box_operator as bo
+    mask = op.space.mask.reshape(-1).to(torch.uint8)
+    viol = bo.violation_bits(op.space.constraints, op.stoichiometry,
+                             op.shape, p.device)
+    nc = op.num_constraints
+    A = generator_csr(c, mask, op.prop_fields, viol, op.shape,
+                      op.stoichiometry, nc)
+    # the same matrix with 32-bit indices, the library's other index type
+    A32 = torch.sparse_csr_tensor(A.crow_indices().int(),
+                                  A.col_indices().int(), A.values(),
+                                  A.shape)
+    ts = {}
+    for key, M in (("int64", A), ("int32", A32)):
+        r = library_readings(f"{label} ({key})", M, nc, p, want, reps)
+        ts.update({f"{k} ({key} indices)": v for k, v in r.items()})
+    print(f"[{label}] library ({A.shape[0]} x {A.shape[1]}, "
+          f"{A.values().numel()} nonzeros): " + readings_text(ts)
+          + f"; {smi}", flush=True)
+    return min(ts.values())
 
 
 def ptxas_lines(log):
@@ -576,45 +745,19 @@ def rank_solve(rank, world, port, backend, t_final, tol, queue):
 
 
 def run_ranks(world, backend, t_final, tol, target=rank_solve, args=None):
-    """``target`` (default ``rank_solve``) on ``world`` spawned processes;
-    their summaries by rank.  ``target`` takes ``(rank, world, port,
-    backend, *args, queue)``, ``args`` defaulting to ``(t_final, tol)``.
-    A rank that fails or outlasts RANK_TIMEOUT fails the run, and every
-    rank is stopped."""
-    import queue as queue_mod
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    port = free_port()
+    """``target`` (default ``rank_solve``) on ``world`` spawned processes
+    (``pacmensl_tpu_torch.parallel.spawn.run_ranks``); their summaries by
+    rank.  ``target`` takes ``(rank, world, port, backend, *args,
+    queue)``, ``args`` defaulting to ``(t_final, tol)``.  A rank that
+    fails or outlasts RANK_TIMEOUT fails the run, and every rank is
+    stopped."""
+    from pacmensl_tpu_torch.parallel import spawn
     args = (t_final, tol) if args is None else tuple(args)
-    procs = [ctx.Process(target=target,
-                         args=(r, world, port, backend) + args + (q,))
-             for r in range(world)]
-    for pr in procs:
-        pr.start()
-    out, t0 = {}, time.perf_counter()
     try:
-        while len(out) < world:
-            try:
-                res = q.get(timeout=5)
-                out[res["rank"]] = res
-            except queue_mod.Empty:
-                dead = [pr.exitcode for pr in procs
-                        if pr.exitcode not in (None, 0)]
-                check(not dead, f"a rank of the {backend} solve exited "
-                                f"with {dead}")
-                check(time.perf_counter() - t0 < RANK_TIMEOUT,
-                      f"the {backend} solve outlasted {RANK_TIMEOUT} s")
-        for pr in procs:
-            pr.join(timeout=60)
-            check(pr.exitcode == 0, f"a rank of the {backend} solve "
-                                    f"exited with {pr.exitcode}")
-    finally:
-        for pr in procs:
-            if pr.is_alive():
-                pr.terminate()
-                pr.join()
-    return [out[r] for r in range(world)]
+        return spawn.run_ranks(world, backend, target, args,
+                               timeout=RANK_TIMEOUT)
+    except spawn.RankError as e:
+        fail(f"the {backend} solve: {e}")
 
 
 def probe_phase(dev, smi, roofs):
@@ -851,32 +994,6 @@ def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
     import torch
     import pacmensl_tpu_torch as pt
 
-    def uncounted(run):
-        """``run`` (kernels against their plain versions) without adding
-        to the path's counts."""
-        counts = (bk.KERNEL.launches, bk.KERNEL.plain_calls,
-                  bk.KERNEL.plain_cuda_calls)
-        held = [dict(d) for d in counts]
-        run()
-        for d, h in zip(counts, held):
-            d.update(h)
-
-    def hold_box(phase, s):
-        """Checks the box kernels against their plain versions on the box
-        operator and solution a migration leaves, then times the
-        migration; returns the list of (seconds, states, t) it fills."""
-        log, migrate = [], s._migrate_box_to_ell
-
-        def hooked():
-            uncounted(lambda: final_operator(
-                phase, "last box epoch before the migration", s, s._t_now))
-            t0 = time.perf_counter()
-            migrate()
-            torch.cuda.synchronize()
-            log.append((time.perf_counter() - t0, s.num_states, s._t_now))
-        s._migrate_box_to_ell = hooked
-        return log
-
     def setup(s, bundle):
         s.set_model(bundle.model)
         s.set_constraint_functions(bundle.constraint)
@@ -920,7 +1037,7 @@ def fd_trans_oracle(dev, t_final, tol, rtol, atol, eps):
     return num / max(den, 1e-300), sd.num_states, wall
 
 
-def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
+def sens_phase(dev, smi, d5, mass_tol, run_entry, tables, same_twice,
                max_err):
     """Phase 9: forward sensitivities.  (a) The batched launch K9 in both
     modes against its plain version and against nb single launches, at
@@ -939,6 +1056,7 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
     from pacmensl_tpu_torch.ops import box_operator as bo
     from pacmensl_tpu_torch.ops import probes as pr
     from pacmensl_tpu_torch.ops.sens_operator import SensOperator
+    from pacmensl_tpu_torch.tools import bench_configs
 
     def check_batched(label, c, P, a, geom, bounds=None, mask=None,
                       viol=None):
@@ -1020,6 +1138,15 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         check(lerr <= 1e-9 * float(kp.abs().max()),
               f"128^3 nb={nb}: the CSR generator differs from K9 by "
               f"{lerr:.3e}")
+        # the library's other reading: the sinks as a dense reduction
+        split = split_sinks(A, 3)
+        sp, ss = split_apply(split, Pt)
+        lerr = max(float((sp.T - kp).abs().max()),
+                   float((ss.T - ks).abs().max()))
+        check(lerr <= 1e-9 * float(kp.abs().max()),
+              f"128^3 nb={nb}: the split CSR generator differs from K9 by "
+              f"{lerr:.3e}")
+        del sp, ss
         runs = {
             "plain": lambda: bk.box_action_synth_batched_reference(
                 c, P, a, bb, geom),
@@ -1028,13 +1155,16 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
             "K9": lambda: bk.box_action_synth_batched(c, P, a, bb, geom),
             "K9_K1": lambda: bk.box_action_batched(c, P, mask, a, viol,
                                                    geom),
-            "library": lambda: torch.sparse.mm(A, Pt)}
+            "library": lambda: torch.sparse.mm(A, Pt),
+            "split": lambda: split_apply(split, Pt)}
         ms = timed(f"{label} nb={nb} per call: K9 (K3), {nb} single K3 "
                    f"launches, K9 (K1), plain, torch.sparse.mm of the CSR "
                    f"generator ({A.values().numel()} nonzeros) with the "
-                   f"[n, {nb}] block", runs,
-                   ["plain", "single", "K9", "K9_K1", "library", "library",
-                    "K9_K1", "K9", "single", "plain"], {"plain": 10})
+                   f"[n, {nb}] block (library), and of its state rows with "
+                   f"the sinks' dense reduction (split)", runs,
+                   ["plain", "single", "K9", "K9_K1", "library", "split",
+                    "split", "library", "K9_K1", "K9", "single", "plain"],
+                   {"plain": 10})
         tb = a.table_bytes()
         nbytes = nb * pr.box_action_bytes(n, n, R, True) + tb
         bnd = bound(nbytes, nb * 2 * (2 * R + 1) * n)
@@ -1049,21 +1179,13 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
               f"{smi}", flush=True)
         if k9 is None:
             k9 = {"ms": ms["K9"], "plain_ms": ms["plain"], "bound": bnd,
-                  "library_ms": ms["library"]}
-        del A, Pt, y, P, kp, ks, runs
+                  "library_ms": min(ms["library"], ms["split"])}
+        del A, split, Pt, y, P, kp, ks, runs
         torch.cuda.empty_cache()
     del a, viol, mask, geom
     torch.cuda.empty_cache()
 
     # (b) hog1p_5d_sens, the path
-    hs = pt.models.hog1p_5d_sens()
-    s = pt.SensFspSolverMultiSinks(backend="box", odes_type="auto",
-                                   device=dev)
-    s.set_model(hs.model)
-    s.set_constraint_functions(hs.constraint)
-    s.set_initial_bounds(hs.bounds)
-    s.set_expansion_factors(hs.expansion_factors)
-    s.set_initial_distribution(hs.x0, hs.p0)
     actions = [0]
     action = SensOperator.action
 
@@ -1072,9 +1194,12 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         return action(self, t, y)
     SensOperator.action = counted
     try:
-        d9, launch9, wall9 = run_solve(
-            9, f"hog1p_5d_sens t={HOG_T_FINAL:g} tol={HOG_TOL:g}", s,
-            HOG_T_FINAL, HOG_TOL, mass_tol)
+        # through bench_configs' sens_hog1p config
+        s, d9, launch9, wall9 = run_entry(
+            9, f"hog1p_5d_sens t={HOG_T_FINAL:g} tol={HOG_TOL:g}",
+            lambda: bench_configs.run_sens_hog1p(
+                pt.Options.from_argv(["-fsp_backend", "box"]), dev),
+            HOG_TOL, mass_tol)
     finally:
         SensOperator.action = action
     check(isinstance(s._ode_solver, pt.BdfSolver),
@@ -1138,6 +1263,21 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         check_batched(label, c, P, op.props, op.geom,
                       mask=op.space.mask_bytes(), viol=fviol)
     nvalid = int(op.space.mask_bytes().sum())
+    # the library yardstick on the [n, nb] block in both readings: one
+    # torch.sparse.mm of the generator as CSR with its sink rows (about a
+    # second a call here: one warm-up call, two timed) and of its state
+    # rows with the sinks as a dense reduction
+    A = generator_csr(c, op.space.mask_bytes(), op.prop_fields, fviol,
+                      op.shape, op.stoichiometry, op.num_constraints)
+    kp, ks = bk.box_action_synth_batched(c, P3, op.props, hb, op.geom)
+    Pt = P3.T.contiguous()
+    lib = library_readings(f"{label} nb=3", A, op.num_constraints, Pt,
+                           (kp, ks), reps=2, warm=1, rounds=1,
+                           readings=("csr",))
+    lib.update(library_readings(f"{label} nb=3", A, op.num_constraints, Pt,
+                                (kp, ks), readings=("split",)))
+    del kp, ks, A, Pt
+    torch.cuda.empty_cache()
     for P in (P3, P2):
         nb = P.shape[0]
         runs = {"plain": lambda: bk.box_action_synth_batched_reference(
@@ -1151,6 +1291,8 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
                    f"launches, plain", runs,
                    ["plain", "single", "K9", "K9", "single", "plain"],
                    {"plain": 3, "single": 20, "K9": 20})
+        if nb == 3:
+            ms["library"] = min(lib.values())
         nbytes = nb * pr.box_action_bytes(nf, nf, op.props.num_reactions,
                                           True, n_valid=nvalid) \
             + op.props.table_bytes()
@@ -1158,7 +1300,11 @@ def sens_phase(dev, smi, d5, mass_tol, run_solve, tables, same_twice,
         print(f"[9a] {label} nb={nb}: K9 {ms['K9'] * 1e3:.1f} us "
               f"({ms['K9'] / nb * 1e3:.1f} per vector) against {nb} single "
               f"K3 launches {ms['single'] * 1e3:.1f} us "
-              f"({ms['single'] / nb * 1e3:.1f} per vector); bound "
+              f"({ms['single'] / nb * 1e3:.1f} per vector); "
+              + (f"library with the [n, 3] block: {readings_text(lib)} "
+                 f"(K9 / library {ms['K9'] / ms['library']:.4f}); "
+                 if "library" in ms else "")
+              + f"bound "
               f"{bnd[0] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB: {nb} x K3's "
               f"bytes at {nvalid} valid of {nf} elements, the tables once), "
               f"{bnd[0] / ms['K9']:.3f} of it; {smi}", flush=True)
@@ -1237,32 +1383,35 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
     from pacmensl_tpu_torch.ops.vecops import FspVector
     from pacmensl_tpu_torch.statespace.partitioner import (
         PartitioningType, StatePartitioner)
+    from pacmensl_tpu_torch.tools import bench_configs, ell_bench
 
-    def uncounted(run):
-        """``run`` (kernels against their plain versions) without adding
-        to the path's counts."""
-        counts = (bk.KERNEL.launches, bk.KERNEL.plain_calls,
-                  bk.KERNEL.plain_cuda_calls)
-        held = [dict(d) for d in counts]
-        run()
-        for d, h in zip(counts, held):
-            d.update(h)
-
-    def hold_box(phase, s):
+    def hold_box(phase, target):
         """Checks the box kernels against their plain versions on the box
         operator and solution a migration leaves, then times the
-        migration; returns the list of (seconds, states, t) it fills."""
-        log, migrate = [], s._migrate_box_to_ell
+        migration, on the solver ``target`` or on every solver of the
+        class ``target``; returns the list of (seconds, states, t) it
+        fills and a function that undoes the hook."""
+        log = []
+        orig = target._migrate_box_to_ell   # a function on a class
+        own = "_migrate_box_to_ell" in vars(target)
+        on_class = isinstance(target, type)
 
-        def hooked():
+        def hooked(s):
             uncounted(lambda: final_operator(
                 phase, "last box epoch before the migration", s, s._t_now))
             t0 = time.perf_counter()
-            migrate()
+            orig(s) if on_class else orig()
             torch.cuda.synchronize()
             log.append((time.perf_counter() - t0, s.num_states, s._t_now))
-        s._migrate_box_to_ell = hooked
-        return log
+        target._migrate_box_to_ell = (hooked if on_class
+                                      else lambda: hooked(target))
+
+        def restore():
+            if own:
+                target._migrate_box_to_ell = orig
+            else:
+                delattr(target, "_migrate_box_to_ell")
+        return log, restore
 
     def setup(s, bundle):
         s.set_model(bundle.model)
@@ -1340,9 +1489,15 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
             "CSR": lambda: torch.mv(A, pv),
             "ELL_GRAPH": lambda: op_g.action(SLICE_T_FINAL, yg)}
     t = {k: [] for k in runs}
+    # the ELL action through tools/ell_bench.py's timer
+    ell_ops = {"ELL": (op, y), "ELL_GRAPH": (op_g, yg)}
     for k in ("ELL", "K3", "CSR", "ELL_GRAPH", "ELL_GRAPH", "CSR", "K3",
               "ELL"):
-        t[k].append(time_ms(runs[k], reps=100))
+        if k in ell_ops:
+            t[k].append(1e3 * ell_bench.time_action(
+                *ell_ops[k], iters=100, t=SLICE_T_FINAL))
+        else:
+            t[k].append(time_ms(runs[k], reps=100))
     ell_ms, k3_ms = min(t["ELL"]), min(t["K3"])
     box_n = int(np.prod(op4.shape))
     floor = (k3_ms / box_n) / (ell_ms / n)
@@ -1377,7 +1532,7 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
     try:
         s = setup(pt.FspSolverMultiSinks(backend="box", odes_type="krylov",
                                          device=dev), rep)
-        t_mig = hold_box("10c", s)
+        t_mig, _ = hold_box("10c", s)
         d10c, launch10c, wall = run_solve(
             "10c", f"repressilator box -> ELL t={GLOO_T_FINAL:g}", s,
             GLOO_T_FINAL, SLICE_TOL, lambda k: 1.0e-8)
@@ -1463,14 +1618,15 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
         print(f"[10e] birth-death stationary on {backend}: {d.num_states} "
               f"states, L1 to Poisson(10) {l1:.3e} (limit 1e-6)", flush=True)
         check(l1 < 1e-6, f"10e: birth-death on {backend}: L1 {l1:.3e}")
-    s = setup(pt.StationaryFspSolverMultiSinks(device=dev), rep)
-    t_mig = hold_box("10e", s)
+    # through bench_configs' stationary_rep config, at STAT_TOL
+    t_mig, restore = hold_box("10e", pt.StationaryFspSolverMultiSinks)
     torch.cuda.synchronize()
     bk.KERNEL.reset_counts()
-    t0 = time.perf_counter()
-    d = s.solve(STAT_TOL)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        s, d, wall = bench_configs.run_stationary_rep(
+            pt.Options.from_argv(["-sfsp_tol", str(STAT_TOL)]), dev)
+    finally:
+        restore()
     launch10e = dict(bk.KERNEL.launches)
     if s._backend_used == "box":
         final_operator("10e", "stationary repressilator", s, 0.0)
@@ -1565,7 +1721,8 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     CUDA events (100 calls) beside nb K4 sweeps (K4 chains where K9w
     chains), the unsharded K9, the plain version (only with
     ``time_plain``) and, with ``library``, one torch.sparse.mm of each
-    slab's CSR rows with the [n, nb] block; ``before``: the sweep's time
+    slab's CSR state rows with the [n, nb] block and the sinks as a dense
+    reduction (:func:`split_sinks`); ``before``: the sweep's time
     for the shape before the chain and the one-pass tail
     (``K9W_BEFORE_US``), printed beside.  Returns K9w's record (ms per
     sweep; the chain's in ``chain_ms``; ``graph_ms``: K9w's, the
@@ -1697,29 +1854,31 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     if not time_plain:
         del runs["plain"]
         order = order[1:-1]
-    mats = None
     if library:
+        # each slab's CSR rows with the sinks as a dense reduction
+        # (split_sinks): one CSR product with the sink rows is a long
+        # serial row a sink, about a second a call at a final capacity
+        # (9a prints both readings there)
         Pt = P.T.contiguous()
-        mats = [generator_csr(c, mask, a.dense(), viol, shape, geom.stoich,
-                              geom.nc, ((w[0].origin0 + w0) * plane,
-                                        (w[0].origin0 + w[0].out_hi)
-                                        * plane)) for w in wins]
-        for w, A in zip(wins, mats):
-            y = torch.sparse.mm(A, Pt)
+        splits = [split_sinks(generator_csr(
+            c, mask, a.dense(), viol, shape, geom.stoich, geom.nc,
+            ((w[0].origin0 + w0) * plane, (w[0].origin0 + w[0].out_hi)
+             * plane)), geom.nc) for w in wins]
+        for w, S in zip(wins, splits):
+            yp, ys = split_apply(S, Pt)
             kp, ks = launch("synth", w)
-            lerr = max(float((y[:w[0].n_out].T - kp).abs().max()),
-                       float((y[w[0].n_out:].T - ks).abs().max()))
+            lerr = max(float((yp.T - kp).abs().max()),
+                       float((ys.T - ks).abs().max()))
             check(lerr <= 1e-9 * float(kp.abs().max()),
                   f"[11d] {label}: a slab's CSR rows differ from K9w by "
                   f"{lerr:.3e}")
-        del y
-        runs["library"] = lambda: [torch.sparse.mm(A, Pt) for A in mats]
+        del yp, ys
+        runs["library"] = lambda: [split_apply(S, Pt) for S in splits]
         half = len(order) // 2
         order = order[:half] + ["library", "library"] + order[half:]
-    # the plain version and (at a final capacity, 0.26-0.50 s a call) the
-    # library are timed over fewer calls
-    reps = ({"plain": 3, "library": 5} if P[0].numel() > 1e7
-            else {"plain": 10})
+    # the plain version is timed over fewer calls at a final capacity
+    big = P[0].numel() > 1e7
+    reps = {"plain": 3, "library": 20} if big else {"plain": 10}
     t = {k: [] for k in runs}
     for k in order:
         t[k].append(time_ms(runs[k], reps=reps.get(k, 100)))
@@ -2209,7 +2368,9 @@ def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err):
             table_bytes=op.props.table_bytes(),
             field_rows=op.props.num_field_rows)
         bms = bound(nbytes, 2 * (2 * op.props.num_reactions + 1) * n)[0]
-        out[key] = (min(ms), ms_plain, bms, tuple(op.shape))
+        lib = (csr_library_ms(f"12c {label} {key}", op, c, p, got, smi)
+               if key == "box order" else None)
+        out[key] = (min(ms), ms_plain, bms, tuple(op.shape), lib)
         print(f"[12c] {label} {'K3' if synth else 'K1'} in {key} "
               f"{tuple(op.shape)} ({n} elements, {op.space.num_states} "
               f"states, rows of {op.shape[-1]}): "
@@ -2301,8 +2462,11 @@ def layout_phase(dev, smi, run_solve, layouts, k12, halo12, wall5, d5,
         u, b = per["user order"], per["box order"]
         print(f"[12c] {label}: user order {u[3]} {u[0] * 1e3:.1f} us "
               f"(bound {u[2] * 1e3:.1f}), box order {b[3]} "
-              f"{b[0] * 1e3:.1f} us (bound {b[2] * 1e3:.1f}); box / user "
-              f"{b[0] / u[0]:.3f}; {smi}", flush=True)
+              f"{b[0] * 1e3:.1f} us (bound {b[2] * 1e3:.1f}, library "
+              f"{b[4] * 1e3:.1f}, the lesser reading; kernel / library "
+              f"{b[0] / b[4]:.3f}, the kernel "
+              f"{'faster' if b[0] < b[4] else 'slower'}); "
+              f"box / user {b[0] / u[0]:.3f}; {smi}", flush=True)
     print(f"[12d] 11e's box over 2 ranks: axis orders {halo12['orders']}, "
           f"final capacity {halo12['capacity']}, w0 {halo12['w0']}, plane "
           f"{halo12['plane']} values; halo values per matvec (both "
@@ -2334,19 +2498,263 @@ def layout_phase(dev, smi, run_solve, layouts, k12, halo12, wall5, d5,
     return launches
 
 
+def entry_phase(dev, smi, run_entry, final_operator, rep, d4, d6,
+                mass_tol):
+    """Phase 13, the port's entry points at full width: (a) the
+    repressilator example's stages 2-4 from phase 4's distribution, (b)
+    transcr_reg_6d to the example's t = 300 with the fill rule's move to
+    ELL, (c) the scaling sweep at SWEEP_BOUND over one NCCL rank per card,
+    (d) the dry run's entry and multi-rank run, (e) the flagship's command
+    line.  Returns the box kernel's launches of (a)-(d) by mode."""
+    import numpy as np
+    import torch
+    import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.examples import repressilator as ex_rep
+    from pacmensl_tpu_torch.examples import scaling_sweep
+    from pacmensl_tpu_torch.examples import transcr_reg_6d as ex_tr6
+    from pacmensl_tpu_torch.examples import common
+    from pacmensl_tpu_torch.fsp import solver as fsp_solver
+    from pacmensl_tpu_torch.ops import box_kernel as bk
+    from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.tools import dryrun
+    no_opts = pt.Options()
+
+    # (a) the repressilator's other three stages
+    t0 = time.perf_counter()
+    dists, launch13a = {"adaptive_custom": d4}, []
+    for name in ex_rep.STAGES[1:]:
+        adaptive = dists.get(name.replace("fixed", "adaptive"))
+        args = ex_rep.stage_args(name, rep, adaptive)
+        s, d, launch, wall = run_entry(
+            "13a", f"repressilator {name} t={SLICE_T_FINAL:g} "
+                   f"tol={SLICE_TOL:g}",
+            lambda: ex_rep.run_stage(name, rep, *args, no_opts,
+                                     SLICE_T_FINAL, SLICE_TOL, str(OUT_DIR),
+                                     dev),
+            SLICE_TOL, lambda k: 1.0e-8)
+        launch13a.append(launch)
+        dists[name] = d
+        cap = (tuple(s._space.shape) if s._backend_used == "box"
+               else f"ELL n_pad {s._operator.n_pad}")
+        epochs = s.get_event_log().events["ODESolve"].count
+        print(f"[13a] {name}: {d.num_states} states, bounds "
+              f"{d.bounds.tolist()}, capacity {cap}, epochs {epochs}, "
+              f"launches {launch}, wall {wall:.2f} s; {smi}", flush=True)
+        if name.startswith("fixed"):
+            l1 = l1_by_state(d, adaptive)
+            print(f"[13a] {name}: L1 to its adaptive stage {l1:.3e} "
+                  f"(limit {2 * SLICE_TOL:g}); bounds unchanged: "
+                  f"{np.array_equal(d.bounds, adaptive.bounds)}", flush=True)
+            check(np.array_equal(d.bounds, adaptive.bounds),
+                  f"13a {name}: expanded from {adaptive.bounds.tolist()} "
+                  f"to {d.bounds.tolist()}")
+            check(l1 <= 2 * SLICE_TOL, f"13a {name}: L1 to its adaptive "
+                                       f"stage {l1:.3e}")
+        del s
+        torch.cuda.empty_cache()
+    l1 = l1_by_state(dists["adaptive_custom"], dists["adaptive_hyperrec"])
+    print(f"[13a] the two adaptive stages: L1 {l1:.3e} (limit "
+          f"{2 * SLICE_TOL:g}); phase 13a {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check(l1 <= 2 * SLICE_TOL, f"13a: the adaptive stages differ by "
+                               f"{l1:.3e}")
+
+    # (b) transcr_reg_6d to t = 300: K1 on the box, then the fill rule
+    t0 = time.perf_counter()
+    mig = {}
+    cls = pt.FspSolverMultiSinks
+    migrate = cls._migrate_box_to_ell
+
+    def hooked(s):
+        op, t = s._operator, s._t_now
+        S = s.model.num_species
+        tight = float(np.prod(s.constraints.derive_box_bounds(
+            S, s._init_int) + 1.0))
+        mig.update(t=t, states=s.num_states, fill=s.num_states / tight,
+                   capacity=tuple(op.shape), k1=dict(bk.KERNEL.launches),
+                   dist=s._make_distribution())
+        uncounted(lambda: final_operator(
+            "13b", "transcr_reg_6d, last box epoch before the migration",
+            s, t, synth=False))
+        c = op.model.coefficients(t)
+        want = uncounted(lambda: op.action(t, pt.FspVector(p=s._y.p,
+                                                           sinks=None), c=c))
+        mig["library_ms"] = csr_library_ms(
+            "13b K1 at the last box", op, c, s._y.p, (want.p, want.sinks),
+            smi)
+        mig["k1_ms"] = uncounted(lambda: min(time_ms(
+            lambda: op.action(t, pt.FspVector(p=s._y.p, sinks=None), c=c))
+            for _ in range(2)))
+        n = op.geom.n
+        nbytes = pr.box_action_bytes(
+            n, n, op.props.num_reactions, False, n_valid=s.num_states,
+            table_bytes=op.props.table_bytes(),
+            field_rows=op.props.num_field_rows)
+        mig["bound_ms"] = bound(
+            nbytes, 2 * (2 * op.props.num_reactions + 1) * n)[0]
+        t1 = time.perf_counter()
+        migrate(s)
+        torch.cuda.synchronize()
+        mig["seconds"] = time.perf_counter() - t1
+    cls._migrate_box_to_ell = hooked
+    try:
+        s, d, launch13b, wall = run_entry(
+            "13b", f"transcr_reg_6d t={TR6_EXAMPLE_T:g} tol={TR6_TOL:g}",
+            lambda: ex_tr6.main(["-device", "cuda", "-out_dir",
+                                 str(OUT_DIR)]), TR6_TOL, mass_tol)
+    finally:
+        cls._migrate_box_to_ell = migrate
+    check(isinstance(s._ode_solver, pt.BdfSolver),
+          "13b: transcr_reg_6d did not run BDF")
+    check(launch13b["mask"] > 0, "13b: no K1 launch")
+    if mig:
+        print(f"[13b] migrated to ELL at t = {mig['t']:.4g} with "
+              f"{mig['states']} states (fill {mig['fill']:.4f} of the "
+              f"tight box, floor {fsp_solver.BOX_FILL_FLOOR}), capacity "
+              f"{mig['capacity']}, after {mig['k1']['mask']} K1 launches; "
+              f"the migration {mig['seconds']:.2f} s; K1 on the last box "
+              f"{mig['k1_ms'] * 1e3:.1f} us, bound "
+              f"{mig['bound_ms'] * 1e3:.1f} us, library (the lesser "
+              f"reading) {mig['library_ms'] * 1e3:.1f} us; {smi}",
+              flush=True)
+    else:
+        S = s.model.num_species
+        tight = float(np.prod(s.constraints.derive_box_bounds(
+            S, s._init_int) + 1.0))
+        print(f"[13b] no migration: the solve ended on the box with "
+              f"{s.num_states} states, fill {s.num_states / tight:.4f} of "
+              f"the tight box (floor {fsp_solver.BOX_FILL_FLOOR})", flush=True)
+    print(f"[13b] transcr_reg_6d t={TR6_EXAMPLE_T:g}: {d.num_states} states, "
+          f"bounds {d.bounds.tolist()}, backend {s._backend_used}, wall "
+          f"{wall:.2f} s (the TPU's float32 record, context only: "
+          f"{TR6_TPU_STATES} states, bounds {TR6_TPU_BOUNDS})", flush=True)
+    if s._backend_used == "ell":
+        op, y = s._operator, s._y
+        n = op.n_states
+        c = op.model.coefficients(TR6_EXAMPLE_T)
+        A = ell_csr(op, c)
+        ref = torch.mv(A, y.p[:n].contiguous())
+        got = op.action(TR6_EXAMPLE_T, y)
+        e_dp = float((got.p[:n] - ref[:n]).abs().max()) \
+            / float(ref[:n].abs().max())
+        e_s = float(((got.sinks - ref[n:]).abs()
+                     / ref[n:].abs().clamp_min(1e-300)).max())
+        print(f"[13b] ELL action at {n} states against one torch.mv of the "
+              f"CSR generator: dp {e_dp:.3e}, sinks {e_s:.3e} relative "
+              f"(limits 1e-12)", flush=True)
+        check(e_dp <= 1e-12 and e_s <= 1e-12,
+              f"13b: the ELL action differs from the CSR product "
+              f"({e_dp:.3e}, {e_s:.3e})")
+        del A, ref, got, op, y
+    del s
+    torch.cuda.empty_cache()
+    # an independent solve on ELL from the start, reduced to the time of
+    # the migration (to phase 6's t = 30 without one)
+    t_cmp, want = ((mig["t"], mig["dist"]) if mig else (TR6_T_FINAL, d6))
+    tr6 = pt.models.transcription_regulation_6d()
+    s2 = common.configure(pt.FspSolverMultiSinks(
+        backend="ell", odes_type="cvode", device=dev), tr6, no_opts,
+        constraint=None)
+    d2, wall2 = common.timed_solve(s2, t_cmp, TR6_TOL)
+    l1 = l1_by_state(d2, want)
+    print(f"[13b] ELL from the start to t = {t_cmp:.4g}: {d2.num_states} "
+          f"states, {wall2:.2f} s; L1 to the box solve there {l1:.3e} "
+          f"(limit {2 * TR6_TOL:g}); phase 13b "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(l1 <= 2 * TR6_TOL, f"13b: L1 to the ELL solve {l1:.3e}")
+    del s2, d2
+    torch.cuda.empty_cache()
+
+    # (c) the scaling sweep, one NCCL rank per card
+    t0 = time.perf_counter()
+    sweep = scaling_sweep.main(["-bound", str(SWEEP_BOUND), "-device",
+                                "cuda"])
+    for r in sweep["rows"]:
+        if r["path"] == "box":
+            check(r["same"] and r["sinks_rel"] <= 1e-12,
+                  f"13c: the box dp over {r['n']} ranks is not one "
+                  f"card's (sinks {r['sinks_rel']:.3e})")
+        else:
+            check(r["rel_err"] <= 1e-12,
+                  f"13c: the ELL dp over {r['n']} ranks ({r['label']}) "
+                  f"differs from one card's by {r['rel_err']:.3e}")
+    launch13c = sweep["launches"]
+    print(f"[13c] sweep at {SWEEP_BOUND + 1}^3 over up to "
+          f"{torch.cuda.device_count()} cards: {len(sweep['rows'])} rows, "
+          f"box dp bitwise one card's and ELL within 1e-12 on every n; "
+          f"launches {launch13c}; phase 13c {time.perf_counter() - t0:.1f} "
+          f"s; {smi}", flush=True)
+
+    # (d) the dry run: entry() once on the card, then the multi-rank run
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(dev)
+    torch.cuda.synchronize()
+    bk.KERNEL.reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launch13d = dict(bk.KERNEL.launches)
+    mass = float(out.p.sum() + out.sinks.sum())
+    print(f"[13d] entry(): one action on {tuple(out.p.shape)}, launches "
+          f"{launch13d}, sum(dp) + sum(sinks) = {mass:.3e}", flush=True)
+    check(launch13d["synth"] == 1 and sum(launch13d.values()) == 1,
+          f"13d: entry() launched {launch13d}")
+    check(bool(torch.isfinite(out.p).all()) and abs(mass) <= 1e-12,
+          f"13d: entry()'s action is not finite or does not conserve mass "
+          f"({mass:.3e})")
+    ranks = dryrun.dryrun_multichip(torch.cuda.device_count(), "cuda")
+    for r in ranks:
+        print(f"[13d] dry run rank {r['rank']} ({r['device']}): mass "
+              f"{r['mass']:.12f} at t = {r['t']:g}, box {r['box_capacity']}, "
+              f"Poisson {r['poisson_epochs']} epochs, {r['poisson_states']} "
+              f"states, L1 {r['poisson_l1']:.3e}, launches {r['launches']}",
+              flush=True)
+    launch13d = add_launches(launch13d, *(r["launches"] for r in ranks))
+    check(launch13d["sharded_synth"] + launch13d["sharded_mask"] > 0,
+          "13d: the dry run launched no K4")
+    print(f"[13d] phase 13d {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (e) the flagship's command line
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "pacmensl_tpu_torch.tools.flagship",
+         "-repeat", "2"], capture_output=True, text=True,
+        cwd=str(Path(__file__).resolve().parent), timeout=600)
+    lines = res.stdout.strip().splitlines()
+    check(res.returncode == 0 and lines and lines[-1].startswith("walls:"),
+          f"13e: the flagship exited with {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    walls = [float(w) for w in lines[-1].split()[1:]]
+    check(len(walls) == 2, f"13e: {lines[-1]}")
+    print(f"[13e] python -m pacmensl_tpu_torch.tools.flagship -repeat 2: "
+          + " | ".join(ln for ln in lines if ln.startswith("==="))
+          + f"; {lines[-1]} s; the command {time.perf_counter() - t0:.1f} "
+          f"s; {smi}", flush=True)
+    return add_launches(*launch13a), launch13b, launch13c, launch13d
+
+
 def main():
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
+    t_start = time.perf_counter()
+
+    def clock(phase):
+        """The script's seconds so far (its limit is 1200, the build
+        included)."""
+        print(f"[clock] phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import pacmensl_tpu_torch as pt
+    from pacmensl_tpu_torch.examples import repressilator as ex_rep
     from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
+    from pacmensl_tpu_torch.tools import bench_configs
     dev = torch.device("cuda", 0)
 
     # ---------------------------------------------------------- phase 1
+    clock(1)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2371,6 +2779,7 @@ def main():
         print(f"[1] ptxas, box kernel {line}", flush=True)
 
     # ---------------------------------------------------------- phase 2
+    clock(2)
     rng = np.random.default_rng(1234)
     max_err = {"mask": 0.0, "synth": 0.0, "sharded": 0.0, "batched": 0.0,
                "batched_sharded": 0.0}
@@ -2542,26 +2951,20 @@ def main():
 
     def library(label, c, p, mask, a, viol, shape, nc, k1, reps=100,
                 stoich=None):
-        """One torch.mv of the generator as CSR on ``p``, checked against
-        K1's (dp, sinks) ``k1``; its time in ms over ``reps`` calls.
+        """The generator as CSR on ``p`` in both readings of
+        :func:`library_readings`, checked against K1's (dp, sinks)
+        ``k1``; the least, ms per call over ``reps`` calls.
         ``stoich``: the operator's (default: the repressilator's in user
         order)."""
         A = generator_csr(c, mask, a.dense(), viol, shape,
                           rep.model.stoichiometry if stoich is None
                           else stoich, nc)
-        y = torch.mv(A, p)
-        scale = float(k1[0].abs().max())
-        err = max(float((y[:-nc] - k1[0]).abs().max()),
-                  float((y[-nc:] - k1[1]).abs().max()))
-        check(err <= 1e-9 * scale, f"{label}: the CSR generator differs "
-                                   f"from K1 by {err:.3e}")
-        t = min(time_ms(lambda: torch.mv(A, p), reps) for _ in range(2))
-        print(f"[{label}] library: torch.mv of the CSR generator "
-              f"({A.shape[0]} x {A.shape[1]}, {A.values().numel()} "
-              f"nonzeros) {t * 1e3:.1f} us, max abs difference to K1 "
-              f"{err:.3e}", flush=True)
+        r = library_readings(label, A, nc, p, k1, reps)
+        print(f"[{label}] library ({A.shape[0]} x {A.shape[1]}, "
+              f"{A.values().numel()} nonzeros): " + readings_text(r),
+              flush=True)
         del A
-        return t
+        return min(r.values())
 
     k1 = bk.box_action(c, p, mask, a, viol, geom)
     lib_ms = library("2", c, p, mask, a, viol, shape, 3, k1)
@@ -2630,6 +3033,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
+    clock(3)
     b = m.poisson(2.0)
     s = pt.FspSolverMultiSinks(odes_type="krylov", device=dev)
     s.set_model(b.model)
@@ -2649,6 +3053,7 @@ def main():
     check(l1 <= 1.0e-6, f"poisson oracle L1 {l1:.3e} > 1e-6")
 
     # ------------------------------------------------ phases 4 and 5
+    clock(4)
     #: phase 12a: per solve (its phase and label) the box's axis orders,
     #: reordered rebuilds and their seconds, and the final capacity
     layouts = {}
@@ -2666,21 +3071,21 @@ def main():
         s.set_initial_distribution(bundle.x0, bundle.p0)
         return s
 
-    def run_solve(phase, label, s, t_final, tol, mass_tol, kernel=True,
+    def run_entry(phase, label, go, tol, mass_tol, kernel=True,
                   neg_tol=lambda steps: 1.0e-12):
-        """One solve with the counters set to 0 just before it; prints
-        and checks its output; returns (distribution, launches, wall).
-        ``kernel=False``: a compressed-backend solve, which launches no
-        box kernel.  ``neg_tol(steps)``: how far below 0 an entry of p
-        may lie after that many accepted steps."""
+        """One solve through an entry point, ``go()`` returning
+        ``(solver, distribution, wall)``, with the counters set to 0 just
+        before it; prints and checks its output; returns (solver,
+        distribution, launches, wall).  ``kernel=False``: a
+        compressed-backend solve, which launches no box kernel.
+        ``neg_tol(steps)``: how far below 0 an entry of p may lie after
+        that many accepted steps."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
         bk.KERNEL.reset_counts()
-        t0 = time.perf_counter()
-        d = s.solve(t_final, tol)
+        s, d, wall = go()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         launches = dict(bk.KERNEL.launches)
         plain = dict(bk.KERNEL.plain_cuda_calls)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -2733,7 +3138,17 @@ def main():
               f"{label}: kernel launches {launches}")
         check(sum(plain.values()) == 0,
               f"{label}: the plain versions ran {plain} times on CUDA")
-        return d, launches, wall
+        return s, d, launches, wall
+
+    def run_solve(phase, label, s, t_final, tol, mass_tol, **kw):
+        """``run_entry`` of ``s.solve(t_final, tol)``; returns
+        (distribution, launches, wall)."""
+        def go():
+            t0 = time.perf_counter()
+            d = s.solve(t_final, tol)
+            torch.cuda.synchronize()
+            return s, d, time.perf_counter() - t0
+        return run_entry(phase, label, go, tol, mass_tol, **kw)[1:]
 
     def final_operator(phase, label, s, t, synth=True):
         """Every mode that applies against its plain version on the final
@@ -2745,11 +3160,21 @@ def main():
               f"{'synthesized-mask' if synth else 'mask-reading'} kernel")
         compare(phase, f"{label}: final operator and p", op, t, p=s._y.p)
 
-    # phase 4: repressilator, Krylov
-    s = solver_for(rep, "krylov")
-    d4, launch4, _ = run_solve(4, f"repressilator t={SLICE_T_FINAL:g} "
-                                  f"tol={SLICE_TOL:g}", s, SLICE_T_FINAL,
-                               SLICE_TOL, lambda k: 1.0e-8)
+    # phase 4: repressilator, Krylov, through the example's first stage.
+    # Phases 4, 5 and 9 hold the box's kernels, so they pass the option
+    # -fsp_backend box: under the default "auto" the fill rule moves the
+    # repressilator to ELL partway (PERF.md, the entry points' findings)
+    box_opts = pt.Options.from_argv(["-fsp_backend", "box"])
+    s, d4, launch4, _ = run_entry(
+        4, f"repressilator t={SLICE_T_FINAL:g} tol={SLICE_TOL:g}",
+        lambda: ex_rep.run_stage(
+            "adaptive_custom", rep,
+            *ex_rep.stage_args("adaptive_custom", rep), box_opts,
+            SLICE_T_FINAL, SLICE_TOL, str(OUT_DIR), dev),
+        SLICE_TOL, lambda k: 1.0e-8)
+    check(isinstance(s._ode_solver, pt.KrylovSolver)
+          and s._backend_used == "box",
+          "the repressilator did not run Krylov on the box")
     tables(4, "repressilator final operator", s._operator)
     final_operator(4, "repressilator", s, SLICE_T_FINAL)
     k12["repressilator"] = layout_kernel_times(
@@ -2798,10 +3223,11 @@ def main():
     def bdf_mass_tol(steps):
         return max(1.0e-8, GMRES_TOL * steps)
 
-    s = solver_for(hog, "auto")
-    d5, launch5, wall5 = run_solve(
-        5, f"hog1p_5d t={HOG_T_FINAL:g} tol={HOG_TOL:g}", s, HOG_T_FINAL,
-        HOG_TOL, bdf_mass_tol)
+    # through bench_configs' hog1p config (the example's configuration)
+    s, d5, launch5, wall5 = run_entry(
+        5, f"hog1p_5d t={HOG_T_FINAL:g} tol={HOG_TOL:g}",
+        lambda: bench_configs.run_hog1p(box_opts, dev), HOG_TOL,
+        bdf_mass_tol)
     check(isinstance(s._ode_solver, pt.BdfSolver),
           "hog1p_5d did not run the BDF integrator")
     check(launch5["synth"] > 0, "hog1p_5d launched no K3 kernel")
@@ -2877,6 +3303,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 7
+    clock(7)
     from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
 
     def slab_windows(geom, p, mask, a, viol):
@@ -2975,29 +3402,27 @@ def main():
         return {k: float(np.mean(v)) for k, v in t.items()}
 
     def library_k4(label, c, p, mask, a, viol, geom, windows, k4, reps=100):
-        """One torch.mv per slab of the generator's CSR rows of that slab
-        (the function of one K4 launch), each checked against the slab's
-        K4 (dp, sinks) in ``k4``; ms per slab and per sweep."""
+        """Per slab the generator's CSR rows of that slab (the function of
+        one K4 launch) in both readings of :func:`library_readings`, each
+        checked against the slab's K4 (dp, sinks) in ``k4``; ms per sweep,
+        the lesser reading's."""
         plane = geom.plane
-        per = []
+        per = {}
         for w, (kp, ks) in zip(windows, k4):
             g = w[0]
             lo = (g.origin0 + g.out_lo) * plane
             A = generator_csr(c, mask, a.dense(), viol, geom.shape,
                               geom.stoich, geom.nc, (lo, lo + g.n_out))
-            y = torch.mv(A, p)
-            scale = float(kp.abs().max())
-            err = max(float((y[:g.n_out] - kp).abs().max()),
-                      float((y[g.n_out:] - ks).abs().max()))
-            check(err <= 1e-9 * scale, f"{label}: a slab's CSR rows differ "
-                                       f"from K4 by {err:.3e}")
-            per.append(min(time_ms(lambda: torch.mv(A, p), reps)
-                           for _ in range(2)))
-            del A, y
-        print(f"[7a] {label} library: torch.mv of each slab's CSR rows "
-              + " / ".join(f"{t * 1e3:.1f}" for t in per)
-              + f" us, a sweep {sum(per) * 1e3:.1f} us", flush=True)
-        return sum(per)
+            r = library_readings(f"{label}: a slab", A, geom.nc, p,
+                                 (kp, ks), reps)
+            for k, v in r.items():
+                per.setdefault(k, []).append(v)
+            del A
+        print(f"[7a] {label} library, each slab's CSR rows (us): " + "; ".join(
+            f"{k} " + " / ".join(f"{t * 1e3:.1f}" for t in v)
+            + f", a sweep {sum(v) * 1e3:.1f}" for k, v in per.items()),
+            flush=True)
+        return min(sum(v) for v in per.values())
 
     # 7a: the 128^3 box of phase 2
     win128 = slab_windows(geom, p, mask, a, viol)
@@ -3111,8 +3536,7 @@ def main():
     d7b, launch7b = rank_checks(
         "7b", f"sharded repressilator t={SLICE_T_FINAL:g} "
               f"tol={SLICE_TOL:g} over NCCL",
-        run_ranks(world, "nccl", SLICE_T_FINAL, SLICE_TOL), SLICE_TOL,
-        1 if world == 1 else 2)
+        run_ranks(world, "nccl", SLICE_T_FINAL, SLICE_TOL), SLICE_TOL, 1)
     l1 = l1_by_state(d7b, d4)
     same = (np.array_equal(d7b.states, d4.states)
             and np.array_equal(d7b.p, d4.p))
@@ -3126,7 +3550,7 @@ def main():
     d7c, launch7c = rank_checks(
         "7c", f"sharded repressilator t={GLOO_T_FINAL:g} tol={SLICE_TOL:g}"
               " over gloo", run_ranks(2, "gloo", GLOO_T_FINAL, SLICE_TOL),
-        SLICE_TOL, 2)
+        SLICE_TOL, 1)
     s = solver_for(rep, "krylov")
     t0 = time.perf_counter()
     d1 = s.solve(GLOO_T_FINAL, SLICE_TOL)
@@ -3144,16 +3568,19 @@ def main():
     check(l1 <= 2 * SLICE_TOL, f"7c: L1 to the one-device solve {l1:.3e}")
 
     # ---------------------------------------------------------- phase 8
+    clock(8)
     probe_entries = probe_phase(dev, smi, {
         "K1": (ms["K1"], roof_bytes["K1"]), "K3": (ms["K3"], roof_bytes["K3"]),
         "K4": (ms4["K4_synth"], roof_bytes["K4"])})
 
     # ---------------------------------------------------------- phase 9
-    launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_solve,
+    clock(9)
+    launch9, k9 = sens_phase(dev, smi, d5, bdf_mass_tol, run_entry,
                                      tables,
                              same_twice, max_err)
 
     # --------------------------------------------------------- phase 10
+    clock(10)
     launch10c, launch10e, d10 = ell_phase(dev, smi, run_solve,
                                           final_operator, rep, d4, op4, p4,
                                           d1)
@@ -3161,15 +3588,24 @@ def main():
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- phase 11
+    clock(11)
     launch11a, launch11b, k9w_launches, k9w, halo12 = petsc_phase(
         dev, smi, run_solve, rep, d4, d1, d10, max_err)
 
     # --------------------------------------------------------- phase 12
+    clock(12)
     launch12 = layout_phase(dev, smi, run_solve, layouts, k12, halo12,
                             wall5, d5, bdf_mass_tol)
 
+    # --------------------------------------------------------- phase 13
+    clock(13)
+    launch13a, launch13b, launch13c, launch13d = entry_phase(
+        dev, smi, run_entry, final_operator, rep, d4, d6, bdf_mass_tol)
+
     paths = (launch4, launch5, launch6, launch9, launch10c, launch10e,
-             launch11a, launch11b, launch12)
+             launch11a, launch11b, launch12, launch13a, launch13b,
+             launch13c, launch13d)
+    clock("end")
     print(json.dumps({"kernels": [
         {"name": "box_action", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",
@@ -3190,7 +3626,9 @@ def main():
         {"name": "box_action_sharded", "route": "cuda",
          "source": "pacmensl_tpu_torch/csrc/box_action.cu",
          "replaces": "pacmensl_tpu/ops/pallas_box.py:220",
-         "launches": launch7b + launch7c,
+         "launches": launch7b + launch7c + sum(
+             lc["sharded_mask"] + lc["sharded_synth"]
+             for lc in (launch13c, launch13d)),
          "max_abs_err": max_err["sharded"],
          "ms": ms4["K4_synth"], "plain_ms": ms4["plain_K4_synth"],
          "bound_ms": bounds_ms["K4"][0], "bound_by": bounds_ms["K4"][1],

@@ -760,12 +760,31 @@ class FspSolverMultiSinks:
         res = part.partition(self._space.states, self.model.stoichiometry,
                              n_parts, state2index=self._space.state2index,
                              prev_order=prev, need_boundaries=False)
+        self._check_same_order(res.order)
         self._space.reorder(res.order)
         if self.verbosity:
             print(f"[fsp] re-ordered {n} states "
                   f"({self.partitioning.value}/"
                   f"{self.repart_approach.value})")
         return True
+
+    def _check_same_order(self, order: np.ndarray) -> None:
+        """Over a mesh every rank orders the same state set on its own
+        (the reference package once for the whole mesh); the ranks
+        all-gather a checksum of their orders and raise
+        :class:`StateSpaceError` where they differ, since ranks on
+        different orders would exchange the wrong halos."""
+        if self.mesh is None or self.mesh.size == 1:
+            return
+        w = np.arange(1, order.shape[0] + 1, dtype=np.int64)
+        mine = torch.tensor([[order.shape[0], int(order.sum()),
+                              int((order * w % 1000003).sum())]],
+                            dtype=torch.int64, device=self.mesh.device)
+        every = self.mesh.all_gather(mine).cpu().numpy()
+        if not (every == every[:1]).all():
+            raise StateSpaceError(
+                f"the ranks ordered the state set differently "
+                f"({self.partitioning.value}; checksums {every.tolist()})")
 
     def _build_operator(self):
         self._ode_solver = None     # its basis has the old capacity

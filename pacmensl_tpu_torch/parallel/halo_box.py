@@ -23,24 +23,24 @@ concatenated, and the halos are received into buffers allocated once.
 * One rank (no neighbour on either side): one launch on the slab, with no
   halos (the rows they would hold lie outside the box), and no
   collective.
-* Halos in flight, where ``L0 >= 2 w0`` and ``PACMENSL_HALO_OVERLAP`` is
-  not ``"0"`` (reference ``:149-193``): the exchange starts first, one
-  launch computes the interior rows ``[w0, L0 - w0)``, which need no
-  remote planes, while it is in flight, and one launch computes both edge
-  strips (the first and the last ``w0`` rows) from the received halos.
-  The second launch sums both launches' sink partials: one reduction per
-  matvec.
-* Else one launch on the window after the exchange.
+* Several ranks: one launch on the window after the exchange (K4), on
+  every transport.  The reference overlaps the exchange with a launch on
+  the interior rows, then one on both edge strips (``:149-193``); that
+  chain was slower than one launch over 2 and 4 NCCL ranks, one card
+  each, at a 256^3 box (``PERF.md``), as K9w's chain was, so the action
+  never takes it.
 
 :meth:`ShardedBoxAction.batched` applies the action to ``nb`` vectors of
 the rank's slab at once (the reference's meshed sensitivity solve
 ``vmap``s the sharded call): one exchange of every vector's edge planes,
 stacked ``[nb, w0 P]`` each way, the batched kernel on the window (K9w),
-and one all-reduce of the ``[nb, n_c]`` sinks.  K9w runs in one launch
-on the window after the exchange, also where K4 chains: its chain (the
-interior rows of every vector with the halos in flight, then every
-vector's edge strips; ``ops/box_kernel.py``) was slower on one card and
-over two NCCL ranks, one card each (``PERF.md``).
+and one all-reduce of the ``[nb, n_c]`` sinks, in one launch on the
+window after the exchange.  The kernel's chain (the interior rows of
+every vector with the halos in flight, then every vector's edge strips;
+``ops/box_kernel.py``), slower on one card and over two NCCL ranks, one
+card each (``PERF.md``), keeps its two geometries here
+(:attr:`ShardedBoxAction.chain`) for the measurements and tests that
+hold it to one launch; no action runs it.
 :meth:`ShardedBoxAction.apply` is the action on either, given halos that
 another action received (``halos=``, planes of a width of at least
 ``w0``: then no exchange) and with the sinks left unreduced on request
@@ -49,7 +49,6 @@ one all-reduce for all its operators (``ops/sens_operator.py``).
 """
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -110,14 +109,16 @@ class ShardedBoxAction:
         #: whether a halo crosses ranks; without, no exchange and no
         #: collective
         self.halos = mesh.size > 1
-        self.overlap = (self.halos and L0 >= 2 * w0
-                        and os.environ.get("PACMENSL_HALO_OVERLAP", "1")
-                        != "0")
-        if self.overlap:
-            self.geom_int = geom((2 * w0, L0))
-            self.geom_edge = geom((w0, w0 + L0), gap=(2 * w0, L0),
-                                  follows=self.geom_int)
-        #: one launch on the window: K4 without the overlap, K9w always
+        #: the kernel's chain on the window where the slab has an interior
+        #: (``L0 >= 2 w0``), else None: the interior rows, then both edge
+        #: strips, which read the halos and return both launches' sinks.
+        #: Held to one launch by tests and timed; no action runs it
+        self.chain = None
+        if self.halos and L0 >= 2 * w0:
+            lead = geom((2 * w0, L0))
+            self.chain = (lead, geom((w0, w0 + L0), gap=(2 * w0, L0),
+                                     follows=lead))
+        #: one launch on the window: K4 and K9w
         self.geom = geom((w0, w0 + L0))
         # the received halos, per leading shape of p: () or (nb,)
         self._bufs = {}
@@ -162,19 +163,10 @@ class ShardedBoxAction:
             # the planes next to the slab, of halos at least w0 planes wide
             up, dn = halos
             halos = (up[..., up.shape[-1] - w0 * P:], dn[..., :w0 * P])
-        if self.overlap and p.dim() == 1:
-            dp = out if out is not None else torch.empty_like(p)
-            self._run(self.geom_int, c, p, a, mask, viol, bounds,
-                      dp[w0 * P:(L0 - w0) * P])
-            if ex is not None:
-                halos = ex.wait()
-            _, ks = self._run(self.geom_edge, c, p, a, mask, viol, bounds,
-                              dp, halos)
-        else:
-            if ex is not None:
-                halos = ex.wait()
-            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out,
-                               halos)
+        if ex is not None:
+            halos = ex.wait()
+        dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out,
+                           halos)
         if reduce and ks.numel():
             self.mesh.all_reduce(ks)
         return dp, ks, halos

@@ -14,7 +14,10 @@ boundaries**:
 * ``HYPERGRAPH``  -- the reference's connectivity-cut model
   (StatePartitionerHyperGraph.cpp:90-141) relaxed to a spectral
   (Fiedler-vector) order, net-size weights; RCM where the eigensolve
-  fails.
+  fails.  Unlike the reference's (ARPACK from a random start), the
+  order is the same on every call: a fixed start, and a stated rule
+  where the Fiedler eigenvalue is tied (:meth:`StatePartitioner.
+  _fiedler_order`).
 * ``HIERARCHICAL`` raises, as in the reference.
 
 Approaches (reference ``PartitioningApproach``): ``FROMSCRATCH``
@@ -30,6 +33,14 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+#: HYPERGRAPH's eigenpairs: 0, the Fiedler value and two more, to see a
+#: tie of the Fiedler value with up to two others
+FIEDLER_PAIRS = 4
+#: eigenvalues within this relative distance of the Fiedler value are tied
+TIE_RTOL = 1.0e-6
+#: the directions HYPERGRAPH's tie rule tries in a tied eigenspace
+TIE_ANGLES = 16
 
 
 class PartitioningType(enum.Enum):
@@ -107,7 +118,8 @@ class StatePartitioner:
             else:
                 order = self._locality_order(
                     states, stoich, state2index,
-                    objective="connectivity" if hyper else "bandwidth")
+                    objective="connectivity" if hyper else "bandwidth",
+                    n_parts=n_parts)
             if not need_boundaries:
                 return PartitionResult(
                     order, self._weighted_blocks(np.ones(n), n_parts))
@@ -167,15 +179,18 @@ class StatePartitioner:
 
     @staticmethod
     def _locality_order(states, stoich, state2index,
-                        objective: str = "bandwidth") -> np.ndarray:
+                        objective: str = "bandwidth",
+                        n_parts: int = 1) -> np.ndarray:
         """Ordering of the CME dependency graph so a contiguous 1-D split
         has a small boundary cut.
 
         ``bandwidth`` (GRAPH): reverse-Cuthill-McKee.
         ``connectivity`` (HYPERGRAPH): Fiedler-vector (spectral) order —
         minimizes sum_edges (pos_i - pos_j)^2, the continuous relaxation
-        of the PHG connectivity-cut objective; falls back to RCM when the
-        eigensolve fails or scipy is unavailable.
+        of the PHG connectivity-cut objective (:meth:`_fiedler_order`, whose
+        choice on a tie reads ``n_parts``); falls back to RCM when the
+        eigensolve fails or scipy is unavailable.  Both are the same on
+        every call and every rank.
         """
         n = states.shape[0]
         if state2index is None:
@@ -185,14 +200,8 @@ class StatePartitioner:
             return np.arange(n)
         if objective == "connectivity" and n > 2:
             try:
-                import scipy.sparse as sp
-                from scipy.sparse.linalg import eigsh
-                lap = sp.csgraph.laplacian(g, normed=False)
-                # smallest two eigenpairs; Fiedler = second
-                _, vecs = eigsh(lap.astype(np.float64), k=2, sigma=-1e-3,
-                                which="LM")
-                fiedler = vecs[:, 1]
-                return np.argsort(fiedler, kind="stable").astype(np.int64)
+                return StatePartitioner._fiedler_order(
+                    g, states, stoich, state2index, n_parts)
             except Exception:
                 pass                      # spectral failed: RCM fallback
         try:
@@ -201,6 +210,69 @@ class StatePartitioner:
             return np.arange(n)
         perm = reverse_cuthill_mckee(g, symmetric_mode=True)
         return np.asarray(perm, dtype=np.int64)
+
+    @staticmethod
+    def _fiedler_order(g, states, stoich, state2index, n_parts
+                       ) -> np.ndarray:
+        """The order of the Fiedler vector of ``g``'s Laplacian, the same
+        on every call and every rank.  ARPACK starts from a fixed vector
+        (the reference's from a random one).  Where the Fiedler eigenvalue
+        is tied (the toggle's square grid: one eigenvalue per axis), the
+        eigenspace holds no preferred vector, so a rule picks one:
+
+        1. a basis of the tied space independent of ARPACK's: the
+           projections of the species' coordinates onto it, in species
+           order, orthonormalised (ARPACK's vectors complete it where the
+           coordinates span less);
+        2. in the plane of its first two vectors, the direction at
+           ``j pi / TIE_ANGLES`` (j = 0, 1, ...) whose order has the least
+           connectivity cut over ``max(n_parts, 2)`` blocks of equal net
+           weight, the first such j on a tie of cuts.
+
+        The sign of the vector makes its largest entry positive (the
+        first such entry on a tie)."""
+        import scipy.sparse as sp
+        from scipy.sparse.linalg import eigsh
+        n = states.shape[0]
+        lap = sp.csgraph.laplacian(g, normed=False).astype(np.float64)
+        v0 = 1.0 + np.arange(n, dtype=np.float64) / n
+        vals, vecs = eigsh(lap, k=min(FIEDLER_PAIRS, n - 1), sigma=-1e-3,
+                           which="LM", v0=v0)
+        keep = np.argsort(vals, kind="stable")
+        vals, vecs = vals[keep], vecs[:, keep]
+        # the smallest eigenvalue is 0 (constant vector); Fiedler's second
+        tied = np.abs(vals - vals[1]) <= TIE_RTOL * abs(vals[1])
+        tied[0] = False
+        space = vecs[:, tied]
+        if space.shape[1] == 1:
+            return np.argsort(_signed(space[:, 0]), kind="stable")
+        x = states.astype(np.float64)
+        x = x - x.mean(axis=0)
+        cand = np.concatenate([space @ (space.T @ x), space], axis=1)
+        basis = []
+        for v in cand.T:
+            for e in basis:
+                v = v - (e @ v) * e
+            norm = np.linalg.norm(v)
+            if norm > 1e-8 * np.sqrt(n):
+                basis.append(v / norm)
+            if len(basis) == 2:
+                break
+        nbrs = [state2index(states - stoich[r][None, :])
+                for r in range(stoich.shape[0])]
+        weights = StatePartitioner._net_weights(states, stoich, state2index)
+        best = None
+        for j in range(TIE_ANGLES):
+            th = j * np.pi / TIE_ANGLES
+            order = np.argsort(_signed(np.cos(th) * basis[0]
+                                       + np.sin(th) * basis[1]),
+                               kind="stable")
+            cut = StatePartitioner._cuts(
+                nbrs, order, StatePartitioner._weighted_blocks(
+                    weights[order], max(n_parts, 2)))["connectivity_cut"]
+            if best is None or cut < best[0]:
+                best = (cut, order)
+        return best[1]
 
     # ------------------------------------------------------------ metrics
     @staticmethod
@@ -213,14 +285,21 @@ class StatePartitioner:
         StatePartitionerHyperGraph.cpp:90-104).  Used by the partitioner
         tests to compare strategies with the reference's own objectives.
         """
-        n, m = states.shape[0], stoich.shape[0]
+        nbrs = [state2index(states - stoich[r][None, :])
+                for r in range(stoich.shape[0])]
+        return StatePartitioner._cuts(nbrs, order, boundaries)
+
+    @staticmethod
+    def _cuts(nbrs, order, boundaries) -> dict:
+        """:meth:`partition_cuts` from each reaction's in-neighbour
+        indices ``nbrs[r]`` (-1 where absent)."""
+        n = order.shape[0]
         pos = np.empty(n, dtype=np.int64)
         pos[order] = np.arange(n)               # state idx -> position
         part = np.searchsorted(np.asarray(boundaries), pos, side="right") - 1
         edge = 0
         nbr_parts = []                          # -1 = member absent
-        for r in range(m):
-            nbr = state2index(states - stoich[r][None, :])
+        for nbr in nbrs:
             ok = nbr >= 0
             pnbr = np.where(ok, part[np.where(ok, nbr, 0)], part)
             edge += int((pnbr != part).sum())
@@ -240,3 +319,8 @@ class StatePartitioner:
         bounds = np.searchsorted(cw, targets)
         bounds[0], bounds[-1] = 0, weights.shape[0]
         return np.maximum.accumulate(bounds)
+
+
+def _signed(v: np.ndarray) -> np.ndarray:
+    """``v`` with the sign that makes its largest entry positive."""
+    return -v if v[np.argmax(np.abs(v))] < 0 else v

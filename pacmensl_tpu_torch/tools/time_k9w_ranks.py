@@ -13,8 +13,8 @@ rank times four ways on ``nb`` random vectors of its slab: ``one``,
 :meth:`ShardedBoxAction.batched` (the exchange, K9w in one launch on the
 window, the all-reduce of the sinks); ``chain``, the exchange started,
 K9w on the interior rows of every vector, the exchange awaited, K9w on
-every vector's edge strips (the chained geometries K4 takes under
-``PACMENSL_HALO_OVERLAP``), the all-reduce; ``exchange``, the exchange
+every vector's edge strips (the geometries of
+:attr:`ShardedBoxAction.chain`), the all-reduce; ``exchange``, the exchange
 and the all-reduce alone; ``kernel``, the one launch alone on the halos
 received.  First each rank checks the chain against one launch: ``dp``
 bitwise, the sinks within 1e-12 relative.  Then CUDA events around REPS
@@ -62,11 +62,11 @@ def _rank(rank, world, port, device, nb, side, out_file):
         cs = pt.ConstraintSet(None, [side - 1] * 3, None, 3)
         props = bo.propensity_tables(rep.model, shape, dev)
         c = rep.model.coefficients(0.0)
-        os.environ["PACMENSL_HALO_OVERLAP"] = "1"
         sh = ShardedBoxAction(shape, rep.model.stoichiometry, 3, cs.form,
                               mesh)
-        if not sh.overlap:
+        if sh.chain is None:
             raise RuntimeError("the slabs have no interior: no chain")
+        lead, edge = sh.chain
         w0, L0, P = sh.w0, sh.L0, sh.plane
         a = props.window(sh.origin0, L0 + 2 * w0)
         bounds = [side - 1] * 3
@@ -83,10 +83,10 @@ def _rank(rank, world, port, device, nb, side, out_file):
 
         def chain():
             ex = start()
-            bk.box_action_synth_batched(c, p, a, bounds, sh.geom_int,
+            bk.box_action_synth_batched(c, p, a, bounds, lead,
                                         dp[:, w0 * P:(L0 - w0) * P])
             _, ks = bk.box_action_synth_batched(c, p, a, bounds,
-                                                sh.geom_edge, dp, ex.wait())
+                                                edge, dp, ex.wait())
             mesh.all_reduce(ks)
             return dp, ks
 

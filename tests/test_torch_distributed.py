@@ -20,6 +20,7 @@ reference package.  The workers import no JAX.
   dimensions or BDF orders, bit for bit).
 * Slabs thinner than the halo, and an axis 0 that does not divide by the
   rank count, raise ``SetupError``.
+* The dry run's rank body (``tools/dryrun.py``) over the ranks.
 """
 import math
 import os
@@ -56,8 +57,8 @@ def _bundle_space(pt, name, bounds, custom, world):
 
 
 def _work_matvec(pt, mesh):
-    """Sharded and single-device actions on seeded vectors, every mode
-    and both the overlap split and the monolithic path."""
+    """Sharded and single-device actions on seeded vectors, every
+    mode."""
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
@@ -74,25 +75,23 @@ def _work_matvec(pt, mesh):
         for synth in (True, False):
             bo.USE_SYNTH_MASK = synth
             one = pt.BoxOperator(b.model, space).action(0.3, y)
-            for overlap in ("1", "0"):
-                os.environ["PACMENSL_HALO_OVERLAP"] = overlap
-                op = pt.BoxOperator(b.model, space, mesh=mesh)
-                sh = op.sharded
-                key = f"{name}_{int(synth)}_{overlap}"
-                lo, hi = sh.origin0 + sh.w0, sh.origin0 + sh.w0 + sh.L0
-                loc = p.reshape(space.shape)[lo:hi].reshape(-1)
-                n0 = sum(bk.KERNEL.plain_calls.values())
-                d = op.action(0.3, pt.FspVector(p=loc, sinks=y.sinks))
-                out[key + "_calls"] = np.array(
-                    sum(bk.KERNEL.plain_calls.values()) - n0)
-                out[key + "_dp"] = gather_global(d.p, mesh).numpy()
-                out[key + "_sinks"] = d.sinks.numpy()
-                out[key + "_dp1"] = one.p.numpy()
-                out[key + "_sinks1"] = one.sinks.numpy()
-                out[key + "_mode"] = np.array([op.synth_mask,
-                                               sh.overlap, sh.L0, sh.w0])
+            op = pt.BoxOperator(b.model, space, mesh=mesh)
+            sh = op.sharded
+            key = f"{name}_{int(synth)}"
+            lo, hi = sh.origin0 + sh.w0, sh.origin0 + sh.w0 + sh.L0
+            loc = p.reshape(space.shape)[lo:hi].reshape(-1)
+            n0 = sum(bk.KERNEL.plain_calls.values())
+            d = op.action(0.3, pt.FspVector(p=loc, sinks=y.sinks))
+            out[key + "_calls"] = np.array(
+                sum(bk.KERNEL.plain_calls.values()) - n0)
+            out[key + "_dp"] = gather_global(d.p, mesh).numpy()
+            out[key + "_sinks"] = d.sinks.numpy()
+            out[key + "_dp1"] = one.p.numpy()
+            out[key + "_sinks1"] = one.sinks.numpy()
+            out[key + "_mode"] = np.array([op.synth_mask,
+                                           sh.chain is not None, sh.L0,
+                                           sh.w0])
         bo.USE_SYNTH_MASK = True
-        os.environ.pop("PACMENSL_HALO_OVERLAP", None)
     # slabs thinner than the halo: axis-0 moves of 4 need w0 = 5 planes
     jump = pt.Model(np.array([[4], [-4]]),
                     lambda x, r: torch.ones(x.shape[0], dtype=x.dtype))
@@ -142,7 +141,14 @@ def _work_poisson(pt, mesh):
     s.set_initial_bounds(b.bounds)
     s.set_expansion_factors([0.5])
     s.set_initial_distribution(b.x0, b.p0)
-    return _solve_out(pt, s, s.solve(10.0, 1.0e-6))
+    out = _solve_out(pt, s, s.solve(10.0, 1.0e-6))
+    # the dry run's rank body (tools/dryrun.py), as dryrun_multichip(n)
+    # runs it in each spawned rank
+    from pacmensl_tpu_torch.tools.dryrun import dryrun_rank
+    for k, v in dryrun_rank(mesh).items():
+        if k != "launches":
+            out["dry_" + k] = np.asarray(v)
+    return out
 
 
 def _hog_solver(pt, mesh=None):
@@ -231,34 +237,33 @@ def test_sharded_matvec_matches_single_device(matvec_run):
     o = outs[0]
     for name, _, _ in MATVEC_CASES:
         for synth in (1, 0):
-            for overlap in ("1", "0"):
-                key = f"{name}_{synth}_{overlap}"
-                is_synth, split, L0, w0 = o[key + "_mode"]
-                assert bool(is_synth) == bool(synth), key
-                assert bool(split) == (overlap == "1" and L0 >= 2 * w0), key
-                assert np.array_equal(o[key + "_dp"], o[key + "_dp1"]), key
-                np.testing.assert_allclose(o[key + "_sinks"],
-                                           o[key + "_sinks1"], rtol=1e-12,
-                                           atol=1e-13, err_msg=key)
-                for other in outs[1:]:      # sinks replicated bit for bit
-                    assert np.array_equal(other[key + "_sinks"],
-                                          o[key + "_sinks"]), key
-    # the repressilator's slabs are thick enough for the overlap split
-    assert o["repressilator_1_1_mode"][1]
+            key = f"{name}_{synth}"
+            is_synth, interior, L0, w0 = o[key + "_mode"]
+            assert bool(is_synth) == bool(synth), key
+            assert bool(interior) == (L0 >= 2 * w0), key
+            assert np.array_equal(o[key + "_dp"], o[key + "_dp1"]), key
+            np.testing.assert_allclose(o[key + "_sinks"],
+                                       o[key + "_sinks1"], rtol=1e-12,
+                                       atol=1e-13, err_msg=key)
+            for other in outs[1:]:      # sinks replicated bit for bit
+                assert np.array_equal(other[key + "_sinks"],
+                                      o[key + "_sinks"]), key
+    # the repressilator's slabs have an interior (the kernel's chain
+    # could run there; the action takes one launch all the same)
+    assert o["repressilator_1_mode"][1]
 
 
 def test_sharded_matvec_calls_per_matvec(matvec_run):
-    """With halos in flight a matvec is two calls of the box action (the
-    interior rows while the exchange runs, then both edge strips, which
-    sum the sinks of both), or one without the overlap split."""
+    """A matvec is one call of the box action on every rank, also where
+    a slab has an interior: one launch on the window after the exchange,
+    the sinks reduced in it (the chain of the interior rows and the edge
+    strips was slower over 2 and 4 NCCL ranks)."""
     world, outs, _ = matvec_run
     for o in outs:
         for name, _, _ in MATVEC_CASES:
             for synth in (1, 0):
-                for overlap in ("1", "0"):
-                    key = f"{name}_{synth}_{overlap}"
-                    split = bool(o[key + "_mode"][1])
-                    assert int(o[key + "_calls"]) == (2 if split else 1), key
+                key = f"{name}_{synth}"
+                assert int(o[key + "_calls"]) == 1, key
 
 
 def test_thin_or_ragged_slabs_raise(matvec_run):
@@ -314,6 +319,23 @@ def test_sharded_poisson_matches_reference_package(poisson_run):
     order = np.lexsort(dj.states.T[::-1])
     assert np.array_equal(o["states"], dj.states[order])
     assert np.abs(o["p"] - np.asarray(dj.p)[order]).max() <= 1e-12
+
+
+def test_dryrun_over_the_ranks(poisson_run):
+    """``tools/dryrun.py``'s rank body over 2 and 3 gloo ranks: one box
+    epoch without expansion, the mass within 1e-4; Poisson on ELL under
+    GRAPH through two or more epochs within 1e-3 of Poisson(4) (the
+    checks raise in the worker), the same law on every rank."""
+    world, outs = poisson_run
+    for r, o in enumerate(outs):
+        assert int(o["dry_rank"]) == r
+        assert abs(float(o["dry_mass"]) - 1.0) < 1e-4
+        assert float(o["dry_t"]) >= 0.05 - 1e-9
+        assert int(o["dry_poisson_epochs"]) >= 2
+        assert float(o["dry_poisson_l1"]) <= 1e-3
+    for other in outs[1:]:
+        assert np.array_equal(other["dry_poisson_p"],
+                              outs[0]["dry_poisson_p"])
 
 
 def test_ranks_take_the_same_steps(poisson_run, bdf_run):

@@ -22,11 +22,15 @@ workers import no JAX.
   plain version behind the halo exchange of every vector) against one
   device within 1e-10 (``tests/test_sensfsp.py:196-223``).
 * The batched window plain version against the sharded plain version
-  applied to each vector, under ``PACMENSL_HALO_OVERLAP=0`` and ``"1"``:
-  one launch on the window in both (K4 takes its chain under ``"1"``),
-  one halo exchange and one all-reduce a call, the same ``dp`` on every
-  rank and in both settings, the sinks bitwise one K4 launch's a vector
-  and within 1e-12 of the K4 chains' and of one device.
+  applied to each vector: one launch on the window, one halo exchange
+  and one all-reduce a call, the sinks bitwise one K4 launch's a vector
+  and within 1e-12 of one device; the kernel's chain
+  (``ShardedBoxAction.chain``, the interior rows with the exchange in
+  flight, then the edge strips) over the ranks: the same ``dp`` on every
+  rank, bitwise one launch's, the sinks within 1e-12 of its.
+* HYPERGRAPH's order the same on every rank, and the solver's check of
+  the ranks' orders; the scaling sweep's rank body
+  (``examples/scaling_sweep.py``) at a tiny box.
 * A sensitivity action on the box over 2 ranks (poisson_sens, whose slabs
   have an interior; hog1p_3d_sens, whose derivative operators read no
   halo; and births of one and two molecules, whose derivative operator
@@ -94,6 +98,48 @@ def _work_operator(pt, mesh):
     dpb1, skb1 = one.action_batched(0.5, P1)
     out.update(dpb=dpb.numpy(), skb=skb.numpy(), dpb1=block(dpb1),
                skb1=skb1.numpy())
+    out.update(_hypergraph(pt, mesh))
+    # the scaling sweep's rank body (examples/scaling_sweep.py) at a
+    # tiny box, as its main runs it in each spawned rank
+    from pacmensl_tpu_torch.examples.scaling_sweep import sweep_rank
+    rows = sweep_rank(mesh, bound=23, iters=2)["rows"]
+    out["sweep_rows"] = np.array(len(rows))
+    for k in ("n", "us", "eff", "comm"):
+        out["sweep_" + k] = np.array([r.get(k, False) for r in rows])
+    out["sweep_path"] = np.array([r["path"] for r in rows])
+    out["sweep_same"] = np.array([r.get("same", True) for r in rows])
+    out["sweep_rel"] = np.array([r.get("rel_err", 0.0) for r in rows])
+    out["sweep_halo"] = np.array([r.get("halo", 0) for r in rows])
+    return out
+
+
+def _hypergraph(pt, mesh):
+    """Each rank's HYPERGRAPH order of the toggle's 32 x 32 grid (whose
+    Fiedler eigenvalue is tied) and of the repressilator's set, the
+    solver's agreement check on them, and the check on orders that
+    differ by rank."""
+    from pacmensl_tpu_torch.statespace.partitioner import (
+        StatePartitioner, PartitioningType)
+    out = {}
+    for name, bounds in (("toggle", None),
+                         ("repressilator", [22, 6, 6, 44, 12, 44])):
+        b = getattr(pt.models, name)()
+        cs = (pt.ConstraintSet(None, [31, 31]) if bounds is None
+              else pt.ConstraintSet(b.constraint, bounds))
+        ss = pt.StateSet(b.model.stoichiometry, cs, init_states=b.x0)
+        ss.expand()
+        res = StatePartitioner(PartitioningType.HYPERGRAPH).partition(
+            ss.states, b.model.stoichiometry, mesh.size,
+            state2index=ss.state2index)
+        out[f"hyper_{name}"] = res.order
+    s = pt.FspSolverMultiSinks(backend="ell", mesh=mesh)
+    s.set_load_balancing_method("hyper_graph")
+    s._check_same_order(out["hyper_toggle"])
+    try:
+        s._check_same_order(np.roll(out["hyper_toggle"], mesh.rank))
+        out["hyper_mismatch_raises"] = np.array(False)
+    except pt.StateSpaceError:
+        out["hyper_mismatch_raises"] = np.array(True)
     return out
 
 
@@ -169,7 +215,7 @@ def _sens_actions(pt, mesh):
     """One sensitivity action on the box over the ranks, against its
     sub-operators called one by one (the batched action, then each
     parameter's derivative operators, each with its own exchange and
-    all-reduce), under both ``PACMENSL_HALO_OVERLAP`` settings."""
+    all-reduce)."""
     import torch
     from pacmensl_tpu_torch.ops.sens_operator import SensOperator
     from pacmensl_tpu_torch.parallel.mesh import shard_rows
@@ -190,37 +236,34 @@ def _sens_actions(pt, mesh):
         m = 1 + b.model.num_parameters
         Y = torch.as_tensor(rng.random((m, space.size))) \
             * space.mask.reshape(1, -1)
-        for ov in ("1", "0"):
-            os.environ["PACMENSL_HALO_OVERLAP"] = ov
-            sop = SensOperator(b.model, space, mesh=mesh)
-            n, nc = sop.local_n, sop.num_constraints
-            y = pt.FspVector(p=shard_rows(Y.reshape(-1), m, mesh),
-                             sinks=torch.zeros(m * nc, dtype=torch.float64))
-            t = 0.7
-            ex, ar = mesh.halo_exchanges, mesh.all_reduces
-            got = sop.action(t, y)
-            counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
-            c = sop.model.coefficients(t, torch.float64)
-            want = torch.empty_like(y.p)
-            _, sk = sop.base.action_batched(t, y.p.view(m, n), c=c,
-                                            out=want.view(m, n))
-            sk = sk.reshape(-1)
-            pv = pt.FspVector(p=y.p.view(m, n)[0], sinks=y.sinks[:nc])
-            for j in range(sop.n_par):
-                if sop.dcxA[j] is None and sop.cxdA[j] is None:
-                    continue
-                g = sop.sens_action(j, t, pv, c=c)
-                want[(j + 1) * n:(j + 2) * n].add_(g.p)
-                sk[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
-            key = f"act_{name}_{ov}_"
-            out[key + "counts"] = np.array(counts)
-            out[key + "overlap"] = np.array(
-                [op.sharded.overlap for op in sop.sub_ops()])
-            out[key + "p"] = got.p.numpy()
-            out[key + "sinks"] = got.sinks.numpy()
-            out[key + "p_each"] = want.numpy()
-            out[key + "sinks_each"] = sk.numpy()
-    os.environ.pop("PACMENSL_HALO_OVERLAP")
+        sop = SensOperator(b.model, space, mesh=mesh)
+        n, nc = sop.local_n, sop.num_constraints
+        y = pt.FspVector(p=shard_rows(Y.reshape(-1), m, mesh),
+                         sinks=torch.zeros(m * nc, dtype=torch.float64))
+        t = 0.7
+        ex, ar = mesh.halo_exchanges, mesh.all_reduces
+        got = sop.action(t, y)
+        counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
+        c = sop.model.coefficients(t, torch.float64)
+        want = torch.empty_like(y.p)
+        _, sk = sop.base.action_batched(t, y.p.view(m, n), c=c,
+                                        out=want.view(m, n))
+        sk = sk.reshape(-1)
+        pv = pt.FspVector(p=y.p.view(m, n)[0], sinks=y.sinks[:nc])
+        for j in range(sop.n_par):
+            if sop.dcxA[j] is None and sop.cxdA[j] is None:
+                continue
+            g = sop.sens_action(j, t, pv, c=c)
+            want[(j + 1) * n:(j + 2) * n].add_(g.p)
+            sk[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
+        key = f"act_{name}_"
+        out[key + "counts"] = np.array(counts)
+        out[key + "interior"] = np.array(
+            [op.sharded.chain is not None for op in sop.sub_ops()])
+        out[key + "p"] = got.p.numpy()
+        out[key + "sinks"] = got.sinks.numpy()
+        out[key + "p_each"] = want.numpy()
+        out[key + "sinks_each"] = sk.numpy()
     return out
 
 
@@ -248,10 +291,11 @@ def _births_1_2(pt):
 
 def _work_window(pt, mesh):
     """ShardedBoxAction.batched (K9w's plain version behind one halo
-    exchange of every vector) against the sharded action on each vector,
-    under ``PACMENSL_HALO_OVERLAP=0`` (keys ``s1_*``, ``s0_*``) and
-    ``"1"`` (keys ``o1_s1_*``, ``o1_s0_*``, where the sharded action on
-    each vector takes K4's chain)."""
+    exchange of every vector) against the sharded action on each vector
+    (keys ``s1_*``, ``s0_*``), and the kernel's chain on the window over
+    the ranks (keys ``chain_s1_*``, ``chain_s0_*``): the exchange started,
+    the interior rows of every vector, the exchange awaited, every
+    vector's edge strips, the all-reduce of the sinks."""
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
@@ -267,9 +311,7 @@ def _work_window(pt, mesh):
     P = torch.as_tensor(rng.random((3, space.size))) \
         * space.mask.reshape(1, -1)
     out = {}
-    for ov, synth in ((ov, synth) for ov in ("0", "1")
-                      for synth in (True, False)):
-        os.environ["PACMENSL_HALO_OVERLAP"] = ov
+    for synth in (True, False):
         bo.USE_SYNTH_MASK = synth
         op = pt.BoxOperator(b.model, space, mesh=mesh)
         sh = op.sharded
@@ -284,8 +326,7 @@ def _work_window(pt, mesh):
                  for k in (k9w, k9w + "_chain")]
         each = [op.action(0.3, pt.FspVector(p=loc[i], sinks=None))
                 for i in range(3)]
-        key = ("o1_" if ov == "1" else "") + f"s{int(synth)}"
-        out[key + "_overlap"] = np.array(sh.overlap)
+        key = f"s{int(synth)}"
         out[key + "_calls"] = np.array(calls)
         out[key + "_counts"] = np.array(counts)
         out[key + "_mode"] = np.array(op.synth_mask)
@@ -298,8 +339,33 @@ def _work_window(pt, mesh):
         d1, s1 = one.action_batched(0.3, P)
         out[key + "_dp1"] = d1.numpy().reshape(-1)
         out[key + "_sk1"] = s1.numpy()
+        # the kernel's chain on the window, with the exchange in flight
+        gi, ge = sh.chain
+        w0, L0, P_ = sh.w0, sh.L0, sh.plane
+        d, c = op.data(), op.model.coefficients(0.3)
+        up, dn = (torch.zeros((3, w0 * P_), dtype=torch.float64)
+                  for _ in range(2))
+
+        def run(geom, out=None, halos=None):
+            if synth:
+                return bk.box_action_synth_batched(c, loc, op.props,
+                                                   d.bounds, geom, out,
+                                                   halos)
+            return bk.box_action_batched(c, loc, d.mask, op.props, d.viol,
+                                         geom, out, halos)
+        n0 = dict(bk.KERNEL.plain_calls)
+        dpc = torch.empty_like(loc)
+        pending = mesh.halo_start(loc[:, :w0 * P_], loc[:, (L0 - w0) * P_:],
+                                  up, dn)
+        run(gi, dpc[:, w0 * P_:(L0 - w0) * P_])
+        _, skc = run(ge, dpc, pending.wait())
+        mesh.all_reduce(skc)
+        out["chain_" + key + "_calls"] = np.array(
+            [bk.KERNEL.plain_calls[k] - n0[k] for k in (k9w, k9w + "_chain")])
+        out["chain_" + key + "_dp"] = gather_rows(dpc.reshape(-1), 3,
+                                                  mesh).numpy()
+        out["chain_" + key + "_sk"] = skc.numpy()
     bo.USE_SYNTH_MASK = True
-    os.environ.pop("PACMENSL_HALO_OVERLAP")
     return out
 
 
@@ -395,6 +461,50 @@ def _one_device(name, backend, **kw):
     return s
 
 
+def test_hypergraph_order_is_the_same_on_every_rank(operator_run):
+    """HYPERGRAPH is the same on every rank (a fixed ARPACK start and a
+    rule for a tied Fiedler eigenvalue) and the one-device order; orders
+    that differ by rank raise ``StateSpaceError`` in the solver."""
+    from pacmensl_tpu_torch.statespace.partitioner import (
+        StatePartitioner, PartitioningType)
+    import pacmensl_tpu_torch as pt
+    world, outs = operator_run
+    for name in ("toggle", "repressilator"):
+        for o in outs[1:]:
+            assert np.array_equal(o[f"hyper_{name}"],
+                                  outs[0][f"hyper_{name}"])
+    b = pt.models.toggle()
+    ss = pt.StateSet(b.model.stoichiometry, pt.ConstraintSet(None, [31, 31]),
+                     init_states=b.x0)
+    ss.expand()
+    one = StatePartitioner(PartitioningType.HYPERGRAPH).partition(
+        ss.states, b.model.stoichiometry, world, state2index=ss.state2index)
+    assert np.array_equal(one.order, outs[0]["hyper_toggle"])
+    assert all(bool(o["hyper_mismatch_raises"]) for o in outs)
+
+
+def test_scaling_sweep_over_ranks(operator_run):
+    """``examples/scaling_sweep.py``'s rank body at a 24^3 box over the
+    group's first 1 and 2 ranks: the assembled box dp bitwise one rank's
+    (K4 in one launch), the ELL dp within 1e-12 of one rank's under BLOCK
+    and GRAPH; rows only on rank 0."""
+    world, outs = operator_run
+    o = outs[0]
+    for other in outs[1:]:
+        assert int(other["sweep_rows"]) == 0
+    path, n = o["sweep_path"], o["sweep_n"]
+    box, ell = path == "box", path == "ell"
+    # box: n = 1 (K3), n = 2 (K4)
+    assert n[box].tolist() == [1, 2]
+    assert o["sweep_same"][box].all()
+    assert (o["sweep_comm"][box][1:] > 0).all()
+    # ELL: BLOCK then GRAPH, n = 1 and 2 each
+    assert n[ell].tolist() == [1, 2, 1, 2]
+    assert (o["sweep_rel"][ell] <= 1e-12).all()
+    assert (o["sweep_halo"][ell][[1, 3]] > 0).all()
+    assert (o["sweep_us"] > 0).all() and (o["sweep_eff"] > 0).all()
+
+
 def test_ell_poisson_over_ranks_matches_single_device(solves_run):
     import math
     o = solves_run[0]
@@ -460,29 +570,21 @@ def test_batched_window_plain_matches_sharded_each(window_run):
 
 
 def test_batched_window_chain_over_ranks(window_run):
-    """ShardedBoxAction.batched where K4 chains (``PACMENSL_HALO_OVERLAP=1``,
-    slabs with an interior): K9w still in one launch on the window, not
-    its chain (slower on one card and over two NCCL ranks), one exchange
-    and one all-reduce; dp bitwise each vector's K4 chain, the same on
-    every rank and in both settings; sinks bitwise one K4 launch's a
-    vector, within 1e-12 of the K4 chains', the other setting's and one
-    device's."""
+    """ShardedBoxAction.batched in one K9w launch on the window, none of
+    its chain's, one exchange and one all-reduce; the kernel's chain
+    (two launches over the ranks, the exchange in flight under the
+    first): dp bitwise the one launch's and the same on every rank, the
+    sinks within 1e-12 of the one launch's and of one device's."""
     for o in window_run:
         for synth in (1, 0):
-            key, one = f"o1_s{synth}", f"s{synth}"
-            assert bool(o[key + "_overlap"]) and not bool(o[one + "_overlap"])
-            # one K9w launch on the window, none of its chain's, also where
-            # K4 chains
-            for k in (key, one):
-                assert o[k + "_calls"].tolist() == [1, 0]
-            assert bool(o[key + "_mode"]) == bool(synth)
-            for k in (key, one):
-                assert o[k + "_counts"].tolist() == [1, 1]
-            assert np.array_equal(o[key + "_dp"], o[key + "_dp_each"])
-            assert np.array_equal(o[key + "_sk"], o[one + "_sk_each"])
+            key, one = f"chain_s{synth}", f"s{synth}"
+            assert o[one + "_calls"].tolist() == [1, 0]
+            assert o[key + "_calls"].tolist() == [0, 2]
+            assert bool(o[one + "_mode"]) == bool(synth)
+            assert o[one + "_counts"].tolist() == [1, 1]
             assert np.array_equal(o[key + "_dp"], o[one + "_dp"])
             assert np.array_equal(o[key + "_dp"], window_run[0][key + "_dp"])
-            for ref in (one + "_sk", key + "_sk_each", key + "_sk1"):
+            for ref in (one + "_sk", one + "_sk1"):
                 np.testing.assert_allclose(o[key + "_sk"], o[ref],
                                            rtol=1e-12, atol=1e-13)
 
@@ -490,22 +592,18 @@ def test_batched_window_chain_over_ranks(window_run):
 def test_sensitivity_action_over_ranks_makes_one_exchange(solves_run):
     """One action on the box over 2 ranks: one halo exchange and one
     all-reduce, p and the sinks bitwise the sub-operators called one by
-    one, under either overlap setting; poisson_sens's slabs have an
-    interior, so its derivative operator takes K4's chain there (the
-    batched action one launch); hog1p_3d_sens's base operator has none,
-    its derivative operators (halos of one plane) do; births of one and two take the base operator's halos of 3 planes
-    to a derivative operator's of 2."""
-    want_overlap = {"poisson_sens": [True, True],
-                    "hog1p_3d_sens": [False, True, True],
-                    "births_1_2": [True, True]}
+    one, each in one launch on its window; poisson_sens's slabs have an
+    interior, hog1p_3d_sens's base operator's none, its derivative
+    operators' (halos of one plane) do; births of one and two take the
+    base operator's halos of 3 planes to a derivative operator's of 2."""
+    want_interior = {"poisson_sens": [True, True],
+                     "hog1p_3d_sens": [False, True, True],
+                     "births_1_2": [True, True]}
     for o in solves_run:
-        for name, ov in ((name, ov) for name in want_overlap
-                         for ov in ("1", "0")):
-            key = f"act_{name}_{ov}_"
+        for name in want_interior:
+            key = f"act_{name}_"
             assert o[key + "counts"].tolist() == [1, 1], key
-            assert o[key + "overlap"].tolist() == (
-                want_overlap[name] if ov == "1"
-                else [False] * len(want_overlap[name])), key
+            assert o[key + "interior"].tolist() == want_interior[name], key
             assert np.array_equal(o[key + "p"], o[key + "p_each"]), key
             assert np.array_equal(o[key + "sinks"], o[key + "sinks_each"])
             assert np.array_equal(o[key + "sinks"],

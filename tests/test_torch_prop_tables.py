@@ -285,7 +285,7 @@ def test_one_rank_sharded_matvec_is_one_call(synth, monkeypatch):
     mesh = _mesh(0, 1)
     mesh.halo_start = mesh.all_reduce = None     # never called
     sh = pt.BoxOperator(b.model, one.space, mesh=mesh)
-    assert not sh.sharded.halos and not sh.sharded.overlap
+    assert not sh.sharded.halos and sh.sharded.chain is None
     rng = np.random.default_rng(2)
     p = torch.as_tensor(rng.random(one.geom.n)) * one.space.mask.reshape(-1)
     y = pt.FspVector(p=p, sinks=torch.zeros(6, dtype=torch.float64))

@@ -10,11 +10,12 @@ ranks.  The assembled ``dp`` is bitwise the port's single-device ``dp``,
 and both agree with the reference within 1e-12 relative; so do the sinks
 (summed in another order).  Cases: the toggle ``[39, 17]`` box of
 ``tests/test_sharded_pallas.py:19-74`` in both kernel modes, and the
-repressilator case of ``:105-145`` through the overlap split and the
-monolithic path.  On the repressilator's slabs the batched plain version
-(K9w's) also runs the chain of two launches, against one launch on the
-window and against each vector's chain of K4 launches; the batched
-action itself takes one launch on the window.
+repressilator case of ``:105-145``, whose overlap split (the reference's
+default) the kernel's chain of two launches on each rank's window
+matches, as the action's one launch does.  On the repressilator's slabs
+the batched plain version (K9w's) also runs the chain, against one
+launch on the window and against each vector's chain of K4 launches;
+the batched action itself takes one launch on the window.
 """
 import numpy as np
 import pytest
@@ -169,25 +170,45 @@ def test_sharded_kernel_matches_reference(synth, monkeypatch):
 
 
 def test_overlap_split_matches_monolithic(monkeypatch):
+    """The kernel's chain on each rank's window
+    (:attr:`ShardedBoxAction.chain`: the interior rows, then both edge
+    strips from the halos, whose launch returns both launches' sinks)
+    against the action's one launch, which it takes on every transport:
+    dp bitwise, the summed sinks within TOL; both against the reference's
+    overlap split."""
     jb, jcs, jsp, tb, tsp = _spaces(
         "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
     assert tsp.mask_is_constraint_only
     c = np.ones(tb.model.num_reactions)
     p = _seeded_p(tsp)
-    out = {}
-    for ov in ("0", "1"):
-        monkeypatch.setenv("PACMENSL_HALO_OVERLAP", ov)
-        dp, sinks, ops = _sharded_port(tb, tsp, p, c)
-        assert all(op.sharded.overlap == (ov == "1") for op in ops)
-        out[ov] = dp, sinks
-    assert torch.equal(out["0"][0], out["1"][0])
-    np.testing.assert_allclose(out["1"][1].numpy(), out["0"][1].numpy(),
-                               **TOL)
+    dp1, sinks1, ops = _sharded_port(tb, tsp, p, c)
+    p_box = p.reshape(tsp.shape)
+    dps, sinks = [], 0
+    for op in ops:
+        sh, d = op.sharded, op.data()
+        assert op.synth_mask and sh.chain is not None
+        lead, edge = sh.chain
+        w0, L0, P_ = sh.w0, sh.L0, sh.plane
+        lo = sh.origin0 + w0
+        loc = p_box[lo:lo + L0].reshape(-1)
+        up = window_rows(p_box, lo - w0, w0).reshape(-1)
+        dn = window_rows(p_box, lo + L0, w0).reshape(-1)
+        dp = torch.empty_like(loc)
+        _, none = bk.box_action_synth(c, loc, op.props, d.bounds, lead,
+                                      dp[w0 * P_:(L0 - w0) * P_])
+        assert none is None
+        _, ks = bk.box_action_synth(c, loc, op.props, d.bounds, edge, dp,
+                                    (up, dn))
+        dps.append(dp)
+        sinks = sinks + ks
+    assert torch.equal(torch.cat(dps), dp1)
+    np.testing.assert_allclose(sinks.numpy(), sinks1.numpy(), **TOL)
     monkeypatch.setenv("PACMENSL_HALO_OVERLAP", "1")
     act, jdp, jks = _reference(jb, jcs, jsp, c, p, synth=True)
     assert act.overlap
-    np.testing.assert_allclose(out["1"][0].numpy(), jdp, **TOL)
-    np.testing.assert_allclose(out["1"][1].numpy(), jks, **TOL)
+    for got, ks in ((torch.cat(dps), sinks), (dp1, sinks1)):
+        np.testing.assert_allclose(got.numpy(), jdp, **TOL)
+        np.testing.assert_allclose(ks.numpy(), jks, **TOL)
 
 
 @pytest.mark.parametrize("synth", [True, False])
@@ -198,7 +219,6 @@ def test_batched_chain_plain_matches_one_window_and_k4(synth, monkeypatch):
     bitwise one launch on the window and each vector's K4 chain, the
     sinks bitwise the K4 chains' and within TOL of the one launch's."""
     monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
-    monkeypatch.setenv("PACMENSL_HALO_OVERLAP", "1")
     _, _, _, tb, tsp = _spaces(
         "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
     nb = 3
@@ -234,9 +254,10 @@ def test_batched_chain_plain_matches_one_window_and_k4(synth, monkeypatch):
         key = "batched_sharded_" + ("synth" if synth else "mask")
         n0 = dict(bk.KERNEL.plain_calls)
         dp = torch.empty_like(ps)
-        lead = run(sh.geom_int, ps, dp[:, w0 * P_:(L0 - w0) * P_])
+        gi, ge = sh.chain
+        lead = run(gi, ps, dp[:, w0 * P_:(L0 - w0) * P_])
         assert lead[1] is None
-        got, sk = run(sh.geom_edge, ps, dp, (up, dn))
+        got, sk = run(ge, ps, dp, (up, dn))
         assert got is dp and sk.shape == (nb, op.geom.nc)
         assert bk.KERNEL.plain_calls[key + "_chain"] == n0[key + "_chain"] + 2
         dp1, sk1 = run(one, ps, halos=(up, dn))
@@ -244,17 +265,18 @@ def test_batched_chain_plain_matches_one_window_and_k4(synth, monkeypatch):
         np.testing.assert_allclose(sk.numpy(), sk1.numpy(), **TOL)
         for i in range(nb):
             dpi = torch.empty_like(ps[i])
-            run(sh.geom_int, ps[i], dpi[w0 * P_:(L0 - w0) * P_])
-            _, ski = run(sh.geom_edge, ps[i], dpi, (up[i], dn[i]))
+            run(gi, ps[i], dpi[w0 * P_:(L0 - w0) * P_])
+            _, ski = run(ge, ps[i], dpi, (up[i], dn[i]))
             assert torch.equal(dp[i], dpi)
             assert torch.equal(sk[i], ski)
 
 
 def test_window_geometry():
-    """The window fields of the slabs' two launches: the interior rows,
-    then both edge strips with the interior as their gap, over the rank's
-    window at global origin ``r L0 - w0``, with the halo width of the
-    reference."""
+    """The window fields of the one launch on a rank's window and of the
+    kernel's chain (:attr:`ShardedBoxAction.chain`, which no action runs):
+    the interior rows, then both edge strips with the interior as their
+    gap, over the rank's window at global origin ``r L0 - w0``, with the
+    halo width of the reference."""
     _, _, _, tb, tsp = _spaces("repressilator",
                                np.array([31, 7, 7, 99, 21, 99]), custom=True)
     p_box = _seeded_p(tsp).reshape(tsp.shape)
@@ -264,7 +286,11 @@ def test_window_geometry():
         L0, w0 = sh.L0, sh.w0
         assert w0 == int(np.abs(tb.model.stoichiometry[:, 0]).max()) + 1
         assert sh.origin0 == r * L0 - w0
-        gi, ge = sh.geom_int, sh.geom_edge
+        g = sh.geom
+        assert (g.origin0, g.out_lo, g.out_hi) == (r * L0 - w0, w0, w0 + L0)
+        assert g.gap[0] == g.gap[1]     # no gap
+        assert g.halo_rows == (w0, L0) and not g.leads and g.follows is None
+        gi, ge = sh.chain
         assert (gi.origin0, gi.out_lo, gi.out_hi) == (r * L0 - w0, 2 * w0,
                                                       L0)
         assert (ge.origin0, ge.out_lo, ge.out_hi, ge.gap) == (
@@ -280,19 +306,17 @@ def test_window_geometry():
         assert sh.comm_values_per_matvec() == 2 * w0 * sh.plane * (RANKS - 1)
 
 
-@pytest.mark.parametrize("synth,overlap", [(True, "1"), (False, "1"),
-                                           (True, "0"), (False, "0")])
-def test_batched_action_takes_one_launch_on_the_window(synth, overlap,
+@pytest.mark.parametrize("synth,nb", [(True, 3), (False, 3), (True, 2),
+                                      (False, 2)])
+def test_batched_action_takes_one_launch_on_the_window(synth, nb,
                                                        monkeypatch):
     """ShardedBoxAction.batched runs K9w in one launch on each rank's
-    window after the exchange, also where K4 takes its chain: one batched
-    plain call, none of the chain's; dp bitwise each vector's K4 action,
-    the sinks within TOL of its."""
+    window after the exchange, where the slabs have an interior too: one
+    batched plain call, none of the chain's; dp bitwise each vector's K4
+    action, the sinks within TOL of its."""
     monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
-    monkeypatch.setenv("PACMENSL_HALO_OVERLAP", overlap)
     _, _, _, tb, tsp = _spaces(
         "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
-    nb = 3
     rng = np.random.default_rng(5)
     P = (torch.as_tensor(rng.random((nb, tsp.size)))
          * tsp.mask.reshape(1, -1)).to(torch.float64)
@@ -301,7 +325,7 @@ def test_batched_action_takes_one_launch_on_the_window(synth, overlap,
         op = pt.BoxOperator(tb.model, tsp, mesh=_LocalBatchMesh(
             r, P.reshape((nb,) + tuple(tsp.shape))))
         sh = op.sharded
-        assert sh.overlap == (overlap == "1")
+        assert sh.chain is not None
         lo = sh.origin0 + sh.w0
         loc = P[:, lo * sh.plane:(lo + sh.L0) * sh.plane].contiguous()
         n0 = dict(bk.KERNEL.plain_calls)
