@@ -6,9 +6,11 @@
 Phases (each check that fails ends the run with a nonzero exit):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; build (or
-   load) the box kernel from ``pacmensl_tpu_torch/csrc`` and print the
-   build time and each instantiation's registers, static shared memory
-   and spills (``ptxas``).
+   load) every library from ``pacmensl_tpu_torch/csrc``, one ``nvcc``
+   each, all at once: the box kernel, the probes and the box kernel's two
+   ablation builds (phase 14); print the build times and each production
+   box instantiation's registers, static shared memory and spills
+   (``ptxas``).
 2. Both modes of the kernel (mask-reading K1, synthesized-mask K3) vs
    their plain PyTorch versions, in float64, on the box shapes of the
    bundled models at small bounds (hog1p_3d at t = 0, 30, 120, hog1p_5d at
@@ -24,8 +26,9 @@ Phases (each check that fails ends the run with a nonzero exit):
    propensities: every reaction on a table (transcr_reg_6d's reactions 4
    and 6 on field rows), checked and printed with their bytes.  Also the
    host time per launch of K1 and K3 (1,000 calls without a
-   synchronisation, on the small hog1p_5d box) and the new compulsory
-   bytes beside the field-reading kernel's model.
+   synchronisation, on the small hog1p_5d box) and of a K3 launch's parts
+   (``tools/base_probe.py``'s host side) and the new compulsory bytes
+   beside the field-reading kernel's model.
 3. Poisson oracle: the transient solve of ``models.poisson()`` to t = 10
    on the GPU against the Poisson(2t) pmf.
 4. Repressilator with its custom constraints, t = 10, fsp_tol = 1e-4,
@@ -262,6 +265,19 @@ Phases (each check that fails ends the run with a nonzero exit):
    e. ``python -m pacmensl_tpu_torch.tools.flagship -repeat 2`` as a
       subprocess: exit 0 and both walls.
 
+14. The box kernel's ablation and fixed-cost probes
+    (``python -m pacmensl_tpu_torch.tools.kernel_ablate`` and
+    ``tools.base_probe``, through their command lines at their 128^3 box,
+    then their functions on phase 4's final repressilator box in both axis
+    orders (12c's layouts), phase 5's hog1p_5d box and phase 6's
+    transcr_reg_6d box): the kernel with pieces switched off (``r1``,
+    ``r2``, ``nosink``, ``unitnosink``, ``full-K1``, and the builds
+    without the sinks' tail and without the rows' decode, ``ops/
+    ablation.py``), its floor (a zero mask, a box of one row) and the host
+    parts of a launch.  Every variant and switch build is checked against
+    its plain version before it is timed (a mismatch fails the run); its
+    launches are not counted for any path.  The phase's time is printed.
+
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
 migration), 10e, 11a, 11b, 12e, 13a, 13b (before the migration), 13c
@@ -283,6 +299,10 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from pacmensl_tpu_torch.ops.probes import HBM_RATE
+from pacmensl_tpu_torch.tools.timing import (card, graph_ms, k9w_windows,
+                                             time_ms)
 
 #: the slice: repressilator with its custom constraints
 #: (examples/repressilator.cpp:120-133)
@@ -311,9 +331,9 @@ GLOO_T_FINAL = 2.0
 CN_T_FINAL = 0.02
 #: slabs the box is cut into in phase 7a
 SLABS = 4
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float64 and float32
-#: FLOP/s outside the tensor cores
-HBM_RATE, F64_RATE, F32_RATE = 3.35e12, 34e12, 67e12
+#: H100 SXM peaks (NVIDIA data sheet): float64 and float32 FLOP/s outside
+#: the tensor cores (the memory rate, ``HBM_RATE``, is ``ops/probes.py``'s)
+F64_RATE, F32_RATE = 34e12, 67e12
 #: phase 8: a measured stream above this is impossible (an L2-resident or
 #: elided probe)
 STREAM_LIMIT = 1.05 * HBM_RATE
@@ -415,48 +435,6 @@ def bound(nbytes, flops, rate=F64_RATE):
     ``nbytes`` and do ``flops`` operations at ``rate`` FLOP/s."""
     tb, tf = nbytes / HBM_RATE, flops / rate
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
-
-
-def time_ms(fn, reps=100, warm=5):
-    """ms per call of ``fn``: CUDA events around ``reps`` back-to-back
-    calls after ``warm`` warm-up calls."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
-def graph_ms(fn, reps=100):
-    """ms per call of ``fn`` replayed from a CUDA graph of ``reps`` calls:
-    the device's time without the host's cost per call."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    g.replay()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 def same_twice(label, run):
@@ -1656,47 +1634,6 @@ def ell_phase(dev, smi, run_solve, final_operator, rep, d4, op4, p4, d_t2):
     return launch10c, launch10e, d10
 
 
-def k9w_windows(geom, P, slabs):
-    """``geom``'s box cut into ``slabs`` axis-0 slabs, each a window with
-    every vector's halo planes as ShardedBoxAction.batched's exchange
-    delivers them.  Per slab: (the window's geometry, its chain (the
-    interior rows' geometry, the edge strips') where the slab has an
-    interior (``L0 >= 2 w0``) else None, the slab of ``P [nb, n]``, the
-    halos ``(up, dn)``, each ``[nb, w0 P]``, the window's origin and
-    rows).  ``pacmensl_tpu_torch/tools/time_k1.py --k9w`` takes its
-    windows from here too."""
-    import numpy as np
-    import torch
-    from pacmensl_tpu_torch.ops import box_kernel as bk
-    from pacmensl_tpu_torch.parallel.halo_box import halo_width, window_rows
-    nb, shape, g0, plane = P.shape[0], geom.shape, geom.shape[0], geom.plane
-    w0 = halo_width(geom.stoich)
-
-    def rows_of(lo, rows):
-        return torch.stack([window_rows(P[i].reshape(shape), lo, rows)
-                            .reshape(-1) for i in range(nb)])
-
-    out = []
-    cuts = np.linspace(0, g0, slabs + 1).astype(int)
-    for lo, hi in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
-        o, rows, L0 = lo - w0, hi - lo + 2 * w0, hi - lo
-
-        def win_geom(out_rows, gap=None, follows=None):
-            return bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
-                                  geom.form, origin0=o, g0=g0,
-                                  out_rows=out_rows, gap=gap,
-                                  halo_rows=(w0, L0), follows=follows)
-        chain = None
-        if L0 >= 2 * w0:
-            gi = win_geom((2 * w0, L0))
-            chain = (gi, win_geom((w0, w0 + L0), gap=(2 * w0, L0),
-                                  follows=gi))
-        out.append((win_geom((w0, w0 + L0)), chain,
-                    P[:, lo * plane:hi * plane].contiguous(),
-                    (rows_of(o, w0), rows_of(hi, w0)), o, rows))
-    return out
-
-
 def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
               max_err, modes=("synth", "mask"), library=False,
               time_plain=True, before="not measured"):
@@ -2287,7 +2224,8 @@ class _FirstReorder(Exception):
     """Ends a phase-12b solve after its first reordered rebuild."""
 
 
-def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err):
+def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err,
+                        keep):
     """Phase 12c: the kernel of a box path (K3 where ``synth``, else K1)
     on the path's final capacity in the box's axis order (the solve's own
     operator and p) and in user order (the parent's layout: the same
@@ -2296,7 +2234,9 @@ def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err):
     bitwise the same by state and the sinks within 1e-12 relative; each
     kernel bitwise its plain version.  CUDA events over 100 calls (the
     plain versions over 3), the bound from ``ops/probes.box_action_bytes``
-    over 3.35 TB/s.  Returns {order: (ms, plain ms, bound ms)}."""
+    over 3.35 TB/s.  Returns {order: (ms, plain ms, bound ms)}, and sets
+    ``keep[order]`` to ``(operator, p)`` of each order (phase 14 times the
+    ablations on them)."""
     import numpy as np
     import torch
     import pacmensl_tpu_torch as pt
@@ -2360,6 +2300,7 @@ def layout_kernel_times(dev, smi, label, s, bundle, t, synth, max_err):
         mode = "synth" if synth else "mask"
         max_err[mode] = max(max_err[mode], err)
         dps[key] = got
+        keep[key] = (op, p)
         ms = [time_ms(run) for _ in range(2)]
         ms_plain = time_ms(plain, reps=3)
         n = op.geom.n
@@ -2732,6 +2673,33 @@ def entry_phase(dev, smi, run_entry, final_operator, rep, d4, d6,
     return add_launches(*launch13a), launch13b, launch13c, launch13d
 
 
+def ablation_phase(smi, cases):
+    """Phase 14: the box kernel's ablation and fixed-cost probes
+    (``tools/kernel_ablate.py``, ``tools/base_probe.py``) at their default
+    box (128^3, through their command lines) and on ``cases``
+    (``kernel_ablate.Case``, held on the host; each goes to the card for
+    its own turn) of phases 4-6's final operators.  Every
+    variant and switch build is checked against its plain version before
+    it is timed; a mismatch raises.  Returns ``{label: (ablation,
+    probe)}``."""
+    import torch
+    from pacmensl_tpu_torch.tools import base_probe
+    from pacmensl_tpu_torch.tools import kernel_ablate as ka
+
+    def out(line):
+        print(f"[14] {line}", flush=True)
+    res = {f"{BENCH_EDGE}^3": (ka.main([], out=out),
+                               base_probe.main([], out=out))}
+    torch.cuda.empty_cache()
+    for case in cases:
+        case = case.to(torch.device("cuda", 0))
+        res[case.label] = (ka.ablate(case, smi, out=out),
+                           base_probe.device_side(case, smi, out=out))
+        del case
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -2750,31 +2718,35 @@ def main():
     from pacmensl_tpu_torch.examples import repressilator as ex_rep
     from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
-    from pacmensl_tpu_torch.tools import bench_configs
+    from pacmensl_tpu_torch.tools import base_probe, bench_configs
+    from pacmensl_tpu_torch.tools import kernel_ablate as ka
     dev = torch.device("cuda", 0)
 
     # ---------------------------------------------------------- phase 1
     clock(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card()
     print(f"[1] card: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    # every library of the port at once, one nvcc each
+    # every library of the port at once, one nvcc each: the two ablation
+    # builds of the box kernel (phase 14) too
     from concurrent.futures import ThreadPoolExecutor
+    from pacmensl_tpu_torch.ops import ablation
     from pacmensl_tpu_torch.ops import probes as pr
+    from pacmensl_tpu_torch.ops.cuda_build import NVCC_FLAGS
     t0 = time.perf_counter()
-    libs = {"box kernel": bk.KERNEL, "probe kernels": pr.PROBES}
+    libs = {"box kernel": bk.KERNEL, "probe kernels": pr.PROBES,
+            "box kernel, no-tail build": ablation.NO_TAIL,
+            "box kernel, zero-coords build": ablation.ZERO_COORDS}
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.load) for lib in libs.values()]:
             f.result()
     for name, lib in libs.items():
         print(f"[1] {name}: built in {lib.build_seconds:.2f} s -> "
               f"{lib.path.name}", flush=True)
-        if lib.build_log:
+        if lib.build_log and lib.flags == NVCC_FLAGS:
             print(lib.build_log, file=sys.stderr, flush=True)
-    print(f"[1] both loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[1] all {len(libs)} loaded in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     for line in ptxas_lines(bk.KERNEL.build_log):
         print(f"[1] ptxas, box kernel {line}", flush=True)
 
@@ -2982,54 +2954,10 @@ def main():
           f"{ms['K1'] * 1e3:.1f} us; K3 no slower than K1: "
           f"{ms['K3'] <= ms['K1']}", flush=True)
 
-    def host_us(fn, calls=1000):
-        """Host microseconds per call of ``fn`` over ``calls`` calls
-        without a synchronisation (on a box small enough that the device
-        keeps up)."""
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t2 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t2 - t1) * 1e6 / calls
-
-    hmask, hviol = k1_data(host_op)
-    hp = torch.where(hmask != 0, torch.ones((), device=dev, dtype=torch.float64),
-                     torch.zeros((), device=dev, dtype=torch.float64))
-    hc = host_op.model.coefficients(60.0)
-    host = {"K1": host_us(lambda: bk.box_action(
-                hc, hp, hmask, host_op.props, hviol, host_op.geom)),
-            "K3": host_us(lambda: bk.box_action_synth(
-                hc, hp, host_op.props, host_op.data().bounds,
-                host_op.geom))}
-    print(f"[2] host time per launch (hog1p_5d box {host_op.shape}, 1000 "
-          f"calls without a synchronisation): K1 {host['K1']:.1f} us, K3 "
-          f"{host['K3']:.1f} us", flush=True)
-    # What a K3 launch's host time is made of.  The bare C launch writes
-    # into the outputs of the wrapper call kept in ``keep``.
-    import ctypes
-    hg, hb = host_op.geom, host_op.data().bounds
-    keep = bk.box_action_synth(hc, hp, host_op.props, hb, hg)
-    lib, hprm = bk.KERNEL.load(), hg.params(hc, hb, host_op.props)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    narrow, tiny = int(hg.narrow(hb)), torch.zeros(16, device=dev)
-    parts = {
-        "the C launch through ctypes": lambda: lib.box_action_launch(
-            ctypes.byref(hprm), ctypes.byref(hg._ptrs), hg.nblocks, 1,
-            narrow, dev.index, stream),
-        "a trivial ctypes call": lib.box_action_threads,
-        "one tiny PyTorch kernel": lambda: tiny.add_(1.0),
-        "torch.empty": lambda: torch.empty(hg.n_out + hg.nc,
-                                           dtype=torch.float64, device=dev),
-        "BoxGeometry.params": lambda: hg.params(hc, hb, host_op.props),
-        "model.coefficients(t)": lambda: host_op.model.coefficients(60.0)}
-    print(f"[2] host time of a K3 launch's parts (us per call, parameter "
-          f"struct {ctypes.sizeof(hprm)} B): " + ", ".join(
-              f"{k} {host_us(f):.2f}" for k, f in parts.items()), flush=True)
-    del k1, run, keep
+    host, parts, size = base_probe.host_side(host_op)
+    print("[2] " + base_probe.host_side_text(host_op, host, parts, size)
+          .replace("\n", "\n[2] "), flush=True)
+    del k1, run
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -3177,8 +3105,17 @@ def main():
           "the repressilator did not run Krylov on the box")
     tables(4, "repressilator final operator", s._operator)
     final_operator(4, "repressilator", s, SLICE_T_FINAL)
+    keep = {}
     k12["repressilator"] = layout_kernel_times(
-        dev, smi, "repressilator", s, rep, SLICE_T_FINAL, True, max_err)
+        dev, smi, "repressilator", s, rep, SLICE_T_FINAL, True, max_err,
+        keep)
+    #: phase 14's boxes: the final operators' (model, capacity,
+    #: constraints, mask) and p, without the operators, held on the host
+    #: so that the later phases' peaks of device memory do not hold them
+    ablate14 = [ka.operator_case(
+        f"repressilator t={SLICE_T_FINAL:g}, {key}", op, p,
+        SLICE_T_FINAL).to("cpu") for key, (op, p) in keep.items()]
+    del keep
     op4, p4 = s._operator, s._y.p      # for phase 7a
     del s
     torch.cuda.empty_cache()
@@ -3239,8 +3176,13 @@ def main():
           flush=True)
     tables(5, "hog1p_5d final operator", s._operator)
     final_operator(5, "hog1p_5d", s, HOG_T_FINAL)
+    keep = {}
     k12["hog1p_5d"] = layout_kernel_times(
-        dev, smi, "hog1p_5d", s, hog, HOG_T_FINAL, True, max_err)
+        dev, smi, "hog1p_5d", s, hog, HOG_T_FINAL, True, max_err, keep)
+    ablate14.append(ka.operator_case(
+        f"hog1p_5d t={HOG_T_FINAL:g}, box order", *keep["box order"],
+        HOG_T_FINAL).to("cpu"))
+    del keep
     del s
     torch.cuda.empty_cache()
 
@@ -3283,8 +3225,14 @@ def main():
                               f"no expansion beyond the initial {n0}")
     tables(6, "transcr_reg_6d final operator", s._operator, (4, 6))
     final_operator(6, "transcr_reg_6d", s, TR6_T_FINAL, synth=False)
+    keep = {}
     k12["transcr_reg_6d"] = layout_kernel_times(
-        dev, smi, "transcr_reg_6d", s, tr6, TR6_T_FINAL, False, max_err)
+        dev, smi, "transcr_reg_6d", s, tr6, TR6_T_FINAL, False, max_err,
+        keep)
+    ablate14.append(ka.operator_case(
+        f"transcr_reg_6d t={TR6_T_FINAL:g}, box order", *keep["box order"],
+        TR6_T_FINAL).to("cpu"))
+    del keep
     # K1 where the rows of the last axis are short and two reactions read
     # field rows
     op6 = s._operator
@@ -3443,10 +3391,14 @@ def main():
     bounds_ms = {k: bound(v, flops) for k, v in roof_bytes.items()}
     print(f"[7a] K4 sweep at {BENCH_EDGE}^3: {roof_bytes['K4'] / 1e6:.1f} MB, "
           f"bound {bounds_ms['K4'][0] * 1e3:.1f} us", flush=True)
+    hmask, hviol = k1_data(host_op)
+    hp = hmask.to(torch.float64)
+    hc, hb = host_op.model.coefficients(60.0), host_op.data().bounds
     hw = slab_windows(host_op.geom, hp, hmask, host_op.props, hviol)
-    hb = host_op.data().bounds
-    host["K4"] = host_us(lambda: k4_launch("synth", hc, hb, hw[1]))
-    host["K4 mask"] = host_us(lambda: k4_launch("mask", hc, hb, hw[1]))
+    host["K4"] = base_probe.host_us(lambda: k4_launch("synth", hc, hb,
+                                                      hw[1]))
+    host["K4 mask"] = base_probe.host_us(lambda: k4_launch("mask", hc, hb,
+                                                           hw[1]))
     print(f"[7a] host time per K4 launch (a slab of the hog1p_5d box "
           f"{host_op.shape}): synthesized {host['K4']:.1f} us, mask-reading "
           f"{host['K4 mask']:.1f} us", flush=True)
@@ -3601,6 +3553,14 @@ def main():
     clock(13)
     launch13a, launch13b, launch13c, launch13d = entry_phase(
         dev, smi, run_entry, final_operator, rep, d4, d6, bdf_mass_tol)
+
+    # --------------------------------------------------------- phase 14
+    clock(14)
+    t14 = time.perf_counter()
+    uncounted(lambda: ablation_phase(smi, ablate14))
+    del ablate14
+    print(f"[clock] phase 14 took {time.perf_counter() - t14:.1f} s",
+          flush=True)
 
     paths = (launch4, launch5, launch6, launch9, launch10c, launch10e,
              launch11a, launch11b, launch12, launch13a, launch13b,

@@ -172,6 +172,21 @@
 //     sinks stay bitwise nb single launches'.  A single launch keeps its
 //     tail of one pair at a time.
 //
+// Ablation switches.  Two macros, which no production build defines, take
+// a piece out of the kernel so that a build without it can be timed
+// against the production build (ops/ablation.py, tools/kernel_ablate.py,
+// tools/base_probe.py; the counterpart of the reference package's
+// tools/kernel_ablate.py and tools/base_probe.py).  A switch build's
+// output is not the action: each has a plain version of its own.
+//   * BOX_ABLATE_NO_TAIL: the last block resets the ticket and returns
+//     without summing the sink slots; the slot partials stay in part.
+//   * BOX_ABLATE_ZERO_COORDS: the unit's decode of its rows' in-plane
+//     coordinates (the dmul/dshift loop) is left out, and every row takes
+//     row 0's (0 on every axis but axis 0, which is the window row, and
+//     the last, which is the lane's).  The row's source pointers stay
+//     where the row's true index puts them, so p is read at the flat
+//     source index, which the caller pads.
+//
 // The slots make the sinks independent of the grid, so they are bitwise
 // the same in both modes, from run to run and from card to card.  The kernel selects rather
 // than multiplies by the mask (an inf or NaN propensity at an invalid
@@ -532,6 +547,12 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
             if (wr >= prm.gap_lo) wr += gap;
             int crd[BOX_MAX_S];
             {
+#ifdef BOX_ABLATE_ZERO_COORDS
+                // Ablation build: no decode; every row takes row 0's
+                // in-plane coordinates (see the ablation switches above)
+#pragma unroll
+                for (int d = 1; d < BOX_MAX_S; ++d) crd[d] = 0;
+#else
                 unsigned x = rowok ? pr : pr0;
 #pragma unroll
                 for (int d = BOX_MAX_S - 1; d > 0; --d) {
@@ -545,6 +566,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         crd[d] = 0;
                     }
                 }
+#endif
                 crd[0] = (int)(wr + prm.origin0);
             }
             const long long row_idx = wr * prm.plane + (long long)pr * E;
@@ -919,6 +941,11 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                  == (unsigned)prm.ticket_total - 1u;
     __syncthreads();
     if (!s_last) return;
+#ifdef BOX_ABLATE_NO_TAIL
+    // Ablation build: the partial rows stay in part, unsummed
+    if (threadIdx.x == 0) *ptr.ticket = 0u;
+    return;
+#endif
     // The last block: sinks[c] = sum_b part[b, c] over every partial row
     // of the chain, in a fixed order (strided per thread, then a tree).
     __threadfence();

@@ -44,7 +44,7 @@ import torch
 
 from ..statespace.box_space import EVAL_CHUNK
 from ..statespace.constraints import form_values
-from .cuda_build import CSRC, CudaLibrary, KernelError
+from .cuda_build import CSRC, NVCC_FLAGS, CudaLibrary, KernelError
 from .stencil import coord_grid, shift_nd
 
 SOURCE = CSRC / "box_action.cu"
@@ -690,10 +690,11 @@ class BoxActionKernel(CudaLibrary):
     counters, one per mode (:data:`MODES`).  ``launches`` counts kernel
     launches; ``plain_cuda_calls`` counts calls of the plain versions on
     CUDA tensors (the solve path makes none); ``plain_calls`` counts calls
-    of the plain versions on any device."""
+    of the plain versions on any device.  ``flags``: nvcc's (the
+    production build's by default)."""
 
-    def __init__(self):
-        super().__init__(SOURCE)
+    def __init__(self, flags=NVCC_FLAGS):
+        super().__init__(SOURCE, flags)
         self.reset_counts()
 
     def reset_counts(self) -> None:

@@ -52,14 +52,20 @@ def nvcc() -> str:
                       "the CUDA kernels cannot be built")
 
 
+def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
+    """Where the build of ``source`` with ``flags`` lies: a name of its
+    own for each source text and set of flags."""
+    tag = hashlib.sha256(source.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}_{tag}.so"
+
+
 def build(source: Path, flags=NVCC_FLAGS) -> Tuple[Path, float, str]:
     """Compile ``source`` unless a build of this exact source and flags
     exists; the library is written to a temporary file and renamed into
     place atomically.  Returns (library path, build seconds, 0 for a
     cached build, nvcc's output)."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}_{tag}.so"
+    out = library_path(source, flags)
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,11 +87,13 @@ def build(source: Path, flags=NVCC_FLAGS) -> Tuple[Path, float, str]:
 
 
 class CudaLibrary:
-    """One source's library, built and loaded at first use.  Subclasses
-    declare the C functions' argument types in :meth:`bind`."""
+    """One source's library, built with ``flags`` and loaded at first
+    use.  Subclasses declare the C functions' argument types in
+    :meth:`bind`."""
 
-    def __init__(self, source: Path):
+    def __init__(self, source: Path, flags=NVCC_FLAGS):
         self.source = source
+        self.flags = tuple(flags)
         self.lib = None
         self.path: Optional[Path] = None
         self.build_seconds: Optional[float] = None
@@ -98,7 +106,8 @@ class CudaLibrary:
     def load(self):
         if self.lib is not None:
             return self.lib
-        path, self.build_seconds, self.build_log = build(self.source)
+        path, self.build_seconds, self.build_log = build(self.source,
+                                                         self.flags)
         lib = ctypes.CDLL(str(path))
         self.bind(lib)
         self.lib, self.path = lib, path

@@ -45,6 +45,9 @@ _DTYPES = (torch.float32, torch.float64)
 #: (T + 2H) L that its 32-bit offsets take
 MAX_SHIFTS = 8
 MAX_WINDOW = 2 ** 31 - 1
+#: H100 SXM memory rate in bytes/s (NVIDIA data sheet): the denominator
+#: of the bounds computed from :func:`box_action_bytes`
+HBM_RATE = 3.35e12
 
 
 class ProbeKernels(CudaLibrary):

@@ -35,43 +35,35 @@ each, K9 on the whole box, and on the last box one K3 launch.  Three
 rounds, each sweep first checked bitwise against nb single K4 launches
 a slab; each also replayed from a CUDA graph (the device's time without
 the host's cost per launch).  The slab windows and the graph's timing
-are ``chip_smoke.py``'s (phase 11d), from the repository this file lies
-in.  Prints one line per case.  Needs a CUDA card.
+are ``tools/timing.py``'s (``chip_smoke.py`` phase 11d takes them from
+there too), loaded by its path from the directory this file lies in, so
+that an older checkout's package is timed with them.  Prints one line per
+case.  Needs a CUDA card.
 """
 import argparse
+import functools
 import os
-import subprocess
 import sys
 import time
 
 T_FINAL, FSP_TOL, REPS, ROUNDS = 30.0, 1.0e-4, 200, 3
 
 
-def _time_ms(torch, fn) -> float:
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(REPS):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / REPS
-
-
-def _smoke():
-    """The repository's ``chip_smoke.py`` as a module: ``--k9w`` takes its
-    slab windows (``k9w_windows``) and its CUDA graph timing
-    (``graph_ms``)."""
+@functools.cache
+def _timing():
+    """``tools/timing.py`` beside this file, loaded by its path: the
+    package in the current directory may be an older checkout's."""
     import importlib.util
     from pathlib import Path
-    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    path = Path(__file__).resolve().with_name("timing.py")
+    spec = importlib.util.spec_from_file_location("_timing", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _time_ms(fn) -> float:
+    return _timing().time_ms(fn, REPS, 10)
 
 
 def _solve(pt, bundle, odes, t_final, dev):
@@ -106,7 +98,7 @@ def _repressilator(torch, pt, bk, bo, dev, smi, label) -> None:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"{k} is not bitwise the plain version")
-            times[k].append(_time_ms(torch, fn))
+            times[k].append(_time_ms(fn))
     print(f"{label}: repressilator t=10 final operator {op.shape} "
           f"({d.num_states} states, solve {wall:.2f} s); us per launch "
           + ", ".join(f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
@@ -155,8 +147,8 @@ def _k9(torch, pt, bk, bo, dev, smi, label) -> None:
                                         torch.stack([o[1] for o in one]))):
                     raise AssertionError(f"{name}: K9 is not bitwise the "
                                          "single launches")
-            times[name]["K9"].append(_time_ms(torch, k9))
-            times[name]["single"].append(_time_ms(torch, single))
+            times[name]["K9"].append(_time_ms(k9))
+            times[name]["single"].append(_time_ms(single))
     for name, t in times.items():
         nb = int(name[-1])
         print(f"{label}: {name}: us per call K9 "
@@ -169,7 +161,7 @@ def _k9(torch, pt, bk, bo, dev, smi, label) -> None:
 
 def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
     """K9w sweeps of one launch a slab, beside K9 on the whole box."""
-    smoke = _smoke()
+    timing = _timing()
     gen = torch.Generator(device=dev).manual_seed(7)
     rep = pt.models.repressilator()
     shape = (128,) * 3
@@ -209,7 +201,7 @@ def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
     for rnd in range(ROUNDS):
         for name, g, pa, b, c, Q, slabs in cases:
             wins = [((wg, ps, h), pa.window(o, rows)) for wg, _, ps, h, o,
-                    rows in smoke.k9w_windows(g, Q, slabs)]
+                    rows in timing.k9w_windows(g, Q, slabs)]
 
             def k9w():
                 return [bk.box_action_synth_batched(c, ps, wa, b, wg,
@@ -232,8 +224,8 @@ def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
                         raise AssertionError(f"{name}: K9w is not bitwise "
                                              "the K4 launches")
             for k, fn in runs.items():
-                times[name][k].append(_time_ms(torch, fn))
-                times[name][k + " graph"].append(smoke.graph_ms(fn, REPS))
+                times[name][k].append(_time_ms(fn))
+                times[name][k + " graph"].append(timing.graph_ms(fn, REPS))
     for name, t in times.items():
         print(f"{label}: {name}, nb=3: us per call "
               + ", ".join(f"{k} " + " / ".join(f"{x * 1e3:.1f}" for x in v)
@@ -251,9 +243,7 @@ def main(label: str = "", k9: bool = False, k9w: bool = False) -> None:
         raise SetupError("time_k1 needs a CUDA card")
     dev = torch.device("cuda", 0)
     if k9 or k9w:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True).stdout.strip()
+        smi = _timing().card()
         (_k9w if k9w else _k9)(torch, pt, bk, bo, dev, smi, label)
         return
     t0 = time.perf_counter()
@@ -280,10 +270,8 @@ def main(label: str = "", k9: bool = False, k9w: bool = False) -> None:
             if not torch.equal(got, want):
                 raise AssertionError(f"K1 on {k} is not bitwise its plain "
                                      "version")
-            times[k].append(_time_ms(torch, k1))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+            times[k].append(_time_ms(k1))
+    smi = _timing().card()
     print(f"{label}: transcr_reg_6d t={T_FINAL:g} final operator "
           f"{op.shape} ({op.geom.n} elements, {d.num_states} states, solve "
           f"{wall:.2f} s); K1 us per launch "

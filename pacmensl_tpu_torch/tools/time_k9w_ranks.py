@@ -26,7 +26,6 @@ waits on), with the card's name and power limit.
 import argparse
 import os
 import socket
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -155,11 +154,9 @@ def main() -> None:
     smi = "cpu"
     if args.device == "cuda":
         from pacmensl_tpu_torch.ops import box_kernel as bk
+        from pacmensl_tpu_torch.tools.timing import card
         bk.KERNEL.load()     # built once, before the ranks load it
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        smi = card()
         cards = torch.cuda.device_count()
         if max(args.worlds) > cards:
             raise SystemExit(f"{max(args.worlds)} ranks need as many cards; "

@@ -860,3 +860,97 @@ def test_cuda_batched_window_kernel_at_the_widest_constraints(chained):
             assert torch.equal(kp, torch.stack([q[0] for q in one]))
             assert torch.equal(ks, torch.stack([q[1] for q in one]))
         assert bool((r["single"][1] != 0).any())
+
+
+def _ablation_case(name, bounds, dev):
+    """A bundle's operator at ``bounds`` from the origin, and ``p`` on its
+    valid states (``tools/kernel_ablate.py``'s case)."""
+    from pacmensl_tpu_torch.tools import kernel_ablate as ka
+    b = pt.models.ALL_MODELS[name]()
+    cs = pt.ConstraintSet(b.constraint, bounds, b.expansion_factors)
+    S = b.model.num_species
+    space = pt.BoxStateSpace(b.model.stoichiometry, cs,
+                             np.zeros((1, S), np.int64), device=dev)
+    op = pt.BoxOperator(b.model, space)
+    mask = space.mask.reshape(-1)
+    p = torch.as_tensor(np.random.default_rng(9).random(op.geom.n),
+                        device=dev) * mask
+    return op, ka.operator_case(name, op, p, 30.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bounds", [
+    ("repressilator", [22, 2, 2, 44, 4, 44]),
+    ("transcr_reg_6d", [10, 6, 2, 3, 2, 4]),
+])
+def test_cuda_no_tail_build_against_the_production_launch(name, bounds):
+    """The no-tail build (K3 on the repressilator, K1 on transcr_reg_6d):
+    dp bitwise the production launch's, and the tail of the partial rows
+    it leaves the production sinks bitwise.  Its launches count on its own
+    library, not on the production kernel's."""
+    _needs_cuda()
+    from pacmensl_tpu_torch.ops import ablation
+    from pacmensl_tpu_torch.tools import kernel_ablate as ka
+    op, case = _ablation_case(name, bounds, "cuda")
+    vs = ka.variants(case)
+    n0 = dict(bk.KERNEL.launches)
+    dp, part = vs["no-tail"].run()
+    sk = ablation.tail_sum(part)
+    assert bk.KERNEL.launches == n0
+    full = vs["full"].run()
+    plain = vs["full"].plain()
+    torch.cuda.synchronize()
+    assert op.synth_mask == (name == "repressilator")
+    assert torch.equal(dp, full[0]) and torch.equal(dp, plain[0])
+    assert torch.equal(sk, full[1]) and bool((sk != 0).any())
+    np.testing.assert_allclose(sk.cpu().numpy(), plain[1].cpu().numpy(),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,bounds", [
+    ("repressilator", [22, 2, 2, 44, 4, 44]),
+    ("hog1p_5d", [3, 6, 6, 6, 6, 8, 8]),
+])
+def test_cuda_zero_coords_build_matches_its_plain_version(name, bounds):
+    """The zero-coords build (K3, every row at row 0's coordinates, p read
+    in its padded buffer): dp bitwise its plain version's, sinks within
+    rtol 1e-12; two launches bitwise equal."""
+    _needs_cuda()
+    from pacmensl_tpu_torch.ops import ablation
+    op, case = _ablation_case(name, bounds, "cuda")
+    c, b = op.model.coefficients(30.0), op.data().bounds
+    pbuf = ablation.padded_p(case.p, op.geom)
+    got = ablation.zero_coords(c, pbuf, op.props, b, op.geom)
+    again = ablation.zero_coords(c, pbuf, op.props, b, op.geom)
+    want = ablation.zero_coords_reference(c, pbuf, op.props, b, op.geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(),
+                               want[1].cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ablation_variants_against_plain_and_operators():
+    """Every kernel_ablate variant on the card against its plain version
+    (``ablate`` checks each before timing it), and ``full``, ``r1`` and
+    ``r2`` bitwise the launches of ``BoxOperator(enable_reactions=...)``
+    on the same space."""
+    _needs_cuda()
+    from pacmensl_tpu_torch.ops.vecops import FspVector
+    from pacmensl_tpu_torch.tools import kernel_ablate as ka
+    op, case = _ablation_case("repressilator", [22, 2, 2, 44, 4, 44], "cuda")
+    got = ka.ablate(case, "card", reps=5, rounds=1, out=lambda s: None)
+    assert set(got) == {"full", "r1", "r2", "nosink", "unitnosink",
+                        "full-K1", "no-tail"}
+    vs = ka.variants(case)
+    y = FspVector(p=case.p, sinks=torch.zeros(op.num_constraints,
+                                              dtype=torch.float64,
+                                              device="cuda"))
+    for name, rs in (("full", None), ("r1", [0]), ("r2", [0, 1])):
+        sub = pt.BoxOperator(op.model, op.space, enable_reactions=rs)
+        want = sub.action(30.0, y)
+        dp, sk = vs[name].run()
+        torch.cuda.synchronize()
+        assert torch.equal(dp, want.p) and torch.equal(sk, want.sinks)
