@@ -18,7 +18,9 @@ and the integrator, and runs the solve -> check sinks -> expand -> scatter
   * ``ExpandVec`` (PetscWrap.cpp:26-56) -> a zero-pad embedding when the
     box capacity grows, nothing within capacity;
   * PETSc event logging -> :class:`~..sys.events.EventLog` with the same
-    phase names.
+    phase names; while :meth:`set_up`, :meth:`solve` and
+    :meth:`solve_tspan` run, the log is the active one, so the spans
+    below the driver (operator actions, GMRES, host syncs) record into it.
 
 With a ``mesh`` (:func:`~..parallel.mesh.make_mesh`) the box is split
 into axis-0 slabs over the ranks of a ``torch.distributed`` group, as the
@@ -56,7 +58,6 @@ box's capacity up-front (:meth:`_prealloc_budget`).
 from __future__ import annotations
 
 import os
-import time
 import warnings
 from typing import List, Optional, Sequence, Union
 
@@ -68,7 +69,8 @@ from ..models.model import Model
 from ..sys.errors import SetupError, IntegratorError, StateSpaceError
 from ..sys.events import (EventLog, StepTrace, EVT_SETUP, EVT_PARTITION,
                           EVT_MATGEN, EVT_ODESOLVE, EVT_RHS, EVT_SCATTER,
-                          EVT_TOTAL, EVT_STEPS, EVT_REJECTED, EVT_REORDER)
+                          EVT_TOTAL, EVT_STEPS, EVT_REJECTED, EVT_REORDER,
+                          active)
 from ..statespace.constraints import ConstraintSet
 from ..statespace.box_space import (BoxStateSpace, MAX_BOX_ELEMS,
                                     _round_capacity, _round_fine)
@@ -160,7 +162,8 @@ class FspSolverMultiSinks:
         #: the TS method ``odes_type="petsc"`` runs (:data:`TS_TYPES`)
         self.ts_type = "rk"
         #: record the optional event counts (the halo's values per
-        #: matvec); the phase timers always run
+        #: matvec) and the spans below the driver; the phase timers
+        #: always run
         self.log_events = True
         self.events = EventLog()
         self.step_trace = StepTrace()
@@ -611,7 +614,7 @@ class FspSolverMultiSinks:
         self.axis_orders_ = []
         self._ode_solver = None
         self._operator = None
-        with self.events.timed(EVT_SETUP):
+        with self._logging(), self.events.timed(EVT_SETUP):
             self._backend_used = self._choose_backend()
             with self.events.timed(EVT_PARTITION):
                 self._build_space()
@@ -620,6 +623,11 @@ class FspSolverMultiSinks:
             self._y = self._initial_vector()
         self._set_up = True
         return self
+
+    def _logging(self):
+        """The block in which :func:`~..sys.events.span` records into
+        :attr:`events` (into nothing where ``log_events`` is off)."""
+        return active(self.events if self.log_events else None)
 
     def pad_quanta_for_space(self) -> np.ndarray:
         """Capacity quanta per axis: axis 0 divides by the rank count."""
@@ -1049,28 +1057,8 @@ class FspSolverMultiSinks:
                     self._ode_solver_key = solver_key
                 solver = self._ode_solver
                 if fsp_tol > 0:
-                    t_fg = time.perf_counter()
-                    # already-lost sink mass beyond the pro-rated budget at
-                    # epoch start, forgiven by the stop-check.  The slack
-                    # keeps the resumed excess strictly negative, so
-                    # rounding cannot re-trip the stop on the first step;
-                    # it loosens the bound by at most 1e-3 * fsp_tol plus
-                    # a few ulps of the sink scale.
-                    n_sinks = self.constraints.num_constraints
-                    sinks_now = (np.asarray(self.sinks_, np.float64)
-                                 if self.sinks_ is not None else
-                                 self._base_sinks(self._y).cpu().numpy())
-                    excess_now = (sinks_now * n_sinks -
-                                  fsp_tol * (self._t_now / t_final))
-                    eps = float(torch.finfo(self.dtype).eps)
-                    slack = (64.0 * eps * np.maximum(np.abs(sinks_now)
-                                                     * n_sinks, fsp_tol)
-                             + 1.0e-3 * fsp_tol / n_sinks)
-                    forgiven = torch.as_tensor(
-                        np.maximum(0.0, excess_now) + slack,
-                        dtype=self.dtype, device=self.device)
-                    self.events.add("StopCheckPrep",
-                                    time.perf_counter() - t_fg)
+                    with self.events.timed("StopCheckPrep"):
+                        forgiven = self._forgiven(fsp_tol, t_final)
                 else:
                     forgiven = None
                 with self.events.timed(EVT_ODESOLVE):
@@ -1083,8 +1071,8 @@ class FspSolverMultiSinks:
                         f"t = {res.t}")
                 self._y = res.y
                 self._t_now = float(res.t)
-                with self.events.timed("HostFetch"):
-                    self.sinks_ = self._base_sinks(res.y).cpu().numpy()
+                self.sinks_ = vo.to_host(self._base_sinks(res.y),
+                                         "EpochSinks")
                 self.step_trace.record_epoch(
                     res.stats.n_steps,
                     res.trace.arrays() if res.trace is not None else None,
@@ -1111,15 +1099,35 @@ class FspSolverMultiSinks:
                     self._t_prev_epoch = self._t_now
                     self._expand(to_expand, rounds=min(1 + rapid, 4))
 
+    def _forgiven(self, fsp_tol: float, t_final: float) -> torch.Tensor:
+        """The already-lost sink mass beyond the pro-rated budget at
+        epoch start, forgiven by the stop-check.  The slack keeps the
+        resumed excess strictly negative, so rounding cannot re-trip the
+        stop on the first step; it loosens the bound by at most 1e-3 *
+        fsp_tol plus a few ulps of the sink scale."""
+        n_sinks = self.constraints.num_constraints
+        sinks_now = (np.asarray(self.sinks_, np.float64)
+                     if self.sinks_ is not None else
+                     vo.to_host(self._base_sinks(self._y), "InitialSinks"))
+        excess_now = (sinks_now * n_sinks -
+                      fsp_tol * (self._t_now / t_final))
+        eps = float(torch.finfo(self.dtype).eps)
+        slack = (64.0 * eps * np.maximum(np.abs(sinks_now) * n_sinks,
+                                         fsp_tol)
+                 + 1.0e-3 * fsp_tol / n_sinks)
+        return torch.as_tensor(np.maximum(0.0, excess_now) + slack,
+                               dtype=self.dtype, device=self.device)
+
     def solve(self, t_final: float, fsp_tol: float = 1.0e-4,
               t_init: float = 0.0) -> DiscreteDistribution:
         """Reference Solve (FspSolverMultiSinks.cpp:619-643)."""
         if not self._set_up:
             self.set_up()
-        self._y = self._initial_vector()
-        self._t_now = float(t_init)
-        self._advance(float(t_final), float(fsp_tol))
-        return self._make_distribution()
+        with self._logging():
+            self._y = self._initial_vector()
+            self._t_now = float(t_init)
+            self._advance(float(t_final), float(fsp_tol))
+            return self._make_distribution()
 
     def solve_tspan(self, tspan: Sequence[float], fsp_tol: float = 1.0e-4,
                     t_init: float = 0.0) -> List[DiscreteDistribution]:
@@ -1127,13 +1135,14 @@ class FspSolverMultiSinks:
         segment by segment."""
         if not self._set_up:
             self.set_up()
-        self._y = self._initial_vector()
-        self._t_now = float(t_init)
-        out = []
-        for t in tspan:
-            self._advance(float(t), float(fsp_tol))
-            out.append(self._make_distribution())
-        return out
+        with self._logging():
+            self._y = self._initial_vector()
+            self._t_now = float(t_init)
+            out = []
+            for t in tspan:
+                self._advance(float(t), float(fsp_tol))
+                out.append(self._make_distribution())
+            return out
 
     def clear_state(self) -> None:
         self._restore_user_order()

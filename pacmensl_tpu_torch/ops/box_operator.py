@@ -34,6 +34,11 @@ Operator data, by lifetime:
   violation bits ``viol [R, n]`` (bit c = f_c(x + s_r) > b_c);
 * per call: the time coefficients c(t), passed by value to the kernel.
 
+Each :meth:`~BoxOperator.action` and :meth:`~BoxOperator.action_batched`
+is one ``OperatorAction`` span, and the model's c(t) inside it, where the
+caller passed none, a ``ModelCoefficients`` span
+(:func:`~..sys.events.span`).
+
 With a ``mesh`` (:mod:`..parallel.mesh`) the box is split into axis-0
 slabs over its ranks, every rank holding the whole state space: the
 operator's field rows, mask and violation bits cover the rank's window of
@@ -56,6 +61,7 @@ from ..models.model import Model
 from ..statespace.box_space import BoxStateSpace, EVAL_CHUNK, constraint_ok
 from ..statespace.constraints import ConstraintSet
 from ..sys.errors import StateSpaceError
+from ..sys.events import EVT_ACTION, EVT_COEFFS, span
 from ..parallel.halo_box import ShardedBoxAction, window_rows
 from .box_kernel import (CONST_AXIS, FIELD_ROW, BoxGeometry, MAX_NC,
                          PropTables, box_action, box_action_batched,
@@ -326,7 +332,8 @@ class BoxOperator:
         model's full coefficient vector ``c`` where the caller already
         holds it."""
         if c is None:
-            c = self.model.coefficients(t, self.dtype)
+            with span(EVT_COEFFS):
+                c = self.model.coefficients(t, self.dtype)
         return c if self._rows is None else c[self._rows]
 
     def action(self, t, y: FspVector, c=None, out=None) -> FspVector:
@@ -334,18 +341,19 @@ class BoxOperator:
         the model's coefficients at ``t`` where the caller holds them;
         ``out``: where to write ``dp``.  On a CUDA vector this launches
         the kernel; on a CPU vector it runs the kernel's plain version."""
-        d = self._data
-        c = self.coefficients(t, c)
-        if self.sharded is not None:
-            dp, dsinks = self.sharded(c, y.p, self.props, d.mask, d.viol,
-                                      d.bounds)
-        elif d.mask is None:
-            dp, dsinks = box_action_synth(c, y.p, self.props, d.bounds,
-                                          self.geom, out=out)
-        else:
-            dp, dsinks = box_action(c, y.p, d.mask, self.props, d.viol,
-                                    self.geom, out=out)
-        return FspVector(p=dp, sinks=dsinks)
+        with span(EVT_ACTION):
+            d = self._data
+            c = self.coefficients(t, c)
+            if self.sharded is not None:
+                dp, dsinks = self.sharded(c, y.p, self.props, d.mask,
+                                          d.viol, d.bounds)
+            elif d.mask is None:
+                dp, dsinks = box_action_synth(c, y.p, self.props, d.bounds,
+                                              self.geom, out=out)
+            else:
+                dp, dsinks = box_action(c, y.p, d.mask, self.props, d.viol,
+                                        self.geom, out=out)
+            return FspVector(p=dp, sinks=dsinks)
 
     def action_batched(self, t, p: torch.Tensor, c=None, out=None):
         """``(dp [nb, n], sinks [nb, n_c])`` of A(t) applied to each row
@@ -353,16 +361,17 @@ class BoxOperator:
         CUDA tensor, by its plain version on a CPU tensor; with a mesh on
         the rank's slab of each vector, behind one halo exchange (K9w,
         :meth:`~..parallel.halo_box.ShardedBoxAction.batched`)."""
-        d = self._data
-        c = self.coefficients(t, c)
-        if self.sharded is not None:
-            return self.sharded.batched(c, p, self.props, d.mask, d.viol,
-                                        d.bounds, out)
-        if d.mask is None:
-            return box_action_synth_batched(c, p, self.props, d.bounds,
-                                            self.geom, out=out)
-        return box_action_batched(c, p, d.mask, self.props, d.viol,
-                                  self.geom, out=out)
+        with span(EVT_ACTION):
+            d = self._data
+            c = self.coefficients(t, c)
+            if self.sharded is not None:
+                return self.sharded.batched(c, p, self.props, d.mask,
+                                            d.viol, d.bounds, out)
+            if d.mask is None:
+                return box_action_synth_batched(c, p, self.props, d.bounds,
+                                                self.geom, out=out)
+            return box_action_batched(c, p, d.mask, self.props, d.viol,
+                                      self.geom, out=out)
 
     def diagonal(self, t=0.0) -> torch.Tensor:
         """diag(A(t)) = -sum_r c_r(t) a_r(x), masked (flat [n], the rank's

@@ -30,6 +30,10 @@ of the source states on the host, the propensities and constraint checks
 on the operator's device with the model's torch functions.  Capacities
 follow a 1.5x ladder (``pad_to`` quanta) so vectors and integrator storage
 keep their shapes across most epochs; entries past ``n_states`` are zero.
+
+Spans (:func:`~..sys.events.span`): ``OperatorAction`` per action (a
+batched one counts once), ``ModelCoefficients`` per c(t) the model
+computes.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 from ..config import resolve_device
 from ..models.model import Model
 from ..statespace.state_set import StateSet
+from ..sys.events import EVT_ACTION, EVT_COEFFS, span
 from .vecops import FspVector
 
 
@@ -148,7 +153,8 @@ class EllOperator:
         device, from the model's full host coefficient vector ``c`` where
         the caller already holds it (the last one is kept on the device)."""
         if c is None:
-            c = self.model.coefficients(t, self.dtype)
+            with span(EVT_COEFFS):
+                c = self.model.coefficients(t, self.dtype)
         c = c.cpu()[self._rows]
         if self._c_host is None or not torch.equal(c, self._c_host):
             self._c_host = c
@@ -159,7 +165,11 @@ class EllOperator:
 
     def action(self, t, y: FspVector, c=None, out=None) -> FspVector:
         """dy/dt = A(t) y on ``y``'s ``[n_pad]`` vector; ``out``: where to
-        write ``dp``."""
+        write ``dp``.  One ``OperatorAction`` span."""
+        with span(EVT_ACTION):
+            return self._action(t, y, c, out)
+
+    def _action(self, t, y: FspVector, c=None, out=None) -> FspVector:
         c = self.coefficients(t, c)
         p = y.p
         g = p[self.src_idx]                  # [R, n_pad]
@@ -172,15 +182,16 @@ class EllOperator:
 
     def action_batched(self, t, p: torch.Tensor, c=None, out=None):
         """``(dp [nb, n_pad], sinks [nb, n_c])`` of A(t) applied to each
-        row of ``p [nb, n_pad]``."""
+        row of ``p [nb, n_pad]``: one ``OperatorAction`` span."""
         nb = p.shape[0]
-        if out is None:
-            out = torch.empty_like(p)
-        sinks = []
-        for i in range(nb):
-            sinks.append(self.action(t, FspVector(p=p[i], sinks=None), c=c,
-                                     out=out[i]).sinks)
-        return out, torch.stack(sinks)
+        with span(EVT_ACTION):
+            if out is None:
+                out = torch.empty_like(p)
+            sinks = []
+            for i in range(nb):
+                sinks.append(self._action(t, FspVector(p=p[i], sinks=None),
+                                          c=c, out=out[i]).sinks)
+            return out, torch.stack(sinks)
 
     def diagonal(self, t=0.0) -> torch.Tensor:
         """diag(A(t)) = -sum_r c_r(t) a_r(x) over the padded vector."""

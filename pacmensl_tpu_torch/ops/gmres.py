@@ -11,11 +11,15 @@ matvecs counted in ``n_matvecs`` (the residual matvec that opens each
 cycle is not).
 
 The loop runs on the host; vectors stay on their device.  Host syncs
-(each marked ``sync`` below): the norm of ``b`` once, the residual norm
-once per restart cycle, and once per Arnoldi iteration the new Hessenberg
-column (the dots ``h_ij`` stay on the device through the
+(each marked ``sync`` below, spans ``HostSync.<site>``): the norm of
+``b`` once (``GMRESNorm``), the residual norm once per restart cycle
+(``GMRESResidual``), and once per Arnoldi iteration the new Hessenberg
+column (``GMRESColumn``: the dots ``h_ij`` stay on the device through the
 orthogonalization and come back with the norm in one copy).  The Givens
-rotations and the back-substitution run on the host in float64.
+rotations and the back-substitution run on the host in float64.  Spans:
+``GMRES`` around a solve, ``GMRESOrthogonalize`` around one Arnoldi
+iteration's Gram-Schmidt and norm (the normalisation needs the synced
+norm, so it follows the sync, outside the span).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..sys.events import EVT_GMRES, EVT_ORTHO, span
 from . import vecops as vo
 
 
@@ -49,14 +54,15 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
     if basis is None or basis.p.shape[0] < m + 1:
         basis = vo.basis_empty(b, m + 1)
     V = basis
-    with np.errstate(all="ignore"):
-        bnorm = np.float64(float(vo.norm2(b)))                # sync
+    with span(EVT_GMRES), np.errstate(all="ignore"):
+        bnorm = np.float64(vo.to_host(vo.norm2(b), "GMRESNorm"))   # sync
         # np.maximum: a NaN norm propagates and ends the solve unconverged
         target = np.maximum(np.float64(tol) * bnorm, np.float64(atol))
         x, rnorm, nmv, it = x0, np.float64(np.inf), 0, 0
         while rnorm > target and it < max_restarts:
             r = vo.sub(b, apply_A(x))
-            beta = np.float64(float(vo.norm2(r)))             # sync
+            beta = np.float64(vo.to_host(vo.norm2(r),
+                                         "GMRESResidual"))    # sync
             safe_beta = beta if beta > 0 else np.float64(1.0)
             torch.mul(r.p, float(1.0 / safe_beta), out=V.p[0])
             torch.mul(r.sinks, float(1.0 / safe_beta), out=V.sinks[0])
@@ -69,16 +75,18 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
             while j < m and res > target:
                 w = apply_A(vo.basis_get(V, j))
                 nmv += 1
-                hs_dev = []
-                for i in range(j + 1):
-                    vi = vo.basis_get(V, i)
-                    h = vo.vdot(w, vi)
-                    w.p.addcmul_(vi.p, -h)
-                    if w.sinks.numel():
-                        w.sinks.addcmul_(vi.sinks, -h)
-                    hs_dev.append(h)
-                hs_dev.append(vo.norm2(w))
-                col = torch.stack(hs_dev).cpu().numpy()       # sync
+                with span(EVT_ORTHO):
+                    hs_dev = []
+                    for i in range(j + 1):
+                        vi = vo.basis_get(V, i)
+                        h = vo.vdot(w, vi)
+                        w.p.addcmul_(vi.p, -h)
+                        if w.sinks.numel():
+                            w.sinks.addcmul_(vi.sinks, -h)
+                        hs_dev.append(h)
+                    hs_dev.append(vo.norm2(w))
+                    col_dev = torch.stack(hs_dev)
+                col = vo.to_host(col_dev, "GMRESColumn")      # sync
                 hs = col[j + 1]
                 inv = 1.0 / (hs if hs > 0 else np.float64(1.0))
                 torch.mul(w.p, float(inv), out=V.p[j + 1])

@@ -52,6 +52,7 @@ import torch
 from ..models.model import Model, SensModel
 from ..statespace.state_set import StateSet
 from ..parallel.halo_ell import ShardedEllOperator
+from ..sys.events import EVT_COEFFS, span
 from .box_operator import BoxOperator
 from .ell_operator import EllOperator
 from .vecops import FspVector
@@ -167,7 +168,8 @@ class SensOperator:
             out = self.dcxA[j].action(t, y)
         if self.cxdA[j] is not None:
             if c is None:
-                c = self.model.coefficients(t, self.dtype)
+                with span(EVT_COEFFS):
+                    c = self.model.coefficients(t, self.dtype)
             d = self.cxdA[j].action(t, y, c=c)
             out = d if out is None else FspVector(p=out.p + d.p,
                                                   sinks=out.sinks + d.sinks)
@@ -181,7 +183,8 @@ class SensOperator:
         (``p [(1 + Np) n]``, ``sinks [(1 + Np) n_c]``)."""
         n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
         P = y.p.view(m, n)
-        c = self.model.coefficients(t, self.dtype)
+        with span(EVT_COEFFS):
+            c = self.model.coefficients(t, self.dtype)
         out = torch.empty_like(y.p)
         sh = getattr(self.base, "sharded", None)
         if sh is not None and sh.halos:

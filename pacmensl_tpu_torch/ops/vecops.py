@@ -18,6 +18,9 @@ ranks and add the sink part once.  Every rank then holds the same bits,
 and the integrators, which decide on the host from these values only,
 take the same steps on every rank.  The axpys and linear combinations
 stay local.
+
+Every blocking read of a device value on the host goes through
+:func:`to_host`, which records it as a ``HostSync.<site>`` span.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
+
+from ..sys.events import EVT_HOST_SYNC, span
 
 #: the mesh whose ranks the reductions run over (None: one device)
 _MESH = None
@@ -47,6 +52,14 @@ def sum_ranks(t: torch.Tensor) -> torch.Tensor:
     if _MESH is not None:
         _MESH.all_reduce(t)
     return t
+
+
+def to_host(x: torch.Tensor, site: str):
+    """``x`` on the host, a Python number for a 0-d tensor and a numpy
+    array otherwise: a copy that waits for the work queued before it,
+    recorded as the span ``HostSync.<site>``."""
+    with span(EVT_HOST_SYNC + site):
+        return x.item() if x.dim() == 0 else x.cpu().numpy()
 
 
 class FspVector(NamedTuple):

@@ -39,6 +39,7 @@ from ..models.model import Model
 from ..ops.ell_operator import EllOperator, _round_up
 from ..ops.vecops import FspVector
 from ..statespace.state_set import StateSet
+from ..sys.events import EVT_ACTION, span
 from .mesh import StateMesh
 
 #: the quantum of the padded state list per rank (the reference's 128
@@ -136,26 +137,28 @@ class ShardedEllOperator(EllOperator):
     def action(self, t, y: FspVector, c=None, out=None) -> FspVector:
         """dy/dt = A(t) y on the rank's block: one all-to-all, one
         all-reduce."""
-        c = self.coefficients(t, c)
-        halo = self._halos(y.p[None])[0]
-        dp, sinks = self._local(c, y.p, halo, out)
-        if self._D > 1:
-            self.mesh.all_reduce(sinks)
-        return FspVector(p=dp, sinks=sinks)
+        with span(EVT_ACTION):
+            c = self.coefficients(t, c)
+            halo = self._halos(y.p[None])[0]
+            dp, sinks = self._local(c, y.p, halo, out)
+            if self._D > 1:
+                self.mesh.all_reduce(sinks)
+            return FspVector(p=dp, sinks=sinks)
 
     def action_batched(self, t, p: torch.Tensor, c=None, out=None):
         """``(dp [nb, L], sinks [nb, n_c])`` of A(t) on each row of ``p
         [nb, L]``: one all-to-all and one all-reduce for all of them."""
-        c = self.coefficients(t, c)
-        halo = self._halos(p)
-        if out is None:
-            out = torch.empty_like(p)
-        sinks = torch.stack([
-            self._local(c, p[i], halo[i], out[i])[1]
-            for i in range(p.shape[0])])
-        if self._D > 1:
-            self.mesh.all_reduce(sinks)
-        return out, sinks
+        with span(EVT_ACTION):
+            c = self.coefficients(t, c)
+            halo = self._halos(p)
+            if out is None:
+                out = torch.empty_like(p)
+            sinks = torch.stack([
+                self._local(c, p[i], halo[i], out[i])[1]
+                for i in range(p.shape[0])])
+            if self._D > 1:
+                self.mesh.all_reduce(sinks)
+            return out, sinks
 
     # ------------------------------------------------------------- misc
     @property

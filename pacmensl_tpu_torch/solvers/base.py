@@ -20,7 +20,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.vecops import FspVector
+from ..ops.vecops import FspVector, to_host
 
 #: matvec(t, y: FspVector) -> FspVector
 MatVec = Callable[[Any, FspVector], FspVector]
@@ -50,9 +50,9 @@ def wrap_stop_check(fn: Optional[StopCheck]) -> Optional[StopCheck]:
 
 def host_excess(excess, n_c: int) -> np.ndarray:
     """A stop-check's excess as a float64 host array of ``n_c``
-    entries."""
+    entries (a device tensor's copy is ``HostSync.StopCheck``)."""
     if torch.is_tensor(excess):
-        excess = excess.cpu().numpy()                   # sync
+        excess = to_host(excess, "StopCheck")           # sync
     return np.asarray(excess, np.float64).reshape(n_c)
 
 

@@ -14,9 +14,11 @@ The adaptive loop runs on the host.  The difference array ``D`` holds
 ``ND`` box vectors (``[ND, n]`` plus ``[ND, n_c]``), allocated once per
 vector shape and updated in place; the GMRES basis likewise.  Host syncs
 per step, besides GMRES's own (see ``ops/gmres.py``): one for the error
-norm with the finiteness flags, one for the sinks in the stop-check of an
-accepted step, and one for the two neighbouring-order error norms when the
-order adapts.
+norm with the finiteness flags (``HostSync.BDFErrorNorm``), one for the
+sinks in the stop-check of an accepted step (``HostSync.StopCheck``), and
+one for the two neighbouring-order error norms when the order adapts
+(``HostSync.BDFOrderNorms``); once per solve the first step's norm
+(``HostSync.BDFStartNorm``).
 
 FSP stop semantics mirror CvodeFsp::Solve (CvodeFsp.cpp:34-78): the
 stop-check runs after every accepted step; on violation the solver keeps
@@ -164,7 +166,8 @@ class BdfSolver:
                                            vo.basis_get(D, order + 2)),
                                   y_pred)
                if order < MAX_ORDER else zero)
-        e_m, e_p = torch.stack([e_m, e_p]).cpu().numpy()        # sync
+        e_m, e_p = vo.to_host(torch.stack([e_m, e_p]),
+                              "BDFOrderNorms")                  # sync
         if order == 1:
             e_m = np.float64(np.inf)
         if order == MAX_ORDER:
@@ -201,7 +204,8 @@ class BdfSolver:
         with np.errstate(all="ignore"):
             # ---- initial h (order-1 heuristic, as scipy BDF)
             f0 = mv(float(t), y0)
-            d1 = np.float64(float(self._err_norm_dev(f0, y0)))   # sync
+            d1 = np.float64(vo.to_host(self._err_norm_dev(f0, y0),
+                                       "BDFStartNorm"))          # sync
             h0 = (np.float64(0.01) / np.maximum(d1, 1e-30) if d1 > 0
                   else np.float64(1e-6))
             h = np.minimum(np.maximum(h0, 1e-12), t_final - t)
@@ -247,9 +251,9 @@ class BdfSolver:
                     vo.scale(float(_ERRC[order]), d), y_pred)
                 # a non-finite rhs means the user matvec failed: propagate
                 # at once (GMRES would return x0 unchanged on a NaN rhs)
-                flags = torch.stack([
+                flags = vo.to_host(torch.stack([
                     err_dev, vo.isfinite(rhs).to(err_dev.dtype),
-                    vo.isfinite(y_new).to(err_dev.dtype)]).cpu().numpy()
+                    vo.isfinite(y_new).to(err_dev.dtype)]), "BDFErrorNorm")
                 err_norm = flags[0]                             # sync
                 rhs_finite, y_finite = bool(flags[1]), bool(flags[2])
                 healthy = y_finite and np.isfinite(err_norm) and rhs_finite

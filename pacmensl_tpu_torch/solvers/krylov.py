@@ -11,10 +11,13 @@ heuristic, the error estimate, the rejection loop and the cost model are
 the reference package's, so both take the same steps.
 
 The loop runs on the host; vectors stay on their device.  Host syncs per
-step (each marked ``sync`` below): the norm of y, the norm of each new
-Arnoldi vector (the happy-breakdown test decides whether the basis
-grows), one copy of the Hessenberg coefficients, the norms of the
-first-step and error-estimate matvecs, and the sinks for the stop-check.
+step (each marked ``sync`` below, spans ``HostSync.<site>``): the norm
+of y (``KrylovBeta``), the norm of each new Arnoldi vector
+(``KrylovNorm``: the happy-breakdown test decides whether the basis
+grows), one copy of the Hessenberg coefficients (``KrylovHessenberg``),
+the norms of the first-step and error-estimate matvecs
+(``KrylovStartNorm``, ``KrylovErrorNorm``), and the sinks for the
+stop-check (``StopCheck``).
 The Hessenberg exponentials run on the host in float64.
 """
 from __future__ import annotations
@@ -111,7 +114,7 @@ class KrylovSolver:
                 w.sinks.addcmul_(vi.sinks, -h)
                 h_pos.append((i, j))
                 h_dev.append(h)
-            s = float(vo.norm2(w))                       # sync
+            s = float(vo.to_host(vo.norm2(w), "KrylovNorm"))   # sync
             happy = s < self.btol
             inv = 1.0 / (1.0 if happy else s)
             torch.mul(w.p, inv, out=V.p[j + 1])
@@ -119,7 +122,7 @@ class KrylovSolver:
             Hm[j + 1, j] = s
             j += 1
         if h_dev:
-            hv = torch.stack(h_dev).cpu().numpy()        # sync
+            hv = vo.to_host(torch.stack(h_dev), "KrylovHessenberg")  # sync
             for (i, jj), v in zip(h_pos, hv):
                 Hm[i, jj] = v
         mb = j if happy else m          # j+1 basis vectors on breakdown
@@ -161,7 +164,7 @@ class KrylovSolver:
         while (t_now < t_final and status == STATUS_OK and stop == 0
                and n_steps < self.max_steps):
             m = min(max(m_next, self.m_min), self.m_max)
-            beta = np.float64(float(vo.norm2(y)))        # sync
+            beta = np.float64(vo.to_host(vo.norm2(y), "KrylovBeta"))  # sync
             # coefficients frozen at the step's predicted midpoint (the
             # reference package's choice; exact for time-invariant models)
             t_eval = t_now + 0.5 * min(max(t_step_next, 0.0),
@@ -183,7 +186,8 @@ class KrylovSolver:
                     t_step_next2 = np.float64(t_step_next)
                 else:
                     av = self.matvec(t_eval, y)
-                    anorm = np.float64(float(vo.norm2(av))) / beta  # sync
+                    anorm = np.float64(vo.to_host(
+                        vo.norm2(av), "KrylovStartNorm")) / beta  # sync
                     mf = np.float64(m)
                     fact = np.power((mf + 1) / np.exp(1.0), mf + 1) * \
                         np.sqrt(2 * np.pi * (mf + 1))
@@ -199,7 +203,8 @@ class KrylovSolver:
                     Hm2 = Hm.copy()
                     Hm2[mb + 1, mb] = 1.0
                     av = self.matvec(t_eval, vo.basis_get(V, mb))
-                    avnorm = np.float64(float(vo.norm2(av)))   # sync
+                    avnorm = np.float64(vo.to_host(
+                        vo.norm2(av), "KrylovErrorNorm"))        # sync
                     n_mv += 1
                 Hm2_t = torch.from_numpy(Hm2)
 

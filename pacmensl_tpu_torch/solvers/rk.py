@@ -16,9 +16,11 @@ to 10 trials; the solver then returns status 1 at a time where the check
 passes, or, after 10 halvings, at the previous state.
 
 The adaptive loop runs on the host, over :class:`~..ops.vecops.FspVector`
-values on their device.  A step's decision comes to the host in one copy:
-the error norm, the finiteness flag and the stop-check's excess, stacked
-(a stop-check that returns a device tensor adds no copy of its own).  On
+values on their device.  A step's decision comes to the host in one copy
+(``HostSync.RKDecision``): the error norm, the finiteness flag and the
+stop-check's excess, stacked (a stop-check that returns a device tensor
+adds no copy of its own); the first-step heuristic's norms in two
+(``HostSync.RKStartNorms``).  On
 a mesh (:func:`~..ops.vecops.reductions_over`) the error norm's and the
 finiteness flag's partial sums over each rank's slab are all-reduced
 together, one collective a step, so every rank takes the same steps.
@@ -101,7 +103,8 @@ class RKSolver:
         parts = [self._err_parts(*q) for q in pairs]
         ps = vo.sum_ranks(torch.stack([p for p, _ in parts]))
         tot = ps + torch.stack([s for _, s in parts])
-        return torch.sqrt(tot / vo.numel(pairs[0][0])).cpu().numpy()
+        return vo.to_host(torch.sqrt(tot / vo.numel(pairs[0][0])),
+                          "RKStartNorms")
 
     def _rk_step(self, mv, t, y, h):
         """One DP5(4) step: ``(y5, err, matvecs)``."""
@@ -156,8 +159,8 @@ class RKSolver:
             excess = torch.as_tensor(
                 self.stop_check(float(t_new), y5, stop_aux),
                 dtype=ep.dtype).to(ep.device).reshape(n_c)
-        return torch.cat([torch.stack([enorm, finite]), excess]
-                         ).cpu().numpy()                          # sync
+        return vo.to_host(torch.cat([torch.stack([enorm, finite]), excess]),
+                          "RKDecision")                           # sync
 
     # ------------------------------------------------------------------
     def solve(self, y0: vo.FspVector, t0, t_final, stop_aux=None

@@ -38,7 +38,7 @@ import torch
 from ..sys.errors import IntegratorError, SetupError
 from ..sys.events import EVT_ODESOLVE, EVT_TOTAL
 from ..ops.gmres import gmres
-from ..ops.vecops import FspVector
+from ..ops.vecops import FspVector, to_host
 from ..fsp.solver import FspSolverMultiSinks
 from ..fsp.distribution import DiscreteDistribution
 
@@ -120,13 +120,13 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
         y = self._initial_vector()
         p = y.p
         self.rounds_ = []
-        with self.events.timed(EVT_TOTAL):
+        with self._logging(), self.events.timed(EVT_TOTAL):
             while True:
                 t0 = time.perf_counter()
                 with self.events.timed(EVT_ODESOLVE):
                     pi, sinks, res, raw = self._stationary_solve(p)
                 self.last_raw_res_norm_ = raw
-                self.sinks_ = sinks.cpu().numpy()
+                self.sinks_ = to_host(sinks, "EpochSinks")
                 self.rounds_.append(StationaryRound(
                     self._backend_used, self.num_states, res.res_norm, raw,
                     res.n_matvecs,
@@ -147,7 +147,7 @@ class StationaryFspSolverMultiSinks(FspSolverMultiSinks):
                 p = self._y.p
             self._y = FspVector(p=pi, sinks=sinks)
             self._t_now = float("inf")
-        d = self._make_distribution()
+            d = self._make_distribution()
         d.t = float("nan")      # stationary: no time point
         return d
 

@@ -5,15 +5,23 @@ event-log system, ``FspSolverMultiSinks.cpp:283-301`` and
 ``ReduceComponentTiming`` at ``:467-516``), with the same phase names.
 The port runs in one process, so :meth:`EventLog.reduce` returns
 (min, max, sum) of the local time with all three equal.
+
+:meth:`EventLog.timed` is the one span.  While ``torch.profiler`` runs,
+each span is also a ``phase.<name>`` range on the profiler's timeline,
+whose clock the device trace shares.  Code below the driver (the
+integrators, GMRES, the operators) reaches the solver's log through
+:func:`span`, which records into the log made :func:`active` around the
+driver's calls, and does nothing where none is.
 """
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+from torch.autograd import profiler as _profiler
 
 # Canonical event names, mirroring the phases the reference registers.
 EVT_SETUP = "Setup"
@@ -28,6 +36,18 @@ EVT_STEPS = "ODESteps"
 EVT_REJECTED = "ODEStepsRejected"
 #: the box's rebuilds in a new axis order (count and time; port only)
 EVT_REORDER = "BoxReorder"
+# Spans below the driver (port only), recorded through :func:`span`.
+#: one operator application (a batched one counts once)
+EVT_ACTION = "OperatorAction"
+#: the model's time coefficients c(t), where the caller holds none
+EVT_COEFFS = "ModelCoefficients"
+#: one GMRES solve
+EVT_GMRES = "GMRES"
+#: one Arnoldi iteration's Gram-Schmidt and norm (not its host sync)
+EVT_ORTHO = "GMRESOrthogonalize"
+#: prefix of the blocking device-to-host reads, one name per site
+#: (:func:`~..ops.vecops.to_host`)
+EVT_HOST_SYNC = "HostSync."
 
 
 @dataclass
@@ -86,22 +106,51 @@ class StepTrace:
         return len(self.model_time)
 
 
+def profiler_enabled() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) is recording:
+    the flag its ``__enter__`` sets, one attribute read."""
+    return _profiler._is_profiler_enabled
+
+
+class _Timed:
+    """The context of one :meth:`EventLog.timed` span."""
+    __slots__ = ("records", "name", "t0", "range")
+
+    def __init__(self, records: Dict[str, "EventRecord"], name: str):
+        self.records, self.name = records, name
+
+    def __enter__(self):
+        if profiler_enabled():
+            self.range = _profiler.record_function("phase." + self.name)
+            self.range.__enter__()
+        else:
+            self.range = None
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        rec = self.records.get(self.name)
+        if rec is None:
+            rec = self.records[self.name] = EventRecord()
+        rec.count += 1
+        rec.total_s += dt
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
 class EventLog:
     """Named wall-clock phase timers with nesting support."""
 
     def __init__(self):
         self.events: Dict[str, EventRecord] = {}
 
-    @contextmanager
     def timed(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            rec = self.events.setdefault(name, EventRecord())
-            rec.count += 1
-            rec.total_s += dt
+        """A context that counts one entry of ``name`` and adds its wall
+        seconds; while a profiler records, also a ``phase.<name>``
+        range."""
+        return _Timed(self.events, name)
 
     def add(self, name: str, seconds: float):
         rec = self.events.setdefault(name, EventRecord())
@@ -130,3 +179,27 @@ class EventLog:
             lines.append(f"{name:<24}{rec.count:>10}{rec.total_s:>14.6f}"
                          f"{rec.flops / 1e9:>10.3f}")
         return "\n".join(lines)
+
+
+#: the log :func:`span` records into (None: spans do nothing)
+_ACTIVE: Optional[EventLog] = None
+_NO_SPAN = nullcontext()
+
+
+@contextmanager
+def active(log: Optional[EventLog]):
+    """Within the block, :func:`span` records into ``log`` (None: into
+    nothing)."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, log
+    try:
+        yield log
+    finally:
+        _ACTIVE = prev
+
+
+def span(name: str):
+    """``timed(name)`` of the active log, or a shared no-op context where
+    no log is active."""
+    log = _ACTIVE
+    return _NO_SPAN if log is None else log.timed(name)
