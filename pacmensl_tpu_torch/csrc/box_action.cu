@@ -12,8 +12,8 @@
 //     constraint holds" (BoxStateSpace.mask_is_constraint_only).  The mask
 //     at x and at each source x - s_r, and the violation bits at each
 //     target x + s_r, are computed in registers from a closed form of the
-//     constraint scores and the epoch's bounds, both passed by value in
-//     the parameter struct:
+//     constraint scores (passed by value in the parameter struct) and the
+//     epoch's bounds (read from device memory, see "Per-call inputs"):
 //
 //       f_c(y) = [y_g == v] * (sum_d w_cd y_d + sum_k u_ck y_i y_j),
 //
@@ -187,6 +187,15 @@
 //     where the row's true index puts them, so p is read at the flat
 //     source index, which the caller pads.
 //
+// Per-call inputs.  The time coefficients c_r(t) and K3's bounds are read
+// from device memory (ptr.coef, ptr.bounds; the wrapper's buffer of
+// R + nc 8-byte words, rewritten by a stream-ordered copy where they
+// change), staged once per block in shared memory; everything else is
+// passed by value.  So a launch captured in a CUDA graph (GMRES's Arnoldi
+// iteration, ops/gmres.py) runs at the coefficients and bounds the buffer
+// holds when the graph replays, not at those of the capture.  Every
+// element loop reads c_r from the shared array (one address a warp).
+//
 // The slots make the sinks independent of the grid, so they are bitwise
 // the same in both modes, from run to run and from card to card.  The kernel selects rather
 // than multiplies by the mask (an inf or NaN propensity at an invalid
@@ -254,7 +263,6 @@ struct BoxForm {
 
 // Layout mirrored by the ctypes.Structure in ops/box_kernel.py.
 struct BoxParams {
-    double c[BOX_MAX_R];               // time coefficients c_r(t)
     long long kflat[BOX_MAX_R];        // flat source offset sum_d s_rd * stride_d
     long long shape[BOX_MAX_S];        // window extents (axis 0: rows)
     int stoich[BOX_MAX_R][BOX_MAX_S];  // s_rd
@@ -262,7 +270,6 @@ struct BoxParams {
     int R;
     int S;                             // axes (at least 2; the wrapper pads)
     int nc;
-    long long bounds[BOX_MAX_FNC];     // K3: the epoch's constraint bounds
     BoxForm form[BOX_MAX_FNC];         // K3: the constraint forms
     // x / shape[d] = (x * dmul[d]) >> dshift[d] for 0 <= x < 2^31, with
     // dmul = ceil(2^dshift / shape[d]) and dshift = 31 + ceil(log2 shape[d])
@@ -333,6 +340,8 @@ struct BoxPtrs {
     double* part;             // part_total * nc sink partials
     double* sinks;            // nc sinks
     unsigned* ticket;         // blocks done; reset to 0 by the last
+    const double* coef;       // [R] time coefficients c_r(t)
+    const long long* bounds;  // K3: [nc] the epoch's constraint bounds
 };
 
 // floor(a / b) and the least int at or above it, for b > 0, clamped to
@@ -417,6 +426,9 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     __shared__ BoxForm t_form[NT];
     __shared__ short t_task[NK];
     __shared__ short t_first[2][BOX_MAX_R];
+    // the per-call inputs: c_r(t), K3's bounds
+    __shared__ double t_c[BOX_MAX_R];
+    __shared__ long long t_bnd[SYNTH ? BOX_MAX_FNC : 1];
     // Per warp, for each row of its current unit: the coordinates (last
     // axis 0, and a 0 at BOX_CONST_AXIS), each reaction's source row in p
     // at the row's start (null where the source leaves the box along
@@ -467,9 +479,11 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
         const int r = threadIdx.x;
         t_kin[r] = r < R ? prm.kflat[r] - (long long)prm.stoich[r][0]
                            * prm.plane : 0;
+        t_c[r] = r < R ? ptr.coef[r] : 0.0;
     }
     if constexpr (SYNTH) {
         if (threadIdx.x < NT) t_form[threadIdx.x] = prm.form[threadIdx.x];
+        if ((int)threadIdx.x < nc) t_bnd[threadIdx.x] = ptr.bounds[threadIdx.x];
         if (threadIdx.x == 0) {
             int k = 0;
             for (int kind = 0; kind < 2; ++kind) {
@@ -595,7 +609,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                 for (int g = 0; g < G; ++g) {
                     int lo = BOX_NEG, hi = BOX_POS;
                     if (lane < nc) {
-                        violated_on_row<F>(t_form[lane], prm.bounds[lane],
+                        violated_on_row<F>(t_form[lane], t_bnd[lane],
                                            w_crd[warp][g], t_st[0], 0, last,
                                            lo, hi);
                         // the complement of a violated half-line
@@ -674,7 +688,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                     const int c = tk & 31, r = (tk >> 5) & 31, kind = tk >> 10;
                     const int sg = kind ? 1 : -1;
                     int lo, hi;
-                    violated_on_row<F>(t_form[c], prm.bounds[c],
+                    violated_on_row<F>(t_form[c], t_bnd[c],
                                        w_crd[warp][g], t_st[r], sg, last, lo,
                                        hi);
                     const int sl = sg * t_st[r][last];
@@ -751,7 +765,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         const double pv = p_row[xl];
 #pragma unroll UNROLL_R
                         for (int r = 0; r < R; ++r) {
-                            const double cr = prm.c[r];
+                            const double cr = t_c[r];
                             const int ax = prm.tab_axis[r];
                             const long long koff = prm.kflat[r];
                             long long ti = 0;
@@ -823,7 +837,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         if (v < nv) pv[v] = p_row[v * pbs + xl];
 #pragma unroll UNROLL_R
                     for (int r = 0; r < R; ++r) {
-                        const double cr = prm.c[r];
+                        const double cr = t_c[r];
                         const int ax = prm.tab_axis[r];
                         const long long koff = prm.kflat[r];
                         long long ti = 0;
@@ -1214,7 +1228,7 @@ static int dispatch(const BoxParams* prm, const BoxPtrs* ptr, int nblocks,
 // Launches the box kernel on ``stream`` of CUDA device ``device``: the
 // mask-reading mode (synth = 0: K1, or K4 on a window; with prm->nb > 1
 // K9, or K9w on a window) or the
-// synthesized-mask mode (synth = 1: K3, or K4 on a window; prm->bounds
+// synthesized-mask mode (synth = 1: K3, or K4 on a window; ptr->bounds
 // and prm->form describe the constraints; narrow = 1 evaluates the forms
 // in int32, which the caller allows only where no value at any box point
 // or its neighbours can overflow it, so the result is the int64

@@ -93,15 +93,13 @@ class _BoxForm(ctypes.Structure):
 
 
 class _BoxParams(ctypes.Structure):
-    _fields_ = [("c", ctypes.c_double * MAX_R),
-                ("kflat", ctypes.c_longlong * MAX_R),
+    _fields_ = [("kflat", ctypes.c_longlong * MAX_R),
                 ("shape", ctypes.c_longlong * MAX_S),
                 ("stoich", (ctypes.c_int * MAX_S) * MAX_R),
                 ("n", ctypes.c_longlong),
                 ("R", ctypes.c_int),
                 ("S", ctypes.c_int),
                 ("nc", ctypes.c_int),
-                ("bounds", ctypes.c_longlong * MAX_FORM_NC),
                 ("form", _BoxForm * MAX_FORM_NC),
                 ("dmul", ctypes.c_ulonglong * MAX_S),
                 ("dshift", ctypes.c_int * MAX_S),
@@ -139,7 +137,52 @@ class _BoxParams(ctypes.Structure):
 class _BoxPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "p_up", "p", "p_dn", "mask", "tab", "fields", "viol", "dp", "part",
-        "sinks", "ticket")]
+        "sinks", "ticket", "coef", "bounds")]
+
+
+class KernelInputs:
+    """The kernel's per-call inputs in device memory: the time
+    coefficients ``c [R]`` (float64) and the synthesized-mask mode's
+    constraint bounds ``[nc]`` (int64), one buffer of ``R + nc`` 8-byte
+    words that every launch reads.  A launch captured in a CUDA graph so
+    runs at the values the buffer holds when the graph replays.
+    :meth:`write` rewrites it with one asynchronous copy from pinned
+    memory, ordered on the current stream, only where a value differs
+    from the last written."""
+
+    def __init__(self, R: int, nc: int, device):
+        self.R = int(R)
+        self.buf = torch.zeros(self.R + int(nc), dtype=torch.int64,
+                               device=device)
+        self._c: Optional[list] = None
+        self._bounds = np.zeros(int(nc), dtype=np.int64)
+        #: copies made
+        self.writes = 0
+
+    def write(self, c: list, bounds: Optional[np.ndarray] = None) -> None:
+        """Hold ``c`` (floats) and, where given, ``bounds``."""
+        if c == self._c and (bounds is None
+                             or np.array_equal(bounds, self._bounds)):
+            return
+        cuda = self.buf.is_cuda
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise KernelError("the box kernel's coefficients or bounds "
+                              "changed inside a CUDA graph capture")
+        b = self._bounds if bounds is None else np.asarray(bounds,
+                                                            np.int64)
+        host = torch.empty(self.buf.numel(), dtype=torch.int64,
+                           pin_memory=cuda)
+        h = host.numpy()
+        h[:self.R].view(np.float64)[:] = c
+        h[self.R:] = b
+        self.buf.copy_(host, non_blocking=True)
+        self._c, self._bounds = list(c), b.copy()
+        self.writes += 1
+
+    def pointers(self) -> Tuple[int, int]:
+        """Device addresses of ``c`` and of the bounds."""
+        base = self.buf.data_ptr()
+        return base, base + 8 * self.R
 
 
 def form_fits_kernel(form, stoich) -> bool:
@@ -475,6 +518,7 @@ class BoxGeometry:
         self._ptrs = _BoxPtrs()
         self._c = None
         self._bounds = None
+        self._inputs = {}
         self._props_key = None
         self._props_obj = None
         self._narrow = {}
@@ -575,10 +619,12 @@ class BoxGeometry:
 
     def params(self, c, bounds=None, props: Optional[PropTables] = None
                ) -> _BoxParams:
-        """The kernel's parameter struct with coefficients ``c``, for the
-        synthesized-mask mode the constraint ``bounds``, and the layout
-        of the propensities ``props``.  Built once; each call rewrites
-        only what changed."""
+        """The kernel's parameter struct for the layout of the
+        propensities ``props``, built once; each call rewrites only what
+        changed.  The coefficients ``c`` and, for the synthesized-mask
+        mode, the constraint ``bounds`` are checked and kept for the
+        launch, which reads them from device memory
+        (:meth:`inputs`)."""
         R, S = self.stoich.shape
         if R > MAX_R or S > MAX_S or self.nc > MAX_NC:
             raise KernelError(
@@ -594,10 +640,7 @@ class BoxGeometry:
         c = [float(v) for v in (c.tolist() if torch.is_tensor(c) else c)]
         if len(c) != R:
             raise ValueError(f"c has {len(c)} entries, expected {R}")
-        if c != self._c:
-            for r, v in enumerate(c):
-                prm.c[r] = v
-            self._c = c
+        self._c = c
         if bounds is not None:
             if self.masks is None:
                 raise KernelError(
@@ -606,8 +649,6 @@ class BoxGeometry:
                     f"{MAX_PROD} products each and int32 coefficients")
             b = np.asarray(bounds, dtype=np.int64).reshape(-1)
             if self._bounds is None or not np.array_equal(b, self._bounds):
-                for k, v in enumerate(b):
-                    prm.bounds[k] = int(v)
                 self._bounds = b.copy()
         if props is not None and props is not self._props_obj:
             key = (props.axis, props.offset, props.packed.numel(),
@@ -666,6 +707,21 @@ class BoxGeometry:
             prm.ntask = sum(bin(m).count("1") for ms in self.masks
                             for m in ms)
         return prm
+
+    def inputs(self, device) -> KernelInputs:
+        """This geometry's :class:`KernelInputs` on ``device``."""
+        got = self._inputs.get(device)
+        if got is None:
+            got = self._inputs[device] = KernelInputs(
+                self.num_reactions, self.nc, device)
+        return got
+
+    def write_inputs(self, device, synth: bool) -> KernelInputs:
+        """The coefficients and, with ``synth``, the bounds of the last
+        :meth:`params` call in the device buffer on ``device``."""
+        inp = self.inputs(device)
+        inp.write(self._c, self._bounds if synth else None)
+        return inp
 
     def scratch(self, device, nb: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -812,6 +868,7 @@ class BoxActionKernel(CudaLibrary):
         q.dp = dp.data_ptr()
         q.part, q.ticket = part.data_ptr(), ticket.data_ptr()
         q.sinks = sinks.data_ptr() if sinks is not None else None
+        q.coef, q.bounds = geom.write_inputs(dev, synth).pointers()
         if batched:
             _chain_check(geom, nb, prm.ticket_total, ticket)
         rc = lib.box_action_launch(

@@ -32,12 +32,21 @@ Operator data, by lifetime:
 * per expansion epoch (:meth:`refresh_data`): the constraint bounds; in
   the mask-reading mode also the validity mask as uint8 and the
   violation bits ``viol [R, n]`` (bit c = f_c(x + s_r) > b_c);
-* per call: the time coefficients c(t), passed by value to the kernel.
+* per distinct time: the time coefficients c(t), computed once for each
+  ``t`` the operator is applied at (a BDF step applies it at one ``t``)
+  and kept with that ``t``; the kernel reads them, and in the
+  synthesized-mask mode the bounds, from its geometry's device buffer
+  (:class:`~.box_kernel.KernelInputs`), which a launch rewrites only
+  where they changed.
 
 Each :meth:`~BoxOperator.action` and :meth:`~BoxOperator.action_batched`
-is one ``OperatorAction`` span, and the model's c(t) inside it, where the
-caller passed none, a ``ModelCoefficients`` span
-(:func:`~..sys.events.span`).
+is one ``OperatorAction`` span, and the model's c(t), where the caller
+passed none and the operator holds none for that ``t``, a
+``ModelCoefficients`` span (:func:`~..sys.events.span`).
+
+:class:`ShiftedAction` is the map ``v -> v + s A(t) v`` with ``t`` and
+``s`` set once per BDF step and read by its launches from device memory,
+which GMRES can capture as a CUDA graph (:mod:`.gmres`).
 
 With a ``mesh`` (:mod:`..parallel.mesh`) the box is split into axis-0
 slabs over its ranks, every rank holding the whole state space: the
@@ -63,7 +72,7 @@ from ..statespace.constraints import ConstraintSet
 from ..sys.errors import StateSpaceError
 from ..sys.events import EVT_ACTION, EVT_COEFFS, span
 from ..parallel.halo_box import ShardedBoxAction, window_rows
-from .box_kernel import (CONST_AXIS, FIELD_ROW, BoxGeometry, MAX_NC,
+from .box_kernel import (CONST_AXIS, FIELD_ROW, KERNEL, BoxGeometry, MAX_NC,
                          PropTables, box_action, box_action_batched,
                          box_action_synth, box_action_synth_batched,
                          form_fits_kernel, pack_bits)
@@ -261,6 +270,9 @@ class BoxOperator:
                            else bool(synth_mask)
                            and self.geom.masks is not None)
         self._data = None
+        #: the last time coefficients computed, and their time
+        self._coef_t = None
+        self._coef = None
         # the mode was chosen just now: no second check of the form
         self.refresh_data(synth_mask=self.synth_mask)
 
@@ -330,11 +342,36 @@ class BoxOperator:
     def coefficients(self, t, c=None) -> torch.Tensor:
         """The enabled reactions' time coefficients at ``t``, from the
         model's full coefficient vector ``c`` where the caller already
-        holds it."""
-        if c is None:
+        holds it, else the model's, computed once for each new ``t``."""
+        if c is not None:
+            return c if self._rows is None else c[self._rows]
+        if t != self._coef_t:
             with span(EVT_COEFFS):
                 c = self.model.coefficients(t, self.dtype)
-        return c if self._rows is None else c[self._rows]
+            self._coef = c if self._rows is None else c[self._rows]
+            self._coef_t = t
+        return self._coef
+
+    def stage(self, t) -> None:
+        """Write c(t) and this epoch's bounds into the kernel's device
+        buffer where they changed, ahead of launches that do not pass
+        them (a replayed CUDA graph's)."""
+        d, synth = self._data, self._data.mask is None
+        self.geom.params(self.coefficients(t),
+                         d.bounds if synth else None, self.props)
+        self.geom.write_inputs(self.device, synth)
+
+    def capture_key(self) -> tuple:
+        """What a launch of :meth:`action` captured in a CUDA graph
+        holds that can change over the operator's life: the kernel mode
+        and the addresses of its scratch and its epoch's data.  A graph
+        captured under another key is stale."""
+        d = self._data
+        part, ticket = self.geom.scratch(self.device)
+        ptrs = (part.data_ptr(), ticket.data_ptr())
+        if d.mask is None:
+            return ("synth", self.geom._narrow_of(d.bounds)) + ptrs
+        return ("mask", d.mask.data_ptr(), d.viol.data_ptr()) + ptrs
 
     def action(self, t, y: FspVector, c=None, out=None) -> FspVector:
         """dy/dt = A(t) y (the rank's slab of it with a mesh).  ``c``:
@@ -415,3 +452,46 @@ class BoxOperator:
     def nnz(self) -> int:
         """Structural nonzeros of the equivalent sparse operator."""
         return (len(self.enable_reactions) + 1) * self.space.num_states
+
+
+class ShiftedAction:
+    """The map ``v -> v + s A(t) v`` of a box operator without a mesh
+    (BDF's corrector matrix ``I - (h / alpha) A(t)``, ``s = -h / alpha``),
+    in the form GMRES can capture in a CUDA graph (:mod:`.gmres`):
+    :meth:`set` fixes ``t`` and ``s`` once per step, ``s`` in a device
+    scalar and c(t) in the kernel's device buffer, so a launch of
+    :meth:`apply_into` reads both from device memory.  Its kernels and
+    operands are those of ``vecops.axpy(s, op.action(t, v), v)``: the
+    action, then ``mul`` and ``add`` for each part, bitwise the same."""
+
+    def __init__(self, op: BoxOperator):
+        self.op = op
+        self.t = None
+        #: s, a 0-d tensor on the operator's device
+        self.scale = torch.zeros((), dtype=op.dtype, device=op.device)
+
+    def set(self, t, s: float) -> None:
+        self.t = t
+        self.scale.fill_(s)
+        self.op.stage(t)
+
+    def capture_key(self) -> tuple:
+        return self.op.capture_key()
+
+    @property
+    def counters(self) -> dict:
+        """The kernel's launch counters (:data:`~.box_kernel.KERNEL`)."""
+        return KERNEL.launches
+
+    def __call__(self, v: FspVector) -> FspVector:
+        av = self.op.action(self.t, v)
+        return FspVector(p=v.p + av.p * self.scale,
+                         sinks=v.sinks + av.sinks * self.scale)
+
+    def apply_into(self, v: FspVector, out: FspVector) -> None:
+        """``out = v + s A(t) v``, launching only (no host sync)."""
+        av = self.op.action(self.t, v, out=out.p)
+        torch.mul(out.p, self.scale, out=out.p)
+        torch.mul(av.sinks, self.scale, out=out.sinks)
+        torch.add(v.p, out.p, out=out.p)
+        torch.add(v.sinks, out.sinks, out=out.sinks)

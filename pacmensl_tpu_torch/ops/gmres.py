@@ -18,8 +18,22 @@ column (``GMRESColumn``: the dots ``h_ij`` stay on the device through the
 orthogonalization and come back with the norm in one copy).  The Givens
 rotations and the back-substitution run on the host in float64.  Spans:
 ``GMRES`` around a solve, ``GMRESOrthogonalize`` around one Arnoldi
-iteration's Gram-Schmidt and norm (the normalisation needs the synced
-norm, so it follows the sync, outside the span).
+iteration's Gram-Schmidt and norm.
+
+An Arnoldi iteration's device work is one function of ``j`` with no host
+sync (:func:`_arnoldi_step`): the map of ``V[j]``, Gram-Schmidt and the
+norm, the column into a static ``[m + 1]`` buffer, and the normalisation
+into ``V[j + 1]`` by the device scalar ``1 / where(h > 0, h, 1)`` (after
+the span), which rounds as a division on the host would.  The linear map
+is a callable, or a map that can also apply itself into a given output
+with its step-varying values held on the device (``apply_into(v, out)``,
+``capture_key()``, ``counters``; BDF's
+:class:`~.box_operator.ShiftedAction`), which writes into a static
+vector.  For such a map on a CUDA device :class:`ArnoldiGraphs` captures
+each iteration ``j`` once as a CUDA graph, the first time it is reached
+for a basis storage, and replays it after (spans ``GMRESCapture``,
+``GMRESReplay``); the column is read at the same sync and the rotations
+are the same.
 """
 from __future__ import annotations
 
@@ -28,8 +42,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..sys.events import EVT_GMRES, EVT_ORTHO, span
+from ..sys.events import (EVT_GMRES, EVT_GMRES_CAPTURE, EVT_GMRES_REPLAY,
+                          EVT_ORTHO, span)
 from . import vecops as vo
+
+#: replay the Arnoldi iterations of a capturable map from CUDA graphs on a
+#: CUDA device; False runs the same iterations eagerly (for tests)
+USE_ARNOLDI_GRAPHS = True
 
 
 class GmresResult(NamedTuple):
@@ -37,6 +56,142 @@ class GmresResult(NamedTuple):
     res_norm: float
     n_matvecs: int
     converged: bool
+
+
+class ArnoldiWork(NamedTuple):
+    """An Arnoldi iteration's static buffers: the vector a capturable map
+    writes (None for a callable), the Hessenberg column ``[m + 1]`` and
+    the device scalar 1."""
+    w: Optional[vo.FspVector]
+    col: torch.Tensor
+    one: torch.Tensor
+
+
+def _work(V: vo.FspBasis, capturable: bool) -> ArnoldiWork:
+    w = vo.zeros_like(vo.basis_get(V, 0)) if capturable else None
+    col = torch.zeros(V.p.shape[0], dtype=V.p.dtype, device=V.p.device)
+    return ArnoldiWork(w, col, torch.ones((), dtype=V.p.dtype,
+                                          device=V.p.device))
+
+
+def _orthogonalize(w: vo.FspVector, V: vo.FspBasis, j: int) -> list:
+    """Modified Gram-Schmidt of ``w`` against ``V[0..j]``, in place: the
+    device scalars h_0j .. h_jj and the norm of the result."""
+    hs = []
+    for i in range(j + 1):
+        vi = vo.basis_get(V, i)
+        h = vo.vdot(w, vi)
+        w.p.addcmul_(vi.p, -h)
+        if w.sinks.numel():
+            w.sinks.addcmul_(vi.sinks, -h)
+        hs.append(h)
+    hs.append(vo.norm2(w))
+    return hs
+
+
+def _mapped(A, V: vo.FspBasis, j: int, work: ArnoldiWork) -> vo.FspVector:
+    """``A V[j]``: a capturable map's into the static vector, a
+    callable's as it returns it."""
+    v = vo.basis_get(V, j)
+    if work.w is None:
+        return A(v)
+    A.apply_into(v, work.w)
+    return work.w
+
+
+def _arnoldi_step(A, V: vo.FspBasis, j: int, work: ArnoldiWork) -> None:
+    """Iteration ``j``'s device work, with no host sync: ``w = A V[j]``
+    orthogonalized against ``V[0..j]``, the column h_0j .. h_jj, |w| into
+    ``col[:j + 2]``, and ``V[j + 1] = w / where(|w| > 0, |w|, 1)``."""
+    _, col, one = work
+    w = _mapped(A, V, j, work)
+    with span(EVT_ORTHO):
+        torch.stack(_orthogonalize(w, V, j), out=col[:j + 2])
+    hn = col[j + 1]
+    inv = one / torch.where(hn > 0, hn, one)
+    torch.mul(w.p, inv, out=V.p[j + 1])
+    torch.mul(w.sinks, inv, out=V.sinks[j + 1])
+
+
+#: the side stream captures run on, one a device: each stream's first
+#: cuBLAS call sets up a workspace of its own, kept for the process
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev) -> "torch.cuda.Stream":
+    s = _CAPTURE_STREAMS.get(dev)
+    if s is None:
+        s = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        # ... which a capture does not allow: set it up now
+        with torch.cuda.stream(s):
+            one = torch.ones(1, dtype=torch.float64, device=dev)
+            torch.dot(one, one)
+    return s
+
+
+class ArnoldiGraphs:
+    """CUDA graphs of the Arnoldi iterations of the GMRES solves of one
+    capturable map over one basis storage, and their static buffers.
+    Iteration ``j`` is captured the first time it is reached and replayed
+    after; the graphs are dropped where the storage or the map's
+    ``capture_key()`` changes.  The graphs share one memory pool, which
+    goes with them.  The map's ``counters`` (kernel launches by kind)
+    count each replay's launches, not the capture's."""
+
+    def __init__(self):
+        self._key = None
+        self._graphs = {}
+        self._pool = None
+        self.work: Optional[ArnoldiWork] = None
+
+    def reset(self) -> None:
+        self._key, self._graphs, self._pool, self.work = None, {}, None, None
+
+    def bind(self, A, V: vo.FspBasis) -> ArnoldiWork:
+        """The buffers for ``A`` over ``V``, dropping stale graphs."""
+        key = (V.p.data_ptr(), tuple(V.p.shape), V.sinks.data_ptr(),
+               A.capture_key())
+        if key != self._key:
+            self.reset()
+            self.work = _work(V, True)
+            self._key = key
+        return self.work
+
+    def run(self, A, V: vo.FspBasis, j: int) -> None:
+        """Iteration ``j`` from its graph, captured first where it has
+        none (:meth:`bind` first)."""
+        got = self._graphs.get(j)
+        if got is None:
+            got = self._graphs[j] = self._capture(A, V, j)
+        graph, added = got
+        with span(EVT_GMRES_REPLAY):
+            graph.replay()
+        for k, n in added.items():
+            A.counters[k] += n
+
+    def _capture(self, A, V: vo.FspBasis, j: int):
+        dev = V.p.device
+        cur, side = torch.cuda.current_stream(dev), _capture_stream(dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side.wait_stream(cur)
+        counts = A.counters
+        before = dict(counts)
+        graph = torch.cuda.CUDAGraph()
+        with span(EVT_GMRES_CAPTURE), torch.cuda.stream(side):
+            graph.capture_begin(pool=self._pool)
+            try:
+                _arnoldi_step(A, V, j, self.work)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(side)
+        # the capture launched nothing: its launches count at each replay
+        added = {k: n - before.get(k, 0) for k, n in counts.items()
+                 if n != before.get(k, 0)}
+        for k, n in added.items():
+            counts[k] -= n
+        return graph, added
 
 
 def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
@@ -47,13 +202,23 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
           tol: float = 1.0e-10,
           atol: float = 1.0e-14,
           max_restarts: int = 40,
-          basis: Optional[vo.FspBasis] = None) -> GmresResult:
+          basis: Optional[vo.FspBasis] = None,
+          graphs: Optional[ArnoldiGraphs] = None) -> GmresResult:
     """Solve ``A x = b`` for a linear map ``apply_A``.  ``basis`` is
-    optional storage for ``restart + 1`` vectors shaped like ``b``."""
+    optional storage for ``restart + 1`` vectors shaped like ``b``;
+    ``graphs`` keeps the CUDA graphs of a capturable map's iterations
+    over it."""
     m = int(restart)
     if basis is None or basis.p.shape[0] < m + 1:
         basis = vo.basis_empty(b, m + 1)
     V = basis
+    capturable = hasattr(apply_A, "apply_into")
+    if capturable:
+        graphs = graphs if graphs is not None else ArnoldiGraphs()
+        work = graphs.bind(apply_A, V)
+    else:
+        work = _work(V, False)
+    replay = capturable and USE_ARNOLDI_GRAPHS and V.p.is_cuda
     with span(EVT_GMRES), np.errstate(all="ignore"):
         bnorm = np.float64(vo.to_host(vo.norm2(b), "GMRESNorm"))   # sync
         # np.maximum: a NaN norm propagates and ends the solve unconverged
@@ -73,24 +238,12 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
             g[0] = beta
             j, res = 0, beta
             while j < m and res > target:
-                w = apply_A(vo.basis_get(V, j))
                 nmv += 1
-                with span(EVT_ORTHO):
-                    hs_dev = []
-                    for i in range(j + 1):
-                        vi = vo.basis_get(V, i)
-                        h = vo.vdot(w, vi)
-                        w.p.addcmul_(vi.p, -h)
-                        if w.sinks.numel():
-                            w.sinks.addcmul_(vi.sinks, -h)
-                        hs_dev.append(h)
-                    hs_dev.append(vo.norm2(w))
-                    col_dev = torch.stack(hs_dev)
-                col = vo.to_host(col_dev, "GMRESColumn")      # sync
-                hs = col[j + 1]
-                inv = 1.0 / (hs if hs > 0 else np.float64(1.0))
-                torch.mul(w.p, float(inv), out=V.p[j + 1])
-                torch.mul(w.sinks, float(inv), out=V.sinks[j + 1])
+                if replay:
+                    graphs.run(apply_A, V, j)
+                else:
+                    _arnoldi_step(apply_A, V, j, work)
+                col = vo.to_host(work.col[:j + 2], "GMRESColumn")  # sync
                 col = np.concatenate([col, np.zeros(m - 1 - j)])
                 # apply the stored rotations to the new column
                 for i in range(j):

@@ -20,6 +20,13 @@ one for the two neighbouring-order error norms when the order adapts
 (``HostSync.BDFOrderNorms``); once per solve the first step's norm
 (``HostSync.BDFStartNorm``).
 
+Where the matvec is a box operator's action without a mesh, GMRES gets
+the corrector matrix as a :class:`~..ops.box_operator.ShiftedAction`,
+with ``-h / alpha`` and c(t) written to the device once per step; on a
+CUDA device it replays its Arnoldi iterations from CUDA graphs
+(:class:`~..ops.gmres.ArnoldiGraphs`, dropped with the basis storage).
+Any other matvec goes as a callable.  Both give the same bits.
+
 FSP stop semantics mirror CvodeFsp::Solve (CvodeFsp.cpp:34-78): the
 stop-check runs after every accepted step; on violation the solver keeps
 the last accepted state and returns status 1.
@@ -32,7 +39,8 @@ import numpy as np
 import torch
 
 from ..ops import vecops as vo
-from ..ops.gmres import gmres
+from ..ops.box_operator import BoxOperator, ShiftedAction
+from ..ops.gmres import ArnoldiGraphs, gmres
 from .base import (MatVec, StopCheck, SolveResult, SolveStats, StepRing,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
                    host_excess, wrap_stop_check)
@@ -49,6 +57,16 @@ MIN_FACTOR, MAX_FACTOR, SAFETY = 0.2, 10.0, 0.9
 #: consecutive error-test/linear-solve failures before declaring a fatal
 #: error (CVODE aborts after 7 error-test failures / 10 conv. failures)
 MAX_CONSEC_REJ = 25
+
+
+def _shifted_action(matvec) -> Optional[ShiftedAction]:
+    """The capturable corrector map of ``matvec`` where it is the action
+    of a box operator without a mesh, else None."""
+    op = getattr(matvec, "__self__", None)
+    if (isinstance(op, BoxOperator) and matvec == op.action
+            and op.sharded is None):
+        return ShiftedAction(op)
+    return None
 
 
 def _compute_RU(order: int, factor: float) -> np.ndarray:
@@ -97,6 +115,9 @@ class BdfSolver:
         self.stop_check = wrap_stop_check(stop_check)
         self._D: Optional[vo.FspBasis] = None
         self._V: Optional[vo.FspBasis] = None
+        self._shifted = _shifted_action(matvec)
+        self._graphs = (ArnoldiGraphs() if self._shifted is not None
+                        else None)
 
     # -------------------------------------------------------------- util
     def _storage(self, y: vo.FspVector) -> None:
@@ -107,6 +128,8 @@ class BdfSolver:
                 or D.sinks.shape[1:] != y.sinks.shape
                 or D.p.device != y.p.device):
             self._D = self._V = None     # free before allocating anew
+            if self._graphs is not None:
+                self._graphs.reset()
             self._D = vo.stack_zeros(y, ND)
             self._V = vo.basis_empty(y, self.gmres_restart + 1)
 
@@ -236,13 +259,17 @@ class BdfSolver:
                 y_pred, psi = self._predict(D, order)
 
                 # linear solve: (I - c A) d = c A y_pred - psi
-                def apply_M(v):
-                    return vo.axpy(-float(c), mv(t_mv, v), v)
+                if self._shifted is not None:
+                    apply_M = self._shifted
+                    apply_M.set(t_mv, -float(c))
+                else:
+                    def apply_M(v):
+                        return vo.axpy(-float(c), mv(t_mv, v), v)
 
                 rhs = vo.sub(vo.scale(float(c), mv(t_mv, y_pred)), psi)
                 sol = gmres(apply_M, rhs, vo.zeros_like(rhs),
                             restart=self.gmres_restart, tol=self.gmres_tol,
-                            atol=self.atol, basis=V)
+                            atol=self.atol, basis=V, graphs=self._graphs)
                 d = sol.x
                 n_mv += sol.n_matvecs + 1
                 y_new = vo.add(y_pred, d)

@@ -45,6 +45,9 @@ EVT_COEFFS = "ModelCoefficients"
 EVT_GMRES = "GMRES"
 #: one Arnoldi iteration's Gram-Schmidt and norm (not its host sync)
 EVT_ORTHO = "GMRESOrthogonalize"
+#: one capture of an Arnoldi iteration as a CUDA graph, and one replay
+EVT_GMRES_CAPTURE = "GMRESCapture"
+EVT_GMRES_REPLAY = "GMRESReplay"
 #: prefix of the blocking device-to-host reads, one name per site
 #: (:func:`~..ops.vecops.to_host`)
 EVT_HOST_SYNC = "HostSync."

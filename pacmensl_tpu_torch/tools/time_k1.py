@@ -31,7 +31,8 @@ in one launch a slab, as a sweep over the slabs: the 128^3 repressilator
 box in 4 slabs, hog1p_5d's final capacity after a solve to t = 180 in 2
 slabs, and the final box of hog1p_5d_sens to t = 3 (fsp_tol 1e-6,
 Krylov) in 2 slabs, where the fixed cost of a launch dominates; beside
-each, K9 on the whole box, and on the last box one K3 launch.  Three
+each, the sweep of single-vector launches on the first vector (K4, one a
+slab), K9 on the whole box, and on the last box one K3 launch.  Three
 rounds, each sweep first checked bitwise against nb single K4 launches
 a slab; each also replayed from a CUDA graph (the device's time without
 the host's cost per launch).  The slab windows and the graph's timing
@@ -196,8 +197,9 @@ def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
                   op.coefficients(3.0), s._y.p.view(3, op.geom.n).clone(),
                   2))
     del s, d, op
-    times = {c[0]: {"K9w": [], "K9": [], "K3": [], "K9w graph": [],
-                    "K9 graph": [], "K3 graph": []} for c in cases}
+    times = {c[0]: {k: [] for k in ("K9w", "K4", "K9", "K3", "K9w graph",
+                                    "K4 graph", "K9 graph", "K3 graph")}
+             for c in cases}
     for rnd in range(ROUNDS):
         for name, g, pa, b, c, Q, slabs in cases:
             wins = [((wg, ps, h), pa.window(o, rows)) for wg, _, ps, h, o,
@@ -207,7 +209,11 @@ def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
                 return [bk.box_action_synth_batched(c, ps, wa, b, wg,
                                                     halos=h)
                         for (wg, ps, h), wa in wins]
-            runs = {"K9w": k9w,
+            def k4():
+                return [bk.box_action_synth(c, ps[0], wa, b, wg,
+                                            halos=(up[0], dn[0]))
+                        for (wg, ps, (up, dn)), wa in wins]
+            runs = {"K9w": k9w, "K4": k4,
                     "K9": lambda: bk.box_action_synth_batched(c, Q, pa, b,
                                                               g)}
             if name.startswith("hog1p_5d_sens"):

@@ -4,7 +4,8 @@ and the time-varying hog1p_3d), with the same float64 defaults: the same
 status, accepted steps, rejections, matvecs and orders, the end time to
 1e-8 relative, and ``y`` to 1e-10.  Then
 the FSP stop-check's revert, the failure of a matvec that turns NaN
-(``tests/test_ode.py:66-112``)."""
+(``tests/test_ode.py:66-112``); the capturable map of a box operator
+against the callable path, and c(t) once per step."""
 import numpy as np
 import pytest
 
@@ -19,8 +20,11 @@ from pacmensl_tpu.ops.vecops import FspVector as JVec  # noqa: E402
 from pacmensl_tpu.solvers.bdf import BdfSolver as JBdf  # noqa: E402
 from pacmensl_tpu.statespace.box_space import BoxStateSpace as JBox  # noqa: E402
 import pacmensl_tpu_torch as pt  # noqa: E402
+from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
+from pacmensl_tpu_torch.ops.box_operator import ShiftedAction  # noqa: E402
 from pacmensl_tpu_torch.solvers.base import (  # noqa: E402
     STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE)
+from pacmensl_tpu_torch.sys import events  # noqa: E402
 
 Y_TOL = 1e-10
 
@@ -120,3 +124,82 @@ def test_bdf_bad_matvec_fails():
     assert int(jr.status) == STATUS_FAILURE == tr.status
     assert tr.t <= 1.0 + 1e-12
     assert np.isfinite(tr.y.p.numpy()).all()
+
+
+def _box(name, bounds):
+    """A box operator of ``name`` at ``bounds`` on the host, and the point
+    mass at its initial state."""
+    b = pt.models.ALL_MODELS[name]()
+    space = pt.BoxStateSpace(
+        b.model.stoichiometry,
+        pt.ConstraintSet(b.constraint, np.asarray(bounds),
+                         b.expansion_factors), b.x0, device="cpu")
+    op = pt.BoxOperator(b.model, space)
+    p0 = np.zeros(space.shape)
+    p0[tuple(np.asarray(b.x0)[0])] = 1.0
+    return op, pt.FspVector(
+        p=torch.as_tensor(p0.reshape(-1)),
+        sinks=torch.zeros(space.num_constraints, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("name,bounds,t_final", [
+    ("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], 0.25),
+    ("repressilator", [25, 15, 15, 60, 30, 60], 0.1),
+])
+def test_bdf_capturable_map_is_bitwise_the_callable(name, bounds, t_final):
+    """BDF on a box operator hands GMRES the capturable map
+    (``ShiftedAction``; on a card its Arnoldi iterations replay from CUDA
+    graphs).  Run eagerly on the host it gives the callable path's ``p``,
+    sinks, steps and matvecs bitwise."""
+    op, y = _box(name, bounds)
+    callable_ = pt.BdfSolver(lambda t, v: op.action(t, v))
+    assert callable_._shifted is None
+    want = callable_.solve(y, 0.0, t_final)
+    solver = pt.BdfSolver(op.action)
+    assert isinstance(solver._shifted, ShiftedAction)
+    got = solver.solve(y, 0.0, t_final)
+    assert got.status == want.status == STATUS_OK
+    assert got.t == want.t and got.stats == want.stats
+    assert torch.equal(got.y.p, want.y.p)
+    assert torch.equal(got.y.sinks, want.y.sinks)
+
+
+@pytest.mark.parametrize("capturable", [False, True])
+def test_bdf_coefficients_once_per_step(capturable):
+    """The box operator computes c(t) once for each t it is applied at:
+    the first step's slope, then one per step attempt, whose right-hand
+    side and GMRES matvecs share its t.  The capturable map (BDF given
+    the operator's own ``action``) writes the kernel's coefficient buffer
+    once per attempt at most: only where c(t) changed; the callable
+    (a wrapper of it) launches no kernel on the host."""
+    op, y = _ops("hog1p_3d", np.array([3, 8, 8, 4, 12, 12, 12]))[1::2]
+    inputs = op.geom.inputs(op.device)
+    matvec = op.action if capturable else (lambda t, v: op.action(t, v))
+    log = events.EventLog()
+    with events.active(log):
+        res = pt.BdfSolver(matvec).solve(y, 0.0, 20.0)
+    attempts = res.stats.n_steps + res.stats.n_rejected
+    n = {k: v.count for k, v in log.events.items()}
+    assert n["ModelCoefficients"] == 1 + attempts
+    assert n["OperatorAction"] == res.stats.n_matvecs + n["GMRES"]
+    if capturable:
+        assert 0 < inputs.writes <= attempts
+        # c(t) of hog1p_3d's signal stays the same over some steps
+        assert inputs.writes < attempts
+    else:
+        assert inputs.writes == 0
+
+
+def test_kernel_inputs_write_only_changes():
+    """The kernel's per-call inputs are copied to the device only where a
+    value differs from the last written."""
+    inp = bk.KernelInputs(3, 2, "cpu")
+    inp.write([1.0, 2.0, 3.0], np.array([4, 5]))
+    inp.write([1.0, 2.0, 3.0], np.array([4, 5]))
+    inp.write([1.0, 2.0, 3.0])
+    assert inp.writes == 1
+    inp.write([1.0, 2.5, 3.0])
+    inp.write([1.0, 2.5, 3.0], np.array([4, 6]))
+    assert inp.writes == 3
+    assert inp.buf[:3].view(torch.float64).tolist() == [1.0, 2.5, 3.0]
+    assert inp.buf[3:].tolist() == [4, 6]

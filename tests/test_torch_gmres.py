@@ -3,7 +3,8 @@
 corrector matrix ``I - c A`` of the box operator, a right-hand side made
 with numpy from a seed.  Both run in float64 with the same restarts; the
 solutions agree to 1e-12 with the same matvec count and convergence flag
-(the Arnoldi sums are taken in another order, so the last bits differ)."""
+(the Arnoldi sums are taken in another order, so the last bits differ).
+The capturable map BDF hands GMRES gives the callable's bits."""
 import numpy as np
 import pytest
 
@@ -19,6 +20,8 @@ from pacmensl_tpu.ops.gmres import gmres as jgmres  # noqa: E402
 from pacmensl_tpu.statespace.box_space import BoxStateSpace as JBox  # noqa: E402
 import pacmensl_tpu_torch as pt  # noqa: E402
 from pacmensl_tpu_torch.ops import vecops as tvo  # noqa: E402
+from pacmensl_tpu_torch.ops.box_operator import ShiftedAction  # noqa: E402
+from pacmensl_tpu_torch.ops.gmres import ArnoldiGraphs  # noqa: E402
 from pacmensl_tpu_torch.ops.gmres import gmres as tgmres  # noqa: E402
 
 BOUNDS = np.array([12, 9, 40])
@@ -91,3 +94,32 @@ def test_gmres_nan_rhs_stops_unconverged(toggle_ops):
     res = tgmres(lambda v: v, b, tvo.zeros_like(b))
     assert not res.converged and res.n_matvecs == 0
     assert torch.equal(res.x.p, torch.zeros_like(b.p))
+
+
+@pytest.mark.parametrize("restart,tol,max_restarts,seed", [
+    (16, 1e-10, 40, 0),
+    (4, 1e-12, 40, 1),
+    (2, 1e-14, 1, 2),
+])
+def test_gmres_capturable_map_is_bitwise_the_callable(
+        toggle_ops, restart, tol, max_restarts, seed):
+    """GMRES given the capturable map ``v + s A v`` (BDF's
+    ``ShiftedAction``) runs each Arnoldi iteration's device work as one
+    function with the normalisation by a device scalar; on the host it
+    runs eagerly and gives the callable's solution bitwise, with the same
+    matvecs and residual."""
+    _, top = toggle_ops
+    p, sk = _rhs(top.space.mask.numpy(), top.num_constraints, seed)
+    b = tvo.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                      sinks=torch.as_tensor(sk))
+    kw = dict(restart=restart, tol=tol, max_restarts=max_restarts)
+    want = tgmres(lambda v: tvo.axpy(-C, top.action(0.0, v), v), b,
+                  tvo.zeros_like(b), **kw)
+    shifted = ShiftedAction(top)
+    shifted.set(0.0, -C)
+    for graphs in (None, ArnoldiGraphs()):
+        got = tgmres(shifted, b, tvo.zeros_like(b), graphs=graphs, **kw)
+        assert torch.equal(got.x.p, want.x.p)
+        assert torch.equal(got.x.sinks, want.x.sinks)
+        assert (got.n_matvecs, got.converged, got.res_norm) == (
+            want.n_matvecs, want.converged, want.res_norm)

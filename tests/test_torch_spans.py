@@ -150,8 +150,9 @@ def test_batched_action_is_one_action(backend):
         dp, sinks = op.action_batched(1.0, P)
         single = op.action(1.0, vo.FspVector(p=P[1], sinks=None))
     assert log.events["OperatorAction"].count == 2
+    # the box: once for the one t; ELL: once per row and call
     assert log.events["ModelCoefficients"].count == (
-        2 if backend == "box" else 4)       # ELL: once per row and call
+        1 if backend == "box" else 4)
     torch.testing.assert_close(dp[1], single.p, rtol=0, atol=0)
 
 
