@@ -42,6 +42,13 @@ edge planes) and one all-reduce (of every operator's sink partials,
 concatenated); the derivative operators act on ``p`` with K9w's halos of
 vector 0 and add their sinks after the all-reduce, in the order of one
 all-reduce each.
+
+Each :meth:`SensOperator.action` is one ``SensAction`` span (c(t), the
+base action, the derivative part, the adds) holding one ``SensDerivative``
+span (the loop over parameters and its adds; over ranks, the derivative
+slab actions), and adds (1 + Np) x the state set's size and (1 + Np) x
+the constraint count to the counters ``SensActionStates`` and
+``SensActionSinks`` of the active event log.
 """
 from __future__ import annotations
 
@@ -52,7 +59,8 @@ import torch
 from ..models.model import Model, SensModel
 from ..statespace.state_set import StateSet
 from ..parallel.halo_ell import ShardedEllOperator
-from ..sys.events import EVT_COEFFS, span
+from ..sys.events import (EVT_COEFFS, EVT_SENS_ACTION, EVT_SENS_DERIVATIVE,
+                          EVT_SENS_SINKS, EVT_SENS_STATES, count, span)
 from .box_operator import BoxOperator
 from .ell_operator import EllOperator
 from .vecops import FspVector
@@ -85,6 +93,7 @@ class SensOperator:
     def __init__(self, model: SensModel, space, dtype=torch.float64,
                  device=None, mesh=None):
         self.model = model
+        self.space = space
         self.dtype = dtype
         self.n_par = model.num_parameters
         if isinstance(space, StateSet):
@@ -182,24 +191,29 @@ class SensOperator:
         """The forward-sensitivity generator on the stacked vector ``y``
         (``p [(1 + Np) n]``, ``sinks [(1 + Np) n_c]``)."""
         n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
-        P = y.p.view(m, n)
-        with span(EVT_COEFFS):
-            c = self.model.coefficients(t, self.dtype)
-        out = torch.empty_like(y.p)
-        sh = getattr(self.base, "sharded", None)
-        if sh is not None and sh.halos:
-            return self._action_over_ranks(t, P, c, out)
-        # A p and A s_j for all j in one launch, into the output's rows
-        _, sinks = self.base.action_batched(t, P, c=c, out=out.view(m, n))
-        sinks = sinks.reshape(-1)
-        pv = FspVector(p=P[0], sinks=y.sinks[:nc])
-        for j in range(self.n_par):
-            if self.dcxA[j] is None and self.cxdA[j] is None:
-                continue
-            g = self.sens_action(j, t, pv, c=c)
-            out[(j + 1) * n:(j + 2) * n].add_(g.p)
-            sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
-        return FspVector(p=out, sinks=sinks)
+        count(EVT_SENS_STATES, m * self.space.num_states)
+        count(EVT_SENS_SINKS, m * nc)
+        with span(EVT_SENS_ACTION):
+            P = y.p.view(m, n)
+            with span(EVT_COEFFS):
+                c = self.model.coefficients(t, self.dtype)
+            out = torch.empty_like(y.p)
+            sh = getattr(self.base, "sharded", None)
+            if sh is not None and sh.halos:
+                return self._action_over_ranks(t, P, c, out)
+            # A p and A s_j for all j in one launch, into the output's rows
+            _, sinks = self.base.action_batched(t, P, c=c,
+                                                out=out.view(m, n))
+            sinks = sinks.reshape(-1)
+            pv = FspVector(p=P[0], sinks=y.sinks[:nc])
+            with span(EVT_SENS_DERIVATIVE):
+                for j in range(self.n_par):
+                    if self.dcxA[j] is None and self.cxdA[j] is None:
+                        continue
+                    g = self.sens_action(j, t, pv, c=c)
+                    out[(j + 1) * n:(j + 2) * n].add_(g.p)
+                    sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
+            return FspVector(p=out, sinks=sinks)
 
     def _action_over_ranks(self, t, P, c, out) -> FspVector:
         """:meth:`action` on the box over two or more ranks: one halo
@@ -213,12 +227,13 @@ class SensOperator:
                                     reduce=False)
         _, sinks, (up, dn) = slab_action(self.base, c, P, out.view(m, n))
         terms = []     # (j, dp, partial sinks) of each derivative operator
-        for j in range(self.n_par):
-            for op, cj in ((self.dcxA[j], None), (self.cxdA[j], c)):
-                if op is not None:
-                    gp, gs, _ = slab_action(op, cj, P[0],
-                                            halos=(up[0], dn[0]))
-                    terms.append((j, gp, gs))
+        with span(EVT_SENS_DERIVATIVE):
+            for j in range(self.n_par):
+                for op, cj in ((self.dcxA[j], None), (self.cxdA[j], c)):
+                    if op is not None:
+                        gp, gs, _ = slab_action(op, cj, P[0],
+                                                halos=(up[0], dn[0]))
+                        terms.append((j, gp, gs))
         flat = torch.cat([sinks.reshape(-1)] + [gs for _, _, gs in terms])
         if flat.numel():
             self.base.sharded.mesh.all_reduce(flat)

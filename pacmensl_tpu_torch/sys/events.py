@@ -10,8 +10,9 @@ The port runs in one process, so :meth:`EventLog.reduce` returns
 each span is also a ``phase.<name>`` range on the profiler's timeline,
 whose clock the device trace shares.  Code below the driver (the
 integrators, GMRES, the operators) reaches the solver's log through
-:func:`span`, which records into the log made :func:`active` around the
-driver's calls, and does nothing where none is.
+:func:`span` (and counts through :func:`count`), which record into the
+log made :func:`active` around the driver's calls, and do nothing where
+none is.
 """
 from __future__ import annotations
 
@@ -51,6 +52,14 @@ EVT_GMRES_REPLAY = "GMRESReplay"
 #: prefix of the blocking device-to-host reads, one name per site
 #: (:func:`~..ops.vecops.to_host`)
 EVT_HOST_SYNC = "HostSync."
+#: one stacked forward-sensitivity action (p and every s_j), and its
+#: derivative part inside it (:class:`~..ops.sens_operator.SensOperator`)
+EVT_SENS_ACTION = "SensAction"
+EVT_SENS_DERIVATIVE = "SensDerivative"
+#: counters of the stacked actions: (1 + Np) x the states, and (1 + Np) x
+#: the constraints, each action covered
+EVT_SENS_STATES = "SensActionStates"
+EVT_SENS_SINKS = "SensActionSinks"
 
 
 @dataclass
@@ -206,3 +215,10 @@ def span(name: str):
     no log is active."""
     log = _ACTIVE
     return _NO_SPAN if log is None else log.timed(name)
+
+
+def count(name: str, n: int) -> None:
+    """``add_count(name, n)`` of the active log; nothing where none is."""
+    log = _ACTIVE
+    if log is not None:
+        log.add_count(name, n)

@@ -37,7 +37,10 @@ workers import no JAX.
   reads a halo one plane narrower than the base operator's): one halo
   exchange and one all-reduce a call by the mesh's counters, ``p`` and
   the sinks bitwise the sub-operators called one by one with their own
-  exchanges and all-reduces.
+  exchanges and all-reduces; on each rank one ``SensAction`` span with
+  one ``SensDerivative`` span inside it, and the counters
+  ``SensActionStates`` and ``SensActionSinks`` at (1 + Np) x the whole
+  state set and (1 + Np) x the constraints.
 """
 import os
 import subprocess
@@ -219,6 +222,7 @@ def _sens_actions(pt, mesh):
     import torch
     from pacmensl_tpu_torch.ops.sens_operator import SensOperator
     from pacmensl_tpu_torch.parallel.mesh import shard_rows
+    from pacmensl_tpu_torch.sys import events
     out = {}
     rng = np.random.default_rng(9)
     for name, bounds in (("poisson_sens", [39]),
@@ -242,8 +246,15 @@ def _sens_actions(pt, mesh):
                          sinks=torch.zeros(m * nc, dtype=torch.float64))
         t = 0.7
         ex, ar = mesh.halo_exchanges, mesh.all_reduces
-        got = sop.action(t, y)
+        log = pt.EventLog()
+        with events.active(log):
+            got = sop.action(t, y)
         counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
+        out[f"act_{name}_spans"] = np.array(
+            [log.events[k].count for k in ("SensAction", "SensDerivative",
+                                            "SensActionStates",
+                                            "SensActionSinks")]
+            + [m * space.num_states, m * nc])
         c = sop.model.coefficients(t, torch.float64)
         want = torch.empty_like(y.p)
         _, sk = sop.base.action_batched(t, y.p.view(m, n), c=c,
@@ -608,6 +619,17 @@ def test_sensitivity_action_over_ranks_makes_one_exchange(solves_run):
             assert np.array_equal(o[key + "sinks"], o[key + "sinks_each"])
             assert np.array_equal(o[key + "sinks"],
                                   solves_run[0][key + "sinks"])
+
+
+def test_sensitivity_action_over_ranks_spans(solves_run):
+    """Over 2 ranks each rank's action is one ``SensAction`` span holding
+    one ``SensDerivative`` span, and counts (1 + Np) x the whole state
+    set and (1 + Np) x the constraints."""
+    for o in solves_run:
+        for name in ("poisson_sens", "hog1p_3d_sens", "births_1_2"):
+            spans = o[f"act_{name}_spans"].tolist()
+            assert spans[:2] == [1, 1], name
+            assert spans[2:4] == spans[4:6], name
 
 
 if __name__ == "__main__":
