@@ -116,8 +116,9 @@ Phases (each check that fails ends the run with a nonzero exit):
       the generator as CSR with the ``[n, nb]`` block (both readings).
    b. hog1p_5d_sens with its custom constraints, t = 180, fsp_tol =
       1e-4, ``"auto"`` -> BDF, every operator on K3 and on tables:
-      phase 5's output checks, per action one K9 (p and the two
-      sensitivities) and two K3 launches (the derivative operators),
+      phase 5's output checks, its Arnoldi iterations replayed from
+      CUDA graphs, per action (replayed ones included) one K9 (p and the
+      two sensitivities) and two K3 launches (the derivative operators),
       27,440,236 states after 7,507 RHS evaluations, finite ``dp``, L1
       of p to phase 5's distribution <= 2 * fsp_tol, and the FIM finite,
       symmetric to 1e-12 relative, its eigenvalues >= -1e-10 times the
@@ -1034,6 +1035,7 @@ def sens_phase(dev, smi, d5, mass_tol, run_entry, tables, same_twice,
     from pacmensl_tpu_torch.ops import box_operator as bo
     from pacmensl_tpu_torch.ops import probes as pr
     from pacmensl_tpu_torch.ops.sens_operator import SensOperator
+    from pacmensl_tpu_torch.sys.events import tally
     from pacmensl_tpu_torch.tools import bench_configs
 
     def check_batched(label, c, P, a, geom, bounds=None, mask=None,
@@ -1163,13 +1165,18 @@ def sens_phase(dev, smi, d5, mass_tol, run_entry, tables, same_twice,
     del a, viol, mask, geom
     torch.cuda.empty_cache()
 
-    # (b) hog1p_5d_sens, the path
+    # (b) hog1p_5d_sens, the path.  Its actions are counted through
+    # tally, as the box kernel's launches are, so an action captured in
+    # an Arnoldi iteration's CUDA graph counts at each replay
     actions = [0]
     action = SensOperator.action
 
-    def counted(self, t, y):
+    def one_more():
         actions[0] += 1
-        return action(self, t, y)
+
+    def counted(self, t, y, out=None):
+        tally(one_more)
+        return action(self, t, y, out=out)
     SensOperator.action = counted
     try:
         # through bench_configs' sens_hog1p config
@@ -1189,9 +1196,13 @@ def sens_phase(dev, smi, d5, mass_tol, run_entry, tables, same_twice,
         check(op.synth_mask, f"hog1p_5d_sens operator {i}: not on K3")
         tables(9, f"hog1p_5d_sens final operator {i} (reactions "
                   f"{op.enable_reactions})", op)
-    rhs = s.get_event_log().events["RHSEvaluation"].count
+    ev9 = s.get_event_log().events
+    rhs = ev9["RHSEvaluation"].count
+    cap9, rep9 = (ev9[k].count if k in ev9 else 0
+                  for k in ("GMRESCapture", "GMRESReplay"))
     print(f"[9b] {actions[0]} sensitivity actions, {rhs} RHS evaluations "
           f"(GMRES's residual matvecs are not counted as RHS evaluations); "
+          f"Arnoldi iterations: {cap9} captured, {rep9} replayed; "
           f"per action {launch9['batched_synth'] / actions[0]:.3f} batched "
           f"launch and {launch9['synth'] / actions[0]:.3f} K3 launches "
           f"(expected 1 and {per}); per RHS evaluation "
@@ -1200,6 +1211,8 @@ def sens_phase(dev, smi, d5, mass_tol, run_entry, tables, same_twice,
           and launch9["synth"] == per * actions[0]
           and launch9["mask"] + launch9["batched_mask"] == 0,
           f"hog1p_5d_sens: {launch9} for {actions[0]} actions")
+    check(0 < cap9 < rep9, f"hog1p_5d_sens: {cap9} Arnoldi iterations "
+                           f"captured, {rep9} replayed")
     check(d9.num_states == SENS_STATES and rhs == SENS_RHS,
           f"hog1p_5d_sens: {d9.num_states} states after {rhs} RHS "
           f"evaluations, expected {SENS_STATES} after {SENS_RHS}")

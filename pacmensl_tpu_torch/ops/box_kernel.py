@@ -37,6 +37,7 @@ along the one axis it varies on, or a field row over the window), or an
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +45,7 @@ import torch
 
 from ..statespace.box_space import EVAL_CHUNK
 from ..statespace.constraints import form_values
+from ..sys.events import tally
 from .cuda_build import CSRC, NVCC_FLAGS, CudaLibrary, KernelError
 from .stencil import coord_grid, shift_nd
 
@@ -744,7 +746,8 @@ class BoxGeometry:
 class BoxActionKernel(CudaLibrary):
     """The compiled library, built and loaded at first launch, and the
     counters, one per mode (:data:`MODES`).  ``launches`` counts kernel
-    launches; ``plain_cuda_calls`` counts calls of the plain versions on
+    launches (through :func:`~..sys.events.tally`: a launch captured in a
+    CUDA graph counts at each replay); ``plain_cuda_calls`` counts calls of the plain versions on
     CUDA tensors (the solve path makes none); ``plain_calls`` counts calls
     of the plain versions on any device.  ``flags``: nvcc's (the
     production build's by default)."""
@@ -880,8 +883,11 @@ class BoxActionKernel(CudaLibrary):
                               f"cudaError {rc}")
         if batched and geom.leads:
             geom._bat_lead = (nb, prm.ticket_total)
-        self.launches[geom.mode_key(mode, batched)] += 1
+        tally(partial(self._count_launch, geom.mode_key(mode, batched)))
         return dp, sinks
+
+    def _count_launch(self, key: str) -> None:
+        self.launches[key] += 1
 
 
 def _batched_ticket(lib, prm, geom: BoxGeometry, nb: int, synth: bool,

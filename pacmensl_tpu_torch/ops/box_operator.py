@@ -46,7 +46,8 @@ passed none and the operator holds none for that ``t``, a
 
 :class:`ShiftedAction` is the map ``v -> v + s A(t) v`` with ``t`` and
 ``s`` set once per BDF step and read by its launches from device memory,
-which GMRES can capture as a CUDA graph (:mod:`.gmres`).
+which GMRES can capture as a CUDA graph (:mod:`.gmres`); ``A`` is a box
+operator or a box sensitivity operator (:mod:`.sens_operator`).
 
 With a ``mesh`` (:mod:`..parallel.mesh`) the box is split into axis-0
 slabs over its ranks, every rank holding the whole state space: the
@@ -72,7 +73,7 @@ from ..statespace.constraints import ConstraintSet
 from ..sys.errors import StateSpaceError
 from ..sys.events import EVT_ACTION, EVT_COEFFS, span
 from ..parallel.halo_box import ShardedBoxAction, window_rows
-from .box_kernel import (CONST_AXIS, FIELD_ROW, KERNEL, BoxGeometry, MAX_NC,
+from .box_kernel import (CONST_AXIS, FIELD_ROW, BoxGeometry, MAX_NC,
                          PropTables, box_action, box_action_batched,
                          box_action_synth, box_action_synth_batched,
                          form_fits_kernel, pack_bits)
@@ -352,22 +353,31 @@ class BoxOperator:
             self._coef_t = t
         return self._coef
 
-    def stage(self, t) -> None:
-        """Write c(t) and this epoch's bounds into the kernel's device
-        buffer where they changed, ahead of launches that do not pass
-        them (a replayed CUDA graph's)."""
+    @property
+    def capturable(self) -> bool:
+        """Whether :meth:`action` can run inside a CUDA graph, with
+        :meth:`stage` and :meth:`capture_key` (:class:`ShiftedAction`):
+        without a mesh."""
+        return self.sharded is None
+
+    def stage(self, t, c=None) -> None:
+        """Write c(t) (from the model's full vector ``c`` where the caller
+        holds it) and this epoch's bounds into the kernel's device buffer
+        where they changed, ahead of launches that do not pass them (a
+        replayed CUDA graph's)."""
         d, synth = self._data, self._data.mask is None
-        self.geom.params(self.coefficients(t),
+        self.geom.params(self.coefficients(t, c),
                          d.bounds if synth else None, self.props)
         self.geom.write_inputs(self.device, synth)
 
-    def capture_key(self) -> tuple:
-        """What a launch of :meth:`action` captured in a CUDA graph
-        holds that can change over the operator's life: the kernel mode
-        and the addresses of its scratch and its epoch's data.  A graph
-        captured under another key is stale."""
+    def capture_key(self, nb: int = 1) -> tuple:
+        """What a launch of :meth:`action` (of :meth:`action_batched` over
+        ``nb`` vectors) captured in a CUDA graph holds that can change
+        over the operator's life: the kernel mode and the addresses of its
+        scratch and its epoch's data.  A graph captured under another key
+        is stale."""
         d = self._data
-        part, ticket = self.geom.scratch(self.device)
+        part, ticket = self.geom.scratch(self.device, nb)
         ptrs = (part.data_ptr(), ticket.data_ptr())
         if d.mask is None:
             return ("synth", self.geom._narrow_of(d.bounds)) + ptrs
@@ -455,16 +465,18 @@ class BoxOperator:
 
 
 class ShiftedAction:
-    """The map ``v -> v + s A(t) v`` of a box operator without a mesh
-    (BDF's corrector matrix ``I - (h / alpha) A(t)``, ``s = -h / alpha``),
-    in the form GMRES can capture in a CUDA graph (:mod:`.gmres`):
-    :meth:`set` fixes ``t`` and ``s`` once per step, ``s`` in a device
-    scalar and c(t) in the kernel's device buffer, so a launch of
-    :meth:`apply_into` reads both from device memory.  Its kernels and
-    operands are those of ``vecops.axpy(s, op.action(t, v), v)``: the
-    action, then ``mul`` and ``add`` for each part, bitwise the same."""
+    """The map ``v -> v + s A(t) v`` of an operator whose ``capturable``
+    holds (BDF's corrector matrix ``I - (h / alpha) A(t)``, ``s = -h /
+    alpha``), in the form GMRES can capture in a CUDA graph
+    (:mod:`.gmres`): :meth:`set` fixes ``t`` and ``s`` once per step, ``s``
+    in a device scalar and c(t) in the kernels' device buffers
+    (``op.stage``), so a launch of :meth:`apply_into` reads both from
+    device memory.  Its
+    kernels and operands are those of ``vecops.axpy(s, op.action(t, v),
+    v)``: the action, then ``mul`` and ``add`` for each part, bitwise the
+    same."""
 
-    def __init__(self, op: BoxOperator):
+    def __init__(self, op):
         self.op = op
         self.t = None
         #: s, a 0-d tensor on the operator's device
@@ -477,11 +489,6 @@ class ShiftedAction:
 
     def capture_key(self) -> tuple:
         return self.op.capture_key()
-
-    @property
-    def counters(self) -> dict:
-        """The kernel's launch counters (:data:`~.box_kernel.KERNEL`)."""
-        return KERNEL.launches
 
     def __call__(self, v: FspVector) -> FspVector:
         av = self.op.action(self.t, v)

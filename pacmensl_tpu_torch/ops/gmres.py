@@ -27,13 +27,18 @@ into ``V[j + 1]`` by the device scalar ``1 / where(h > 0, h, 1)`` (after
 the span), which rounds as a division on the host would.  The linear map
 is a callable, or a map that can also apply itself into a given output
 with its step-varying values held on the device (``apply_into(v, out)``,
-``capture_key()``, ``counters``; BDF's
-:class:`~.box_operator.ShiftedAction`), which writes into a static
-vector.  For such a map on a CUDA device :class:`ArnoldiGraphs` captures
-each iteration ``j`` once as a CUDA graph, the first time it is reached
-for a basis storage, and replays it after (spans ``GMRESCapture``,
-``GMRESReplay``); the column is read at the same sync and the rotations
-are the same.
+``capture_key()``; BDF's :class:`~.box_operator.ShiftedAction` over a box
+operator or a box sensitivity operator, without a mesh), which writes
+``A V[j]`` straight into ``V[j + 1]``, where the iteration then
+orthogonalizes and normalizes it in place.  For such a map on a CUDA
+device :class:`ArnoldiGraphs` captures each iteration ``j`` once as a
+CUDA graph, the first time it is reached for a basis storage, and replays
+it after (spans ``GMRESCapture``, ``GMRESReplay``); the column is read at
+the same sync and the rotations are the same.  A replay counts what the
+eager iteration counts: the host-side counts the captured code made
+through :func:`~..sys.events.tally` (the box kernel's launches, the
+stacked action's ``SensActionStates`` and ``SensActionSinks``) run at
+each replay, not at the capture.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from ..sys.events import (EVT_GMRES, EVT_GMRES_CAPTURE, EVT_GMRES_REPLAY,
-                          EVT_ORTHO, span)
+                          EVT_ORTHO, deferred, span)
 from . import vecops as vo
 
 #: replay the Arnoldi iterations of a capturable map from CUDA graphs on a
@@ -59,19 +64,16 @@ class GmresResult(NamedTuple):
 
 
 class ArnoldiWork(NamedTuple):
-    """An Arnoldi iteration's static buffers: the vector a capturable map
-    writes (None for a callable), the Hessenberg column ``[m + 1]`` and
-    the device scalar 1."""
-    w: Optional[vo.FspVector]
+    """An Arnoldi iteration's static buffers: the Hessenberg column
+    ``[m + 1]`` and the device scalar 1."""
     col: torch.Tensor
     one: torch.Tensor
 
 
-def _work(V: vo.FspBasis, capturable: bool) -> ArnoldiWork:
-    w = vo.zeros_like(vo.basis_get(V, 0)) if capturable else None
+def _work(V: vo.FspBasis) -> ArnoldiWork:
     col = torch.zeros(V.p.shape[0], dtype=V.p.dtype, device=V.p.device)
-    return ArnoldiWork(w, col, torch.ones((), dtype=V.p.dtype,
-                                          device=V.p.device))
+    return ArnoldiWork(col, torch.ones((), dtype=V.p.dtype,
+                                       device=V.p.device))
 
 
 def _orthogonalize(w: vo.FspVector, V: vo.FspBasis, j: int) -> list:
@@ -89,22 +91,23 @@ def _orthogonalize(w: vo.FspVector, V: vo.FspBasis, j: int) -> list:
     return hs
 
 
-def _mapped(A, V: vo.FspBasis, j: int, work: ArnoldiWork) -> vo.FspVector:
-    """``A V[j]``: a capturable map's into the static vector, a
-    callable's as it returns it."""
+def _mapped(A, V: vo.FspBasis, j: int) -> vo.FspVector:
+    """``A V[j]``: a capturable map's into ``V[j + 1]``, a callable's as
+    it returns it."""
     v = vo.basis_get(V, j)
-    if work.w is None:
+    if not hasattr(A, "apply_into"):
         return A(v)
-    A.apply_into(v, work.w)
-    return work.w
+    w = vo.basis_get(V, j + 1)
+    A.apply_into(v, w)
+    return w
 
 
 def _arnoldi_step(A, V: vo.FspBasis, j: int, work: ArnoldiWork) -> None:
     """Iteration ``j``'s device work, with no host sync: ``w = A V[j]``
     orthogonalized against ``V[0..j]``, the column h_0j .. h_jj, |w| into
     ``col[:j + 2]``, and ``V[j + 1] = w / where(|w| > 0, |w|, 1)``."""
-    _, col, one = work
-    w = _mapped(A, V, j, work)
+    col, one = work
+    w = _mapped(A, V, j)
     with span(EVT_ORTHO):
         torch.stack(_orthogonalize(w, V, j), out=col[:j + 2])
     hn = col[j + 1]
@@ -136,8 +139,8 @@ class ArnoldiGraphs:
     Iteration ``j`` is captured the first time it is reached and replayed
     after; the graphs are dropped where the storage or the map's
     ``capture_key()`` changes.  The graphs share one memory pool, which
-    goes with them.  The map's ``counters`` (kernel launches by kind)
-    count each replay's launches, not the capture's."""
+    goes with them.  The functions the captured code handed
+    :func:`~..sys.events.tally` run at each replay, not at the capture."""
 
     def __init__(self):
         self._key = None
@@ -154,7 +157,7 @@ class ArnoldiGraphs:
                A.capture_key())
         if key != self._key:
             self.reset()
-            self.work = _work(V, True)
+            self.work = _work(V)
             self._key = key
         return self.work
 
@@ -164,11 +167,11 @@ class ArnoldiGraphs:
         got = self._graphs.get(j)
         if got is None:
             got = self._graphs[j] = self._capture(A, V, j)
-        graph, added = got
+        graph, tallies = got
         with span(EVT_GMRES_REPLAY):
             graph.replay()
-        for k, n in added.items():
-            A.counters[k] += n
+        for fn in tallies:
+            fn()
 
     def _capture(self, A, V: vo.FspBasis, j: int):
         dev = V.p.device
@@ -176,22 +179,16 @@ class ArnoldiGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         side.wait_stream(cur)
-        counts = A.counters
-        before = dict(counts)
         graph = torch.cuda.CUDAGraph()
-        with span(EVT_GMRES_CAPTURE), torch.cuda.stream(side):
+        with span(EVT_GMRES_CAPTURE), torch.cuda.stream(side), \
+                deferred() as tallies:
             graph.capture_begin(pool=self._pool)
             try:
                 _arnoldi_step(A, V, j, self.work)
             finally:
                 graph.capture_end()
         cur.wait_stream(side)
-        # the capture launched nothing: its launches count at each replay
-        added = {k: n - before.get(k, 0) for k, n in counts.items()
-                 if n != before.get(k, 0)}
-        for k, n in added.items():
-            counts[k] -= n
-        return graph, added
+        return graph, tallies
 
 
 def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
@@ -217,7 +214,7 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
         graphs = graphs if graphs is not None else ArnoldiGraphs()
         work = graphs.bind(apply_A, V)
     else:
-        work = _work(V, False)
+        work = _work(V)
     replay = capturable and USE_ARNOLDI_GRAPHS and V.p.is_cuda
     with span(EVT_GMRES), np.errstate(all="ignore"):
         bnorm = np.float64(vo.to_host(vo.norm2(b), "GMRESNorm"))   # sync

@@ -28,8 +28,19 @@ Np, n]``: on the box one batched launch of the box kernel (K9, the
 counterpart of the reference's ``vmap``) for ``A p`` and every ``A s_j``
 together, written straight into the output's rows, and one launch per
 non-empty derivative operator.  K9 is bitwise one launch per vector.  The
-model's time coefficients are evaluated once per action and handed to
-every operator.
+model's time coefficients c(t), and each ``dcxA[j]``'s derivative ones,
+are computed once for each distinct ``t`` (a BDF step applies the
+operator at one ``t``), in one ``ModelCoefficients`` span, kept with that
+``t`` and handed to every sub-operator (:meth:`SensOperator.coefficients`).
+
+On the box without a mesh the stacked action is also the action of BDF's
+capturable corrector map (:class:`~.box_operator.ShiftedAction`):
+:meth:`SensOperator.stage` writes c(t), the derivative coefficients and
+the bounds into every sub-operator's kernel buffer once per step,
+:meth:`SensOperator.capture_key` holds every sub-operator's, and the
+action writes ``p`` into a given output, so GMRES replays each Arnoldi
+iteration of a sensitivity solve, the K9 launch, the derivative launches
+and their adds included, from a CUDA graph (:mod:`.gmres`).
 
 With a ``mesh`` every sub-operator is sharded over its ranks, as the
 reference package's meshed sensitivity solve is
@@ -43,16 +54,18 @@ concatenated); the derivative operators act on ``p`` with K9w's halos of
 vector 0 and add their sinks after the all-reduce, in the order of one
 all-reduce each.
 
-Each :meth:`SensOperator.action` is one ``SensAction`` span (c(t), the
-base action, the derivative part, the adds) holding one ``SensDerivative``
-span (the loop over parameters and its adds; over ranks, the derivative
-slab actions), and adds (1 + Np) x the state set's size and (1 + Np) x
-the constraint count to the counters ``SensActionStates`` and
-``SensActionSinks`` of the active event log.
+Each :meth:`SensOperator.action` run eagerly or captured is one
+``SensAction`` span (c(t) where it is new, the base action, the derivative
+part, the adds) holding one ``SensDerivative`` span (the loop over
+parameters and its adds; over ranks, the derivative slab actions).  Each
+action, a replayed one too, adds (1 + Np) x the state set's size and
+(1 + Np) x the constraint count to the counters ``SensActionStates`` and
+``SensActionSinks`` of the active event log (through
+:func:`~..sys.events.tally`, which a graph's replay runs again).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -60,7 +73,8 @@ from ..models.model import Model, SensModel
 from ..statespace.state_set import StateSet
 from ..parallel.halo_ell import ShardedEllOperator
 from ..sys.events import (EVT_COEFFS, EVT_SENS_ACTION, EVT_SENS_DERIVATIVE,
-                          EVT_SENS_SINKS, EVT_SENS_STATES, count, span)
+                          EVT_SENS_SINKS, EVT_SENS_STATES, count, span,
+                          tally)
 from .box_operator import BoxOperator
 from .ell_operator import EllOperator
 from .vecops import FspVector
@@ -83,6 +97,14 @@ def _prop_model(model: SensModel, j: int) -> Optional[Model]:
                  lambda x, r: model.d_propensity(x, j, r),
                  t_coeff=model.t_coeff,
                  tv_reactions=model.tv_reactions)
+
+
+class SensCoefficients(NamedTuple):
+    """The time coefficients of one ``t``: the model's full vector ``c``
+    (the base and every ``cxdA[j]``), and ``dc[j]`` that of ``dcxA[j]``'s
+    model (None where there is no such operator)."""
+    c: torch.Tensor
+    dc: List[Optional[torch.Tensor]]
 
 
 class SensOperator:
@@ -124,6 +146,18 @@ class SensOperator:
             pm = _prop_model(model, j)
             self.cxdA.append(make(pm, model.dprop_sparsity[j])
                              if pm is not None else None)
+        #: the last coefficients computed, and their time
+        self._coef_t = None
+        self._coef: Optional[SensCoefficients] = None
+        #: on the box without a mesh, the rows the derivative operators
+        #: write their dp into (two where a parameter has both), so that
+        #: an action allocates no vector (nor, captured, a graph's pool)
+        self._dp = None
+        if self.capturable:
+            both = any(a is not None and b is not None
+                       for a, b in zip(self.dcxA, self.cxdA))
+            self._dp = torch.empty((1 + both, self.local_n), dtype=dtype,
+                                   device=self.base.device)
 
     # ----------------------------------------------------- epoch machinery
     def sub_ops(self) -> list:
@@ -167,42 +201,94 @@ class SensOperator:
     def num_constraints(self) -> int:
         return self.base.num_constraints
 
-    # ------------------------------------------------------------------
-    def sens_action(self, j: int, t, y: FspVector, c=None) -> FspVector:
-        """(d_j A)(t) y (reference SensAction, SensFspMatrix.h:195-209);
-        ``c``: the model's coefficients at ``t`` where the caller holds
-        them."""
-        out = None
-        if self.dcxA[j] is not None:
-            out = self.dcxA[j].action(t, y)
-        if self.cxdA[j] is not None:
-            if c is None:
-                with span(EVT_COEFFS):
-                    c = self.model.coefficients(t, self.dtype)
-            d = self.cxdA[j].action(t, y, c=c)
-            out = d if out is None else FspVector(p=out.p + d.p,
-                                                  sinks=out.sinks + d.sinks)
-        if out is None:
-            out = FspVector(p=torch.zeros_like(y.p),
-                            sinks=torch.zeros_like(y.sinks))
-        return out
+    @property
+    def device(self):
+        return self.base.device
 
-    def action(self, t, y: FspVector) -> FspVector:
-        """The forward-sensitivity generator on the stacked vector ``y``
-        (``p [(1 + Np) n]``, ``sinks [(1 + Np) n_c]``)."""
-        n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
-        count(EVT_SENS_STATES, m * self.space.num_states)
-        count(EVT_SENS_SINKS, m * nc)
-        with span(EVT_SENS_ACTION):
-            P = y.p.view(m, n)
+    # ------------------------------------------------------------------
+    def coefficients(self, t) -> SensCoefficients:
+        """The model's c(t) and each ``dcxA[j]``'s coefficients at ``t``,
+        computed once for each new ``t`` in one ``ModelCoefficients``
+        span."""
+        if t != self._coef_t:
             with span(EVT_COEFFS):
                 c = self.model.coefficients(t, self.dtype)
-            out = torch.empty_like(y.p)
+                dc = [op.model.coefficients(t, self.dtype)
+                      if op is not None else None for op in self.dcxA]
+            self._coef = SensCoefficients(c, dc)
+            self._coef_t = t
+        return self._coef
+
+    @property
+    def capturable(self) -> bool:
+        """Whether :meth:`action` can run inside a CUDA graph
+        (:class:`~.box_operator.ShiftedAction`): over box operators
+        without a mesh."""
+        return getattr(self.base, "capturable", False)
+
+    def stage(self, t) -> None:
+        """Write c(t), the derivative coefficients and this epoch's bounds
+        into every sub-operator's kernel buffer where they changed, ahead
+        of launches that do not pass them (a replayed CUDA graph's; box
+        operators without a mesh)."""
+        cs = self.coefficients(t)
+        self.base.stage(t, cs.c)
+        for j in range(self.n_par):
+            if self.dcxA[j] is not None:
+                self.dcxA[j].stage(t, cs.dc[j])
+            if self.cxdA[j] is not None:
+                self.cxdA[j].stage(t, cs.c)
+
+    def capture_key(self) -> tuple:
+        """Every sub-operator's :meth:`~.box_operator.BoxOperator.
+        capture_key`, the base operator's with the scratch of its batched
+        launch over the 1 + Np vectors."""
+        return ((self.base.capture_key(1 + self.n_par),)
+                + tuple(op.capture_key() for op in self.sub_ops()[1:]))
+
+    def sens_action(self, j: int, t, y: FspVector, out=None) -> FspVector:
+        """(d_j A)(t) y (reference SensAction, SensFspMatrix.h:195-209);
+        ``out``: rows ``[k, n]`` to write the derivative operators' ``dp``
+        into, one an operator (the sum into the first)."""
+        cs = self.coefficients(t)
+        ops = [(op, cj) for op, cj in ((self.dcxA[j], cs.dc[j]),
+                                       (self.cxdA[j], cs.c))
+               if op is not None]
+        res = None
+        for k, (op, cj) in enumerate(ops):
+            d = op.action(t, y, c=cj, out=None if out is None else out[k])
+            if res is None:
+                res = d
+            elif out is None:
+                res = FspVector(p=res.p + d.p, sinks=res.sinks + d.sinks)
+            else:
+                res = FspVector(p=res.p.add_(d.p), sinks=res.sinks + d.sinks)
+        if res is None:
+            res = FspVector(p=torch.zeros_like(y.p),
+                            sinks=torch.zeros_like(y.sinks))
+        return res
+
+    def _count_action(self) -> None:
+        m = 1 + self.n_par
+        count(EVT_SENS_STATES, m * self.space.num_states)
+        count(EVT_SENS_SINKS, m * self.num_constraints)
+
+    def action(self, t, y: FspVector, out=None) -> FspVector:
+        """The forward-sensitivity generator on the stacked vector ``y``
+        (``p [(1 + Np) n]``, ``sinks [(1 + Np) n_c]``); ``out``: where to
+        write its ``p``."""
+        n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
+        tally(self._count_action)
+        with span(EVT_SENS_ACTION):
+            P = y.p.view(m, n)
+            cs = self.coefficients(t)
+            if out is None:
+                out = torch.empty_like(y.p)
             sh = getattr(self.base, "sharded", None)
             if sh is not None and sh.halos:
-                return self._action_over_ranks(t, P, c, out)
+                return self._action_over_ranks(t, P, cs, out)
             # A p and A s_j for all j in one launch, into the output's rows
-            _, sinks = self.base.action_batched(t, P, c=c,
+            _, sinks = self.base.action_batched(t, P, c=cs.c,
                                                 out=out.view(m, n))
             sinks = sinks.reshape(-1)
             pv = FspVector(p=P[0], sinks=y.sinks[:nc])
@@ -210,12 +296,13 @@ class SensOperator:
                 for j in range(self.n_par):
                     if self.dcxA[j] is None and self.cxdA[j] is None:
                         continue
-                    g = self.sens_action(j, t, pv, c=c)
+                    g = self.sens_action(j, t, pv, out=self._dp)
                     out[(j + 1) * n:(j + 2) * n].add_(g.p)
                     sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
             return FspVector(p=out, sinks=sinks)
 
-    def _action_over_ranks(self, t, P, c, out) -> FspVector:
+    def _action_over_ranks(self, t, P, cs: SensCoefficients,
+                           out) -> FspVector:
         """:meth:`action` on the box over two or more ranks: one halo
         exchange and one all-reduce."""
         n, nc, m = self.local_n, self.num_constraints, 1 + self.n_par
@@ -225,11 +312,12 @@ class SensOperator:
             return op.sharded.apply(op.coefficients(t, cj), p, op.props,
                                     d.mask, d.viol, d.bounds, out, halos,
                                     reduce=False)
-        _, sinks, (up, dn) = slab_action(self.base, c, P, out.view(m, n))
+        _, sinks, (up, dn) = slab_action(self.base, cs.c, P, out.view(m, n))
         terms = []     # (j, dp, partial sinks) of each derivative operator
         with span(EVT_SENS_DERIVATIVE):
             for j in range(self.n_par):
-                for op, cj in ((self.dcxA[j], None), (self.cxdA[j], c)):
+                for op, cj in ((self.dcxA[j], cs.dc[j]),
+                               (self.cxdA[j], cs.c)):
                     if op is not None:
                         gp, gs, _ = slab_action(op, cj, P[0],
                                                 halos=(up[0], dn[0]))

@@ -20,12 +20,15 @@ one for the two neighbouring-order error norms when the order adapts
 (``HostSync.BDFOrderNorms``); once per solve the first step's norm
 (``HostSync.BDFStartNorm``).
 
-Where the matvec is a box operator's action without a mesh, GMRES gets
-the corrector matrix as a :class:`~..ops.box_operator.ShiftedAction`,
-with ``-h / alpha`` and c(t) written to the device once per step; on a
-CUDA device it replays its Arnoldi iterations from CUDA graphs
-(:class:`~..ops.gmres.ArnoldiGraphs`, dropped with the basis storage).
-Any other matvec goes as a callable.  Both give the same bits.
+Where the matvec is the action of a box operator without a mesh, or of a
+sensitivity operator over box operators without a mesh (the stacked
+vector of a box sensitivity solve), GMRES gets the corrector matrix as a
+:class:`~..ops.box_operator.ShiftedAction`, with ``-h / alpha`` and c(t)
+written to the device once per step; on a CUDA device it replays its
+Arnoldi iterations from CUDA graphs (:class:`~..ops.gmres.ArnoldiGraphs`,
+dropped with the basis storage).  Any other matvec (a compressed or
+sharded operator's, a wrapper's) goes as a callable.  Both give the same
+bits.
 
 FSP stop semantics mirror CvodeFsp::Solve (CvodeFsp.cpp:34-78): the
 stop-check runs after every accepted step; on violation the solver keeps
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import vecops as vo
-from ..ops.box_operator import BoxOperator, ShiftedAction
+from ..ops.box_operator import ShiftedAction
 from ..ops.gmres import ArnoldiGraphs, gmres
 from .base import (MatVec, StopCheck, SolveResult, SolveStats, StepRing,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
@@ -61,10 +64,11 @@ MAX_CONSEC_REJ = 25
 
 def _shifted_action(matvec) -> Optional[ShiftedAction]:
     """The capturable corrector map of ``matvec`` where it is the action
-    of a box operator without a mesh, else None."""
+    of an operator that says it can be captured (``capturable``: a box
+    operator without a mesh, a sensitivity operator over such), else
+    None."""
     op = getattr(matvec, "__self__", None)
-    if (isinstance(op, BoxOperator) and matvec == op.action
-            and op.sharded is None):
+    if getattr(op, "capturable", False) and matvec == op.action:
         return ShiftedAction(op)
     return None
 

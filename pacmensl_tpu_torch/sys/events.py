@@ -12,7 +12,9 @@ whose clock the device trace shares.  Code below the driver (the
 integrators, GMRES, the operators) reaches the solver's log through
 :func:`span` (and counts through :func:`count`), which record into the
 log made :func:`active` around the driver's calls, and do nothing where
-none is.
+none is.  Host-side counting that a CUDA graph's replays must repeat goes
+through :func:`tally`: inside :func:`deferred` (a capture) it is kept for
+the replays instead of run.
 """
 from __future__ import annotations
 
@@ -222,3 +224,30 @@ def count(name: str, n: int) -> None:
     log = _ACTIVE
     if log is not None:
         log.add_count(name, n)
+
+
+#: the functions :func:`tally` keeps inside :func:`deferred` (None: it
+#: runs them)
+_DEFERRED: Optional[list] = None
+
+
+@contextmanager
+def deferred():
+    """Within the block, :func:`tally` keeps its functions in the list
+    this yields instead of running them: the host-side counts of code
+    captured in a CUDA graph, which each replay of the graph runs."""
+    global _DEFERRED
+    prev, _DEFERRED = _DEFERRED, []
+    try:
+        yield _DEFERRED
+    finally:
+        _DEFERRED = prev
+
+
+def tally(fn) -> None:
+    """Run ``fn`` (a count, such as :func:`count`'s, made when it runs),
+    or keep it for the replays inside :func:`deferred`."""
+    if _DEFERRED is None:
+        fn()
+    else:
+        _DEFERRED.append(fn)

@@ -1,14 +1,18 @@
 """GMRES's Arnoldi iterations replayed from CUDA graphs (``ops/gmres.py``
-``ArnoldiGraphs``, driven by BDF on a box operator without a mesh).
+``ArnoldiGraphs``, driven by BDF on a box operator without a mesh, and on
+a box sensitivity operator's stacked action).
 
 On a card: a graph solve of hog1p_5d gives the eager solve's ``p`` and
 sinks bitwise, with the same steps, RHS evaluations, expansions and box
-kernel launches; a graph captured at one ``t`` and replayed at another
-``t`` and other bounds gives the eager iteration at the new values (the
-kernel reads c(t) and the bounds from device memory, not from its
-capture); the capture and replay counts follow the Arnoldi iterations;
-and the solves that hand GMRES a callable (CN, the stationary solve, BDF
-on ELL, the sensitivity solve) replay nothing.
+kernel launches; so does a box sensitivity solve of hog1p_3d_sens, in
+``p``, ``dp`` and the sinks, with the stacked action's counters
+``SensActionStates`` and ``SensActionSinks`` counting each replayed
+action as the eager solve counts it; a graph captured at one ``t`` and
+replayed at another ``t`` and other bounds gives the eager iteration at
+the new values (the kernel reads c(t) and the bounds from device memory,
+not from its capture); the capture and replay counts follow the Arnoldi
+iterations; and the solves that hand GMRES a callable (CN, the stationary
+solve, BDF on ELL, the sensitivity solve on ELL) replay nothing.
 
 This file imports no JAX, so it also runs on a GPU host without the
 reference package (``pytest --noconftest -m cuda``)."""
@@ -107,6 +111,62 @@ def test_captures_and_replays_follow_the_iterations(hog5_solves):
     assert n["ModelCoefficients"] <= n["ODESolve"] + n["GMRES"]
 
 
+@pytest.fixture(scope="module")
+def sens_solves():
+    """hog1p_3d_sens on the box to t = 20 with the graphs and eagerly:
+    K9 over p and both sensitivities, and a derivative launch for each
+    parameter, an action."""
+    _needs_cuda()
+    b = pt.models.hog1p_3d_sens()
+    prev = gm.USE_ARNOLDI_GRAPHS
+    try:
+        graph = _solve(b, 20.0, 1e-4, cls=pt.SensFspSolverMultiSinks,
+                       backend="box")
+        gm.USE_ARNOLDI_GRAPHS = False
+        eager = _solve(b, 20.0, 1e-4, cls=pt.SensFspSolverMultiSinks,
+                       backend="box")
+    finally:
+        gm.USE_ARNOLDI_GRAPHS = prev
+    return graph, eager
+
+
+def test_sens_graph_solve_is_bitwise_the_eager_solve(sens_solves):
+    (sg, dg, ng, lg), (se, de, ne, le) = sens_solves
+    assert sg._backend_used == se._backend_used == "box"
+    assert torch.equal(sg._y.p, se._y.p)
+    assert torch.equal(sg._y.sinks, se._y.sinks)
+    assert np.array_equal(dg.p, de.p) and np.array_equal(dg.dp, de.dp)
+    assert np.array_equal(dg.sinks, de.sinks)
+    for k in ("ODESolve", "ODESteps", "ODEStepsRejected", "RHSEvaluation",
+              "GMRES", "HostSync.GMRESColumn", "MatrixGeneration"):
+        assert ng[k] == ne[k], k
+    assert ng["ODESolve"] > 1                     # it expanded
+    # the same K9 and derivative launches, counted at each replay
+    assert lg == le
+    assert {k.startswith("batched") for k in lg} == {True, False}
+    assert ng["GMRESReplay"] > 0 and "GMRESReplay" not in ne
+    assert "GMRESCapture" not in ne
+
+
+def test_sens_captures_replays_and_counters(sens_solves):
+    (_, _, n, _), (_, _, ne, _) = sens_solves
+    arnoldi = n["HostSync.GMRESColumn"]
+    assert n["GMRESReplay"] == arnoldi
+    assert 0 < n["GMRESCapture"] <= 16 * n["ODESolve"]
+    assert n["GMRESCapture"] < arnoldi
+    # the stacked actions' spans: the eager ones and one per capture ...
+    assert n["SensAction"] == (n["RHSEvaluation"] - arnoldi
+                               + n["HostSync.GMRESResidual"]
+                               + n["GMRESCapture"])
+    assert ne["SensAction"] == (ne["RHSEvaluation"]
+                                + ne["HostSync.GMRESResidual"])
+    # ... and their counters every action, replayed ones included
+    for k in ("SensActionStates", "SensActionSinks"):
+        assert n[k] == ne[k], k
+    # c(t) once for each t: a step's matvecs share one
+    assert n["ModelCoefficients"] <= n["ODESolve"] + n["GMRES"]
+
+
 def test_replay_reads_the_new_t_and_bounds():
     """A graph captured at t1 and the bounds b1, replayed after the map
     moved to t2 and the space to b2 (same capacity, no recapture), equals
@@ -133,7 +193,7 @@ def test_replay_reads_the_new_t_and_bounds():
         E = vo.basis_empty(v0, 17)
         vo.basis_set(E, 0, v0)
         shifted.set(t, s)
-        work = gm._work(E, True)
+        work = gm._work(E)
         gm._arnoldi_step(shifted, E, 0, work)
         return E.p[1].clone(), E.sinks[1].clone(), work.col[:2].clone()
 
@@ -181,7 +241,9 @@ def test_callable_solves_replay_nothing(case):
         s, _, n, _ = _solve(pt.models.hog1p_3d(), 5.0, 1e-6, backend="ell")
         assert s._backend_used == "ell" and n["GMRES"] > 0
     else:
+        # a box sensitivity solve replays (the tests above); on ELL the
+        # stacked action stays a callable
         s, _, n, _ = _solve(pt.models.hog1p_3d_sens(), 2.0, 1e-4,
-                            cls=pt.SensFspSolverMultiSinks)
-        assert n["GMRES"] > 0
+                            cls=pt.SensFspSolverMultiSinks, backend="ell")
+        assert s._backend_used == "ell" and n["GMRES"] > 0
     assert "GMRESReplay" not in n and "GMRESCapture" not in n

@@ -4,8 +4,10 @@ and the time-varying hog1p_3d), with the same float64 defaults: the same
 status, accepted steps, rejections, matvecs and orders, the end time to
 1e-8 relative, and ``y`` to 1e-10.  Then
 the FSP stop-check's revert, the failure of a matvec that turns NaN
-(``tests/test_ode.py:66-112``); the capturable map of a box operator
-against the callable path, and c(t) once per step."""
+(``tests/test_ode.py:66-112``); the capturable map of a box operator,
+and of a box sensitivity operator, against the callable path, the
+stacked action's counters the same on both, the map built only over box
+operators without a mesh, and c(t) once per step."""
 import numpy as np
 import pytest
 
@@ -21,7 +23,11 @@ from pacmensl_tpu.solvers.bdf import BdfSolver as JBdf  # noqa: E402
 from pacmensl_tpu.statespace.box_space import BoxStateSpace as JBox  # noqa: E402
 import pacmensl_tpu_torch as pt  # noqa: E402
 from pacmensl_tpu_torch.ops import box_kernel as bk  # noqa: E402
+from pacmensl_tpu_torch.ops import gmres as gm  # noqa: E402
+from pacmensl_tpu_torch.ops import vecops as vo  # noqa: E402
 from pacmensl_tpu_torch.ops.box_operator import ShiftedAction  # noqa: E402
+from pacmensl_tpu_torch.ops.sens_operator import SensOperator  # noqa: E402
+from pacmensl_tpu_torch.parallel.mesh import StateMesh  # noqa: E402
 from pacmensl_tpu_torch.solvers.base import (  # noqa: E402
     STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE)
 from pacmensl_tpu_torch.sys import events  # noqa: E402
@@ -126,31 +132,45 @@ def test_bdf_bad_matvec_fails():
     assert np.isfinite(tr.y.p.numpy()).all()
 
 
-def _box(name, bounds):
-    """A box operator of ``name`` at ``bounds`` on the host, and the point
-    mass at its initial state."""
-    b = pt.models.ALL_MODELS[name]()
+def _box(name, bounds, mesh=None):
+    """A box operator of ``name`` at ``bounds`` on the host (for a
+    sensitivity model its :class:`SensOperator`), and the point mass at
+    its initial state (the stacked vector, sensitivities 0)."""
+    b = getattr(pt.models, name)()
     space = pt.BoxStateSpace(
         b.model.stoichiometry,
         pt.ConstraintSet(b.constraint, np.asarray(bounds),
-                         b.expansion_factors), b.x0, device="cpu")
-    op = pt.BoxOperator(b.model, space)
-    p0 = np.zeros(space.shape)
-    p0[tuple(np.asarray(b.x0)[0])] = 1.0
+                         b.expansion_factors, b.model.num_species),
+        b.x0, device="cpu")
+    if isinstance(b.model, pt.SensModel):
+        op = SensOperator(b.model, space, mesh=mesh)
+        m = 1 + op.n_par
+    else:
+        op, m = pt.BoxOperator(b.model, space, mesh=mesh), 1
+    p0 = np.zeros((m,) + tuple(space.shape))
+    p0[(0,) + tuple(np.asarray(b.x0)[0])] = 1.0
     return op, pt.FspVector(
         p=torch.as_tensor(p0.reshape(-1)),
-        sinks=torch.zeros(space.num_constraints, dtype=torch.float64))
+        sinks=torch.zeros(m * space.num_constraints, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("name,bounds,t_final", [
+#: (bundle, bounds, t_final): box operators, and box sensitivity operators
+#: (derivative propensities; a derivative time coefficient)
+MAP_CASES = [
     ("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], 0.25),
     ("repressilator", [25, 15, 15, 60, 30, 60], 0.1),
-])
+    ("hog1p_3d_sens", [3, 5, 5, 3, 8, 8, 8], 2.0),
+    ("poisson_sens", [12], 1.0),
+]
+
+
+@pytest.mark.parametrize("name,bounds,t_final", MAP_CASES)
 def test_bdf_capturable_map_is_bitwise_the_callable(name, bounds, t_final):
-    """BDF on a box operator hands GMRES the capturable map
-    (``ShiftedAction``; on a card its Arnoldi iterations replay from CUDA
-    graphs).  Run eagerly on the host it gives the callable path's ``p``,
-    sinks, steps and matvecs bitwise."""
+    """BDF on a box operator, or on a box sensitivity operator's stacked
+    action, hands GMRES the capturable map (``ShiftedAction``; on a card
+    its Arnoldi iterations replay from CUDA graphs).  Run eagerly on the
+    host it gives the callable path's ``p``, sinks, steps and matvecs
+    bitwise."""
     op, y = _box(name, bounds)
     callable_ = pt.BdfSolver(lambda t, v: op.action(t, v))
     assert callable_._shifted is None
@@ -162,6 +182,88 @@ def test_bdf_capturable_map_is_bitwise_the_callable(name, bounds, t_final):
     assert got.t == want.t and got.stats == want.stats
     assert torch.equal(got.y.p, want.y.p)
     assert torch.equal(got.y.sinks, want.y.sinks)
+
+
+@pytest.mark.parametrize("name,bounds,t_final", MAP_CASES[2:])
+def test_sens_counters_are_the_callable_ones_on_the_map(name, bounds,
+                                                         t_final):
+    """The stacked action's counters ``SensActionStates`` and
+    ``SensActionSinks`` total the same on the capturable map as on the
+    callable path: (1 + Np) x the states and x the constraints an
+    action, one action a matvec and one a GMRES cycle's residual."""
+    op, y = _box(name, bounds)
+    counts = []
+    for matvec in (lambda t, v: op.action(t, v), op.action):
+        log = events.EventLog()
+        with events.active(log):
+            res = pt.BdfSolver(matvec).solve(y, 0.0, t_final)
+        counts.append({k: v.count for k, v in log.events.items()})
+    want, got = counts
+    m, n = 1 + op.n_par, want["SensAction"]
+    assert n == res.stats.n_matvecs + want["GMRES"]
+    assert want["SensActionStates"] == n * m * op.space.num_states
+    assert want["SensActionSinks"] == n * m * op.num_constraints
+    for k in ("SensAction", "SensActionStates", "SensActionSinks"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("name,bounds,t_final", MAP_CASES[2:])
+def test_sens_counts_of_a_capture_wait_for_its_replays(name, bounds,
+                                                       t_final):
+    """An Arnoldi iteration of the sensitivity map run inside
+    ``events.deferred`` (as a CUDA graph capture runs it) counts nothing
+    of ``SensActionStates``/``SensActionSinks`` until the kept tallies
+    run, and each run of them adds what one eager iteration adds."""
+    op, y = _box(name, bounds)
+    shifted = ShiftedAction(op)
+    shifted.set(0.5, -0.01)
+    V = vo.basis_empty(y, 3)
+    vo.basis_set(V, 0, y)
+    work = gm._work(V)
+    names = ("SensActionStates", "SensActionSinks")
+
+    def counted(log):
+        return [log.events[k].count if k in log.events else 0
+                for k in names]
+    eager, held = events.EventLog(), events.EventLog()
+    with events.active(eager):
+        gm._arnoldi_step(shifted, V, 0, work)
+    with events.active(held):
+        with events.deferred() as tallies:
+            gm._arnoldi_step(shifted, V, 0, work)
+        assert counted(held) == [0, 0] and len(tallies) == 1
+        assert held.events["SensAction"].count == 1
+        for k in (1, 2):
+            for fn in tallies:
+                fn()
+            assert counted(held) == [k * v for v in counted(eager)]
+    assert counted(eager)[0] == (1 + op.n_par) * op.space.num_states
+
+
+def test_bdf_hands_the_map_only_to_unsharded_box_operators():
+    """The capturable map is built over a box operator or a sensitivity
+    operator over box operators, without a mesh; the same operators with
+    a mesh (one rank here), a compressed sensitivity operator and a
+    wrapper get the callable path."""
+    mesh = StateMesh(None, 0, 1, "cpu")
+    for name, bounds in (("hog1p_3d", [3, 5, 5, 3, 8, 8, 8]),
+                         ("hog1p_3d_sens", [3, 5, 5, 3, 8, 8, 8]),
+                         ("poisson_sens", [12])):
+        op = _box(name, bounds)[0]
+        assert isinstance(pt.BdfSolver(op.action)._shifted, ShiftedAction)
+        assert pt.BdfSolver(lambda t, v: op.action(t, v))._shifted is None
+        sharded = _box(name, bounds, mesh=mesh)[0]
+        assert pt.BdfSolver(sharded.action)._shifted is None
+    b = pt.models.hog1p_3d_sens()
+    s = pt.SensFspSolverMultiSinks(backend="ell", device="cpu")
+    s.set_model(b.model)
+    s.set_constraint_functions(b.constraint)
+    s.set_initial_bounds(b.bounds)
+    s.set_expansion_factors(b.expansion_factors)
+    s.set_initial_distribution(b.x0, b.p0)
+    s.set_up()
+    assert s._backend_used == "ell"
+    assert pt.BdfSolver(s._operator.action)._shifted is None
 
 
 @pytest.mark.parametrize("capturable", [False, True])

@@ -264,7 +264,7 @@ def _sens_actions(pt, mesh):
         for j in range(sop.n_par):
             if sop.dcxA[j] is None and sop.cxdA[j] is None:
                 continue
-            g = sop.sens_action(j, t, pv, c=c)
+            g = sop.sens_action(j, t, pv)
             want[(j + 1) * n:(j + 2) * n].add_(g.p)
             sk[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
         key = f"act_{name}_"

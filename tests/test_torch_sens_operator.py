@@ -126,7 +126,7 @@ def test_folded_action_is_bitwise_one_single_and_one_batched_call(
     for j in range(sop.n_par):
         if sop.dcxA[j] is None and sop.cxdA[j] is None:
             continue
-        g = sop.sens_action(j, t, pv, c=c)
+        g = sop.sens_action(j, t, pv)
         out[(j + 1) * n:(j + 2) * n].add_(g.p)
         sinks[(j + 1) * nc:(j + 2) * nc].add_(g.sinks)
     assert torch.equal(got.p, out) and torch.equal(got.sinks, sinks)
@@ -259,3 +259,41 @@ def test_derivative_operators_share_the_base_mode_and_tables():
     assert not any(o.synth_mask for o in sop.sub_ops())
     assert all(o.data().mask is sop.base.data().mask for o in subs)
     assert sop.local_mv_flops() == 3 * sop.base.local_mv_flops()
+
+
+def test_derivative_rows_are_bitwise_new_tensors():
+    """The derivative operators' dp written into given rows (the box
+    action's own, so that it allocates no vector) is bitwise the dp of new
+    tensors, for a parameter with both a derivative time coefficient and
+    a derivative propensity (the sum into the first row) and one with
+    either."""
+    def prop(x, r):
+        xf = x.to(torch.float64)
+        return 3.0 + 0.0 * xf[:, 0] if r == 0 else 0.5 * xf[:, 0]
+
+    def d_prop(x, j, r):
+        xf = x.to(torch.float64)
+        return (torch.ones_like(xf[:, 0]) if (j, r) == (0, 0)
+                else xf[:, 0])
+
+    model = pt.SensModel(
+        np.array([[1], [-1]]), prop,
+        lambda t: torch.tensor([2.0 + np.sin(t), 1.0], dtype=torch.float64),
+        tv_reactions=(0,), num_parameters=2,
+        d_t_coeff=lambda j, t: torch.tensor([np.cos(t), 0.0],
+                                            dtype=torch.float64),
+        dtcoef_sparsity=((0,), ()),
+        d_propensity=d_prop, dprop_sparsity=((0,), (1,)))
+    b = pt.models.poisson_sens()
+    b.model = model
+    sop = SensOperator(model, _space(b, [30]))
+    assert sop._dp.shape == (2, sop.local_n)
+    p, k = _stacked(sop.base.space, 2, seed=11)
+    pv = pt.FspVector(p=torch.as_tensor(p[0]),
+                      sinks=torch.as_tensor(k[0]))
+    for j in range(2):
+        want = sop.sens_action(j, 0.7, pv)
+        got = sop.sens_action(j, 0.7, pv, out=torch.empty_like(sop._dp))
+        assert torch.equal(got.p, want.p)
+        assert torch.equal(got.sinks, want.sinks)
+        assert not torch.equal(want.p, torch.zeros_like(want.p))

@@ -4,7 +4,8 @@ inside it (also as ``phase.<name>`` ranges under ``torch.profiler``), the
 counters ``SensActionStates`` and ``SensActionSinks`` equal to
 sum (1 + Np) n and sum (1 + Np) n_c over the actions, nothing recorded
 without an active log or with ``-fsp_log_events 0``, and the solution
-bitwise the same either way.  Over two gloo ranks:
+bitwise the same either way; c(t) computed once for each new ``t`` (one
+``ModelCoefficients`` span, not one per action).  Over two gloo ranks:
 ``tests/test_torch_halo_ell.py``."""
 import numpy as np
 import pytest
@@ -42,10 +43,10 @@ def _counted(monkeypatch):
     calls = []
     orig = SensOperator.action
 
-    def action(self, t, y):
+    def action(self, t, y, out=None):
         m = 1 + self.n_par
         calls.append((m * self.space.num_states, m * self.num_constraints))
-        return orig(self, t, y)
+        return orig(self, t, y, out=out)
     monkeypatch.setattr(SensOperator, "action", action)
     return calls
 
@@ -128,3 +129,47 @@ def test_profiler_ranges_nest():
                                               "phase.SensDerivative"}
     n = s.get_event_log().events["SensAction"].count
     assert sum(e.name == "phase.SensAction" for e in prof.events()) == n
+
+
+@pytest.mark.parametrize("name,backend,t_final", [
+    ("hog1p_3d_sens", "box", 2.0), ("poisson_sens", "box", 1.0),
+    ("telegraph", "ell", 1.0)])
+def test_coefficients_once_for_each_new_t(name, backend, t_final,
+                                          monkeypatch):
+    """A sensitivity solve makes one ``ModelCoefficients`` span each time
+    an operator is applied or staged at another ``t`` than its last (the
+    model's c(t) and every derivative coefficient together), not one per
+    ``SensAction``: a BDF step's right-hand side and GMRES matvecs share
+    one ``t``."""
+    ops, last, new_t = [], {}, [0]
+
+    def seen(op, t):
+        if id(op) not in last:
+            ops.append(op)          # kept alive: its id stays its own
+        if last.get(id(op)) != t:
+            new_t[0] += 1
+        last[id(op)] = t
+    action, stage = SensOperator.action, SensOperator.stage
+
+    def seen_action(self, t, y, out=None):
+        seen(self, t)
+        return action(self, t, y, out=out)
+
+    def seen_stage(self, t):
+        seen(self, t)
+        return stage(self, t)
+    monkeypatch.setattr(SensOperator, "action", seen_action)
+    monkeypatch.setattr(SensOperator, "stage", seen_stage)
+    b = getattr(pt.models, name)()
+    s = pt.SensFspSolverMultiSinks(backend=backend, device="cpu")
+    s.set_model(b.model)
+    if b.constraint is not None:
+        s.set_constraint_functions(b.constraint)
+    s.set_initial_bounds(b.bounds)
+    s.set_expansion_factors(np.maximum(b.expansion_factors, 0.5))
+    s.set_initial_distribution(b.x0, b.p0)
+    s.solve(t_final, 1e-6)
+    ev = s.get_event_log().events
+    assert len(ops) >= 1
+    assert ev["ModelCoefficients"].count == new_t[0]
+    assert 3 * ev["ModelCoefficients"].count < ev["SensAction"].count
