@@ -181,22 +181,16 @@ Phases (each check that fails ends the run with a nonzero exit):
       state set (count and checksum); the values crossing ranks per
       matvec beside n_pad.
    d. The batched launch on a window (K9w) at the 128^3 box cut into 4
-      slabs (nb = 2, 3, 4; both modes), where every slab has an interior
-      (L0 >= 2 w0), in one launch a slab and as the chain of the interior
-      rows and the edge strips; at the end of phase 9a on hog1p_5d_sens's
-      final operator cut into 2 and 4 slabs, and in 11e on the final box
-      of 9c's cut in 2 slabs (nb = 3, K3 mode; no interior: one launch a
-      slab).  One launch: dp bitwise the plain version's and nb single K4
+      slabs (nb = 2, 3, 4; both modes), in one launch a slab; at the end
+      of phase 9a on hog1p_5d_sens's final operator cut into 2 and 4
+      slabs, and in 11e on the final box of 9c's cut in 2 slabs (nb = 3,
+      K3 mode).  dp bitwise the plain version's and nb single K4
       launches', sinks bitwise the K4 launches' and within 1e-12 of the
-      plain version's.  The chain: dp bitwise its plain version's, the
-      single launch's and nb K4 chains', sinks bitwise the K4 chains' and
-      within 1e-12 of the plain version's and the single launch's.  The
-      slabs' dp bitwise the whole box's K9.  Timed with CUDA events beside
-      nb K4 sweeps (K4 chains where K9w chains), the unsharded K9, the
-      plain version, one ``torch.sparse.mm`` of each slab's CSR state
-      rows with the sinks' dense reduction, and
-      the sweep's time before the chain and the one-pass tail
-      (``K9W_BEFORE_US``).
+      plain version's.  The slabs' dp bitwise the whole box's K9.  Timed
+      with CUDA events beside nb K4 sweeps, the unsharded K9, the plain
+      version, one ``torch.sparse.mm`` of each slab's CSR state rows with
+      the sinks' dense reduction, and the sweep's time before the
+      one-pass tail (``K9W_BEFORE_US``).
    e. hog1p_5d_sens at phase 9c's setting under Krylov over two gloo
       ranks on the box (K9w and K4, the derivative operators on K9w's
       halos) and on ELL: the one-device solve's states, p and dp within
@@ -369,9 +363,9 @@ FD_EPS, FD_LIMIT = 1.0e-3, 5.0e-2
 #: or of its summed terms where the sinks cancel to less than 1/SINK_CANCEL
 #: of them (two summation orders then differ by more than 1e-12 of the sum)
 SINK_CANCEL = 1.0e3
-#: phase 11d: K9w's sweep (us) at each timed shape before the chain and
-#: the one-pass tail (commit 8317c44, this script on an H100 80GB HBM3 at
-#: 700 W; PERF.md section 6), by (shape, slabs, nb)
+#: phase 11d: K9w's sweep (us) at each timed shape before the one-pass
+#: tail (commit 8317c44, this script on an H100 80GB HBM3 at 700 W;
+#: PERF.md section 6), by (shape, slabs, nb)
 K9W_BEFORE_US = {("128^3", 4, 2): "193.6-193.9 us",
                  ("128^3", 4, 3): "219.1-220.4 us",
                  ("128^3", 4, 4): "247.5-248.8 us",
@@ -1653,30 +1647,24 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     """Phase 11d: the batched launch on a window (K9w) on ``geom``'s box
     cut into ``slabs`` axis-0 slabs, each window holding every vector's
     halo planes as ShardedBoxAction.batched's exchange delivers them, in
-    one launch per slab and, where every slab has an interior
-    (``L0 >= 2 w0``), as the chain of the interior rows and the edge
-    strips.  In each of ``modes`` on every slab: the single launch's dp
-    bitwise the plain version's and nb single K4 launches', sinks bitwise
-    the K4 launches' and within 1e-12 of the plain version's (relative to
+    one launch per slab.  In each of ``modes`` on every slab: the
+    launch's dp bitwise the plain version's and nb single K4 launches',
+    sinks bitwise the K4 launches' and within 1e-12 of the plain
+    version's (relative to
     each vector's largest sink, or, where that vector's sinks cancel to
     less than 1/SINK_CANCEL of its summed terms (its largest sink of |p|),
     relative to those terms: a sensitivity's sinks on a slab can cancel to
     1e-8 of their terms, where two summation orders differ by more than
     1e-12 of the sum; both readings are printed), two launches bitwise
-    equal; the chain's dp
-    bitwise its plain version's, the single launch's and nb K4 chains',
-    its sinks bitwise the K4 chains' and within 1e-12 of the plain
-    version's and the single launch's; each way, the assembled dp bitwise
-    the whole box's K9, the summed sinks within 1e-12 of its.  Timed with
-    CUDA events (100 calls) beside nb K4 sweeps (K4 chains where K9w
-    chains), the unsharded K9, the plain version (only with
+    equal; the assembled dp bitwise the whole box's K9, the summed sinks
+    within 1e-12 of its.  Timed with CUDA events (100 calls) beside nb K4
+    sweeps, the unsharded K9, the plain version (only with
     ``time_plain``) and, with ``library``, one torch.sparse.mm of each
     slab's CSR state rows with the [n, nb] block and the sinks as a dense
-    reduction (:func:`split_sinks`); ``before``: the sweep's time
-    for the shape before the chain and the one-pass tail
-    (``K9W_BEFORE_US``), printed beside.  Returns K9w's record (ms per
-    sweep; the chain's in ``chain_ms``; ``graph_ms``: K9w's, the
-    chain's, K9's and the K4 sweeps' replayed from a CUDA graph)."""
+    reduction (:func:`split_sinks`); ``before``: the sweep's time for the
+    shape before the one-pass tail (``K9W_BEFORE_US``), printed beside.
+    Returns K9w's record (ms per sweep; ``graph_ms``: K9w's, K9's and the
+    K4 sweeps' replayed from a CUDA graph)."""
     import numpy as np
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
@@ -1686,42 +1674,30 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     w0 = halo_width(geom.stoich)
     R = geom.num_reactions
     wins = []
-    for g, chain, ps, halos, o, rows in k9w_windows(geom, P, slabs):
+    for g, ps, halos, o, rows in k9w_windows(geom, P, slabs):
         wm = window_rows(mask.reshape(shape), o, rows).reshape(-1)
         wv = (torch.stack([window_rows(v.reshape(shape), o, rows)
                            .reshape(-1) for v in viol])
               if viol is not None else None)
-        wins.append((g, ps, halos, a.window(o, rows), wm, wv, chain))
-    chained = all(w[6] is not None for w in wins)
+        wins.append((g, ps, halos, a.window(o, rows), wm, wv))
 
-    def one(mode, w, g, ps, out, halos, plain):
-        wa, wm, wv = w[3:6]
+    def launch(mode, w, i=None, plain=False):
+        """K9w on window ``w`` (K4 on vector ``i`` where given)."""
+        g, ps, (up, dn), wa, wm, wv = w
+        if i is not None:
+            ps, up, dn = ps[i], up[i], dn[i]
         if ps.dim() == 1:
             if mode == "synth":
-                return bk.box_action_synth(c, ps, wa, bounds, g, out, halos)
-            return bk.box_action(c, ps, wm, wa, wv, g, out, halos)
+                return bk.box_action_synth(c, ps, wa, bounds, g,
+                                           halos=(up, dn))
+            return bk.box_action(c, ps, wm, wa, wv, g, halos=(up, dn))
         if mode == "synth":
             fn = (bk.box_action_synth_batched_reference if plain
                   else bk.box_action_synth_batched)
-            return fn(c, ps, wa, bounds, g, out, halos)
+            return fn(c, ps, wa, bounds, g, halos=(up, dn))
         fn = (bk.box_action_batched_reference if plain
               else bk.box_action_batched)
-        return fn(c, ps, wm, wa, wv, g, out, halos)
-
-    def launch(mode, w, i=None, plain=False, chain=False):
-        """K9w on window ``w`` (K4 on vector ``i`` where given), in one
-        launch or as the chain."""
-        g, ps, (up, dn) = w[:3]
-        if i is not None:
-            ps, up, dn = ps[i], up[i], dn[i]
-        if not chain:
-            return one(mode, w, g, ps, None, (up, dn), plain)
-        gi, ge = w[6]
-        L0 = g.out_hi - g.out_lo
-        dp = torch.empty_like(ps)
-        one(mode, w, gi, ps, dp[..., w0 * plane:(L0 - w0) * plane], None,
-            plain)
-        return one(mode, w, ge, ps, dp, (up, dn), plain)
+        return fn(c, ps, wm, wa, wv, g, halos=(up, dn))
 
     def rel_err(ks, rs, mag):
         """``(held, old)``: ``ks`` against ``rs`` per vector, relative to
@@ -1737,70 +1713,50 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
     whole = bk.box_action_synth_batched(c, P, a, bounds, geom)
     whole_mag = bk.box_action_synth_batched(c, P.abs(), a, bounds, geom)[1]
     for mode in modes:
-        for chain in ((False, True) if chained else (False,)):
-            way = "chain" if chain else "one launch"
-            dps, sk, rel, old = [], 0, 0.0, 0.0
-            for j, w in enumerate(wins):
-                tag = f"[11d] {label} K9w {mode} ({way}) slab {j}"
-                kp, ks = same_twice(tag, lambda: launch(mode, w, chain=chain))
-                rp, rs = launch(mode, w, plain=True, chain=chain)
-                g, ps, (up, dn) = w[:3]
-                mag = launch(mode, (g, ps.abs(), (up.abs(), dn.abs()))
-                             + w[3:], plain=True, chain=chain)[1]
-                err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
-                check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the "
-                                           f"plain version's (max abs "
-                                           f"{err:.3e})")
-                held, o = rel_err(ks, rs, mag)
-                rel, old = max(rel, held), max(old, o)
-                check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
-                                    "version's, relative")
-                each = [launch(mode, w, i, chain=chain) for i in range(nb)]
-                check(torch.equal(kp, torch.stack([q[0] for q in each]))
-                      and torch.equal(ks, torch.stack([q[1] for q in each])),
-                      f"{tag}: not bitwise {nb} K4 "
-                      f"{'chains' if chain else 'launches'}")
-                if chain:
-                    sp, ss = launch(mode, w)
-                    held, o = rel_err(ks, ss, mag)
-                    rel, old = max(rel, held), max(old, o)
-                    check(torch.equal(kp, sp) and rel <= 1e-12,
-                          f"{tag}: dp not bitwise the single launch's, or "
-                          f"sinks {rel:.3e} from its")
-                max_err["batched_sharded"] = max(max_err["batched_sharded"],
-                                                 err)
-                dps.append(kp)
-                sk = sk + ks
-            check(torch.equal(torch.cat(dps, dim=1), whole[0]),
-                  f"[11d] {label} K9w {mode} ({way}): the assembled dp is "
-                  "not bitwise the whole box's K9")
-            srel, sold = rel_err(sk, whole[1], whole_mag)
-            check(srel <= 1e-12, f"[11d] {label} K9w {mode} ({way}): summed "
-                                 f"sinks {srel:.3e} from the whole box's K9")
-            print(f"[11d] K9w ({mode}, {way}) {label}: nb={nb}, {slabs} "
-                  f"slabs of {[w[0].out_hi - w[0].out_lo for w in wins]} "
-                  f"rows, windows of {[w[0].shape[0] for w in wins]}; dp "
-                  f"bitwise the plain version's and {nb} K4 "
-                  f"{'chains' if chain else 'launches'}'"
-                  f"{', and the single launch' if chain else ''}; sinks "
-                  f"bitwise the K4 {'chains' if chain else 'launches'}' and "
-                  f"within {rel:.3e} of the plain version's"
-                  f"{' and the single launch' if chain else ''} ({old:.3e} "
-                  f"of the largest sink); assembled dp bitwise the whole "
-                  f"box's K9, summed sinks within {srel:.3e} ({sold:.3e} of "
-                  f"the largest sink)", flush=True)
+        dps, sk, rel, old = [], 0, 0.0, 0.0
+        for j, w in enumerate(wins):
+            tag = f"[11d] {label} K9w {mode} slab {j}"
+            kp, ks = same_twice(tag, lambda: launch(mode, w))
+            rp, rs = launch(mode, w, plain=True)
+            g, ps, (up, dn) = w[:3]
+            mag = launch(mode, (g, ps.abs(), (up.abs(), dn.abs())) + w[3:],
+                         plain=True)[1]
+            err = float(max((kp - rp).abs().max(), (ks - rs).abs().max()))
+            check(torch.equal(kp, rp), f"{tag}: dp is not bitwise the "
+                                       f"plain version's (max abs "
+                                       f"{err:.3e})")
+            held, o = rel_err(ks, rs, mag)
+            rel, old = max(rel, held), max(old, o)
+            check(rel <= 1e-12, f"{tag}: sinks {rel:.3e} from the plain "
+                                "version's, relative")
+            each = [launch(mode, w, i) for i in range(nb)]
+            check(torch.equal(kp, torch.stack([q[0] for q in each]))
+                  and torch.equal(ks, torch.stack([q[1] for q in each])),
+                  f"{tag}: not bitwise {nb} K4 launches")
+            max_err["batched_sharded"] = max(max_err["batched_sharded"],
+                                             err)
+            dps.append(kp)
+            sk = sk + ks
+        check(torch.equal(torch.cat(dps, dim=1), whole[0]),
+              f"[11d] {label} K9w {mode}: the assembled dp is not bitwise "
+              "the whole box's K9")
+        srel, sold = rel_err(sk, whole[1], whole_mag)
+        check(srel <= 1e-12, f"[11d] {label} K9w {mode}: summed sinks "
+                             f"{srel:.3e} from the whole box's K9")
+        print(f"[11d] K9w ({mode}) {label}: nb={nb}, {slabs} slabs of "
+              f"{[w[0].out_hi - w[0].out_lo for w in wins]} rows, windows "
+              f"of {[w[0].shape[0] for w in wins]}; dp bitwise the plain "
+              f"version's and {nb} K4 launches'; sinks bitwise the K4 "
+              f"launches' and within {rel:.3e} of the plain version's "
+              f"({old:.3e} of the largest sink); assembled dp bitwise the "
+              f"whole box's K9, summed sinks within {srel:.3e} ({sold:.3e} "
+              f"of the largest sink)", flush=True)
     runs = {"plain": lambda: [launch("synth", w, plain=True) for w in wins],
-            "K4": lambda: [launch("synth", w, i, chain=chained)
+            "K4": lambda: [launch("synth", w, i)
                            for i in range(nb) for w in wins],
             "K9w": lambda: [launch("synth", w) for w in wins],
-            "K9w_chain": lambda: [launch("synth", w, chain=True)
-                                  for w in wins],
             "K9": lambda: bk.box_action_synth_batched(c, P, a, bounds, geom)}
-    order = ["plain", "K4", "K9w", "K9w_chain", "K9", "K9", "K9w_chain",
-             "K9w", "K4", "plain"]
-    if not chained:
-        del runs["K9w_chain"]
-        order = [k for k in order if k != "K9w_chain"]
+    order = ["plain", "K4", "K9w", "K9", "K9", "K9w", "K4", "plain"]
     if not time_plain:
         del runs["plain"]
         order = order[1:-1]
@@ -1834,15 +1790,14 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
         t[k].append(time_ms(runs[k], reps=reps.get(k, 100)))
     ms = {k: float(np.mean(v)) for k, v in t.items()}
     # the device's time without the host's cost per launch
-    dev_ms = {k: graph_ms(runs[k]) for k in ("K9w", "K9w_chain", "K9", "K4")
-              if k in runs}
+    dev_ms = {k: graph_ms(runs[k]) for k in ("K9w", "K9", "K4")}
     tb = a.table_bytes()
     nbytes = sum(nb * pr.box_action_bytes(
         w[0].n, w[0].n_out, R, True, n_valid=sum(
             int((w[4][lo * plane:hi * plane] != 0).sum())
             for lo, hi in w[0].read_spans)) + tb for w in wins)
     bnd = bound(nbytes, nb * 2 * (2 * R + 1) * geom.n)
-    k4 = f"{nb} K4 {'chain ' if chained else ''}sweeps"
+    k4 = f"{nb} K4 sweeps"
     print(f"[11d] {label} nb={nb}, a sweep of {slabs} slabs (us; order "
           f"{' '.join(order)}; K4: {k4}): " + ", ".join(
               f"{k} " + " / ".join(f"{v * 1e3:.1f}" for v in vs)
@@ -1850,17 +1805,14 @@ def k9w_check(dev, smi, label, c, P, a, geom, bounds, mask, viol, slabs,
           f"({nbytes / 1e6:.1f} MB: each vector's p over the rows its "
           f"slab's rows read, halos included, and its dp, the tables once "
           f"a slab): K9w {bnd[0] / ms['K9w']:.3f} of it"
-          + (f", the chain {bnd[0] / ms['K9w_chain']:.3f}" if chained
-             else "")
           + "; replayed from a CUDA graph: " + ", ".join(
               f"{k} {v * 1e3:.1f}" for k, v in dev_ms.items())
-          + f"; K9w before the chain and the one-pass tail: {before}; "
+          + f"; K9w before the one-pass tail: {before}; "
           f"K9w no slower than {k4}: "
           f"{ms['K9w'] <= ms['K4']}; {smi}", flush=True)
     return {"ms": ms["K9w"], "plain_ms": ms.get("plain"), "bound": bnd,
             "library_ms": ms.get("library"), "k4_ms": ms["K4"],
-            "k9_ms": ms["K9"], "chain_ms": ms.get("K9w_chain"),
-            "graph_ms": dev_ms}
+            "k9_ms": ms["K9"], "graph_ms": dev_ms}
 
 
 def rank_ell_solve(rank, world, port, backend, t_final, tol, queue):

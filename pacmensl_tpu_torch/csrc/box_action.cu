@@ -35,7 +35,7 @@
 //     parallel/halo_box.py): either mode on a window of axis-0 planes of
 //     a box split into slabs over ranks.  Window row 0 sits at global row
 //     origin0; the kernel computes dp and sinks for the window's rows
-//     [out_lo, out_hi) less [gap_lo, gap_hi), tests axis-0 validity at
+//     [out_lo, out_hi), tests axis-0 validity at
 //     global coordinates against the global extent g0, and reads p
 //     through three base pointers chosen by window row: the halo above
 //     (up_rows rows), the rank's slab (mid_rows rows) and the halo below,
@@ -60,12 +60,11 @@
 //     fields, on a rank's slab.  Each vector's halos above and below come
 //     in p_up and p_dn with batch strides of their own (up_bstride,
 //     dn_bstride), so the ranks exchange every vector's edge planes in one
-//     message each way.  Like K4 it runs as one launch over the slab or
-//     as a chain of two (the interior rows while the exchange is in
-//     flight, then both edge strips), whose last block reduces every
-//     vector's sinks once.  Its sinks come from the same per-vector cells
-//     and slots as K9's, and each vector's dp and sinks are bitwise a K4
-//     launch's (or chain's) on that vector.  See "K9w" below.
+//     message each way.  Like K4 it runs as one launch over the slab,
+//     whose last block reduces every vector's sinks once.  Its sinks come
+//     from the same per-vector cells and slots as K9's, and each vector's
+//     dp and sinks are bitwise a K4 launch's on that vector.  See "K9w"
+//     below.
 //
 // For every C-order box index x:
 //
@@ -110,10 +109,8 @@
 //   * Sinks: unit u (G rows) adds to partial slot u % BOX_SLOTS, each slot
 //     summed by one warp in a fixed order; then the last block to finish
 //     (a __threadfence and an atomic ticket on an int counter, which it
-//     resets) sums the slots in order, in the same launch.  Chained
-//     launches (K4's interior rows, then its two edge strips) add their
-//     slots to one array and the last block of the last launch sums them
-//     all, so a matvec reduces its sinks once.
+//     resets) sums the slots in order, in the same launch, so a matvec
+//     reduces its sinks once.
 //   * K9.  Its compulsory bytes are nb times a single launch's p and dp,
 //     with the tables, K1's mask and violation words read once for the
 //     chunk.  A single launch spends most of its time on the per-element
@@ -148,15 +145,13 @@
 //     slab; the part of p a row's source lies in depends only on the
 //     reaction, so the row's set-up stores each reaction's stride beside
 //     its source pointer and the element loop reads it (no comparisons
-//     there).  Over ranks the exchange would wait in front of the
-//     launch; the chain (ticket_total counting both launches' batched
-//     grids, pair (v, c)'s partial rows at (v nc + c) part_total +
-//     part_base + s) computes the interior while the halos are in flight.
-//     On an H100 it was slower than one launch, on one card and over two
-//     NCCL ranks, one card each (PERF.md), so the sharded batched action
-//     runs one launch a slab, and the chain is held by the tests and
-//     chip_smoke.py's phase 11d.  And every launch pays a fixed cost, of which the last block's
-//     reduction of nb x nc sums is on the critical path: see "The tail".
+//     there).  Over ranks the launch waits for the exchange: a chain of an
+//     interior launch under the exchange and an edge launch after it was
+//     slower on one card and over 2 NCCL ranks, tied over 4, and K4's one
+//     launch beat it over 2 and 4 (PERF.md section 6), so a sharded launch
+//     is one launch on the window.  And every launch pays a fixed cost, of
+//     which the last block's reduction of nb x nc sums is on the critical
+//     path: see "The tail".
 //   * The tail (batched launches).  The last block sums each (vector,
 //     constraint) pair over part_total partial rows, alone on one SM, so
 //     its loads, instructions and barriers are on the critical path.  The
@@ -276,17 +271,14 @@ struct BoxParams {
     unsigned long long dmul[BOX_MAX_S];
     int dshift[BOX_MAX_S];
     // The window: global row of window row 0, global axis-0 extent,
-    // output rows [out_lo, out_hi) of which [gap_lo, gap_hi) are left to
-    // another launch, elements per plane, and the row strides of the
-    // field rows and the violation words.
+    // output rows [out_lo, out_hi), elements per plane, and the row
+    // strides of the field rows and the violation words.
     long long origin0;
     long long g0;
     long long out_lo;
     long long out_hi;
     long long plane;
     long long rstride;
-    long long gap_lo;
-    long long gap_hi;
     long long vstride;
     // p's three parts: window rows [0, up_rows) in p_up, the next mid_rows
     // in p, the rest in p_dn
@@ -306,9 +298,8 @@ struct BoxParams {
     unsigned src_mask[BOX_MAX_R];
     unsigned tgt_mask[BOX_MAX_R];
     int ntask;
-    int part_base;                     // this launch's first partial row
     int part_total;                    // partial rows the last block sums
-    int ticket_total;                  // blocks of the launches chained
+    int ticket_total;                  // blocks of the launch
     int group;                         // rows a warp takes at a time (G)
     // Batched mode (K9): vectors of one launch, and the elements between
     // consecutive vectors of p and of dp; the launch sets the chunk width
@@ -506,8 +497,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     const unsigned rpp = (unsigned)(prm.plane / E);       // rows a plane
     const int G = GRP ? prm.group : 1;                    // rows a unit
     const unsigned gpp = GRP ? (rpp + G - 1) / G : rpp;   // units a plane
-    const long long gap = prm.gap_hi - prm.gap_lo;
-    const unsigned nunits = (unsigned)(prm.out_hi - prm.out_lo - gap) * gpp;
+    const unsigned nunits = (unsigned)(prm.out_hi - prm.out_lo) * gpp;
     const unsigned nwarps = gridDim.x * BOX_WARPS;
     const unsigned nslots = nunits < BOX_SLOTS ? nunits : BOX_SLOTS;
     // This lane's row of the unit (sub-row; at or past G: idle) and its
@@ -520,8 +510,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     auto unit_bit = [&](unsigned un) -> unsigned {
         const unsigned jn = un / gpp;
         const unsigned prn = (un - jn * gpp) * (unsigned)G + (unsigned)sub;
-        long long wn = prm.out_lo + jn;
-        if (wn >= prm.gap_lo) wn += gap;
+        const long long wn = prm.out_lo + jn;
         return (un < nunits && sub < G && prn < rpp)
             ? (unsigned)(ptr.mask[wn * prm.plane + (long long)prn * E + xl0]
                          != 0) : 0u;
@@ -557,8 +546,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
             const unsigned pr0 = (u - j * gpp) * (unsigned)G;
             const unsigned pr = pr0 + (unsigned)sub;      // this lane's row
             const bool rowok = !GRP || (sub < G && pr < rpp);
-            long long wr = prm.out_lo + j;
-            if (wr >= prm.gap_lo) wr += gap;
+            const long long wr = prm.out_lo + j;
             int crd[BOX_MAX_S];
             {
 #ifdef BOX_ABLATE_ZERO_COORDS
@@ -928,7 +916,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                         t += __shfl_down_sync(0xffffffffu, t, o);
                     if (lane == 0)
                         ptr.part[((bat + v) * nc + c) * prm.part_total
-                                 + prm.part_base + s] = t;
+                                 + s] = t;
                 }
             }
         } else {
@@ -940,8 +928,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
                     for (int o = 16; o > 0; o >>= 1)
                         v += __shfl_down_sync(0xffffffffu, v, o);
                     if (lane == 0)
-                        ptr.part[(bat * prm.part_total + prm.part_base + s)
-                                 * nc + c] = v;
+                        ptr.part[(bat * prm.part_total + s) * nc + c] = v;
                 }
             }
         }
@@ -961,7 +948,7 @@ box_action_kernel(const __grid_constant__ BoxParams prm, const BoxPtrs ptr)
     return;
 #endif
     // The last block: sinks[c] = sum_b part[b, c] over every partial row
-    // of the chain, in a fixed order (strided per thread, then a tree).
+    // of the launch, in a fixed order (strided per thread, then a tree).
     __threadfence();
     if constexpr (BAT) {
         // Every (vector, constraint) pair k = v nc + c, whose partial rows
@@ -1063,8 +1050,6 @@ static bool window_ok(const BoxParams* prm, int nblocks)
         && prm->shape[0] * prm->plane == prm->n
         && 0 <= prm->out_lo && prm->out_lo <= prm->out_hi
         && prm->out_hi <= prm->shape[0]
-        && prm->out_lo <= prm->gap_lo && prm->gap_lo <= prm->gap_hi
-        && prm->gap_hi <= prm->out_hi
         && prm->up_rows <= prm->out_lo
         && prm->out_hi <= prm->up_rows + prm->mid_rows
         && prm->rstride >= prm->n && prm->vstride >= prm->n
@@ -1074,7 +1059,7 @@ static bool window_ok(const BoxParams* prm, int nblocks)
         && prm->origin0 + prm->out_hi <= prm->g0
         && prm->group >= 1 && prm->group <= BOX_GROUP
         && (prm->group == 1 || prm->group * E <= 32)
-        && prm->ntab >= 0 && nblocks >= 1 && prm->part_base >= 0
+        && prm->ntab >= 0 && nblocks >= 1
         && prm->nb >= 1 && prm->nb <= 65535
         && (prm->nb == 1 || (prm->p_bstride >= prm->mid_rows * prm->plane
                              && prm->dp_bstride >= (prm->out_hi - prm->out_lo)
@@ -1163,8 +1148,7 @@ static cudaError_t launch_kernel(const BoxParams* prm, const BoxPtrs* ptr,
             grid[0] = gx; grid[1] = gy; grid[2] = nbv; grid[3] = most_blocks;
         }
         if (!ptr) return cudaSuccess;
-        // the ticket counts this grid's blocks, and a chain's those of
-        // both launches (the caller's ticket_total)
+        // the ticket counts this grid's blocks (the caller's ticket_total)
         if ((long long)gx * gy > prm->ticket_total)
             return cudaErrorInvalidValue;
         BoxParams q = *prm;
@@ -1244,8 +1228,8 @@ extern "C" int box_action_launch(const BoxParams* prm, const BoxPtrs* ptr,
 
 // The grid box_action_launch would take with the same arguments, into
 // grid[0..3]: blocks along x, chunks along y, the chunk width and the most
-// blocks along x; launches nothing.  A chain's ticket_total is the sum of
-// its launches' grid[0] * grid[1].
+// blocks along x; launches nothing.  A batched launch's ticket_total is
+// grid[0] * grid[1].
 extern "C" int box_action_grid(const BoxParams* prm, int nblocks, int synth,
                                int narrow, int device, int* grid)
 {

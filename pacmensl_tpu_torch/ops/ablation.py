@@ -56,7 +56,7 @@ ZERO_COORDS = AblatedBoxKernel("zero-coords")
 
 
 def _whole_box(geom: BoxGeometry) -> None:
-    if geom.sharded or geom.follows is not None or geom.leads:
+    if geom.sharded:
         raise ValueError("the ablation builds take a whole box in one "
                          "launch")
 
@@ -91,8 +91,7 @@ def no_tail(c, p, a, geom: BoxGeometry, bounds=None, mask=None, viol=None
         dp, _ = NO_TAIL.launch(mode, c, p, a, geom, mask=mask, viol=viol,
                                bounds=bounds)
         part, _ = geom.scratch(p.device)
-        return dp, part[:geom.part_total * geom.nc].view(geom.part_total,
-                                                         geom.nc)
+        return dp, part[:geom.nslots * geom.nc].view(geom.nslots, geom.nc)
     if p.device.type != "cpu":
         raise ValueError(f"unsupported device {p.device}")
     dp, sk = (box_action_synth_reference(c, p, a, bounds, geom)

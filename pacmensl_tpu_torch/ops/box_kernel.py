@@ -23,8 +23,7 @@ reference package's ``vmap`` of the action over the sensitivity vectors);
 their plain versions run the single plain versions over the leading axis.
 On a window (a geometry built with ``g0``) with each vector's halos
 (``[nb, ...]``) they are K9w, the counterpart of the ``vmap`` of the
-sharded action, in one launch or in a chain of two as K4 (the interior
-rows, then the edge strips, whose launch returns both launches' sinks).
+sharded action, in one launch on the window as K4.
 
 Either mode runs on a window of a box split into axis-0 slabs (K4, the
 TPU kernel's sharded mode) when its :class:`BoxGeometry` is built with the
@@ -60,11 +59,10 @@ MAX_FORM_NC, MAX_PROD = 16, 2
 MAX_ELEMS = 2 ** 31 - 1
 _I32 = 2 ** 31
 #: the kernel's modes, keys of the launch counters: K1, K3, K4 in either
-#: of them, and the batched launch K9 and K9w (on a window; ``_chain``:
-#: a launch of a chain of two) in either of them
+#: of them, and the batched launch K9 and K9w (on a window) in either of
+#: them
 MODES = ("mask", "synth", "sharded_mask", "sharded_synth", "batched_mask",
-         "batched_synth", "batched_sharded_mask", "batched_sharded_synth",
-         "batched_sharded_mask_chain", "batched_sharded_synth_chain")
+         "batched_synth", "batched_sharded_mask", "batched_sharded_synth")
 #: threads of a block, and its warps (one unit of rows of the last axis
 #: each)
 THREADS, WARPS = 256, 8
@@ -111,8 +109,6 @@ class _BoxParams(ctypes.Structure):
                 ("out_hi", ctypes.c_longlong),
                 ("plane", ctypes.c_longlong),
                 ("rstride", ctypes.c_longlong),
-                ("gap_lo", ctypes.c_longlong),
-                ("gap_hi", ctypes.c_longlong),
                 ("vstride", ctypes.c_longlong),
                 ("up_rows", ctypes.c_longlong),
                 ("mid_rows", ctypes.c_longlong),
@@ -124,7 +120,6 @@ class _BoxParams(ctypes.Structure):
                 ("src_mask", ctypes.c_uint * MAX_R),
                 ("tgt_mask", ctypes.c_uint * MAX_R),
                 ("ntask", ctypes.c_int),
-                ("part_base", ctypes.c_int),
                 ("part_total", ctypes.c_int),
                 ("ticket_total", ctypes.c_int),
                 ("group", ctypes.c_int),
@@ -436,25 +431,17 @@ class BoxGeometry:
     Sharded mode (K4), when ``g0`` is given: ``shape`` is a window of
     axis-0 planes of a box whose axis 0 has extent ``g0``; window row 0 is
     global row ``origin0``, and the action computes ``dp`` and the sinks
-    for the window's rows ``out_rows = (lo, hi)`` less the rows ``gap``
-    (left to another launch; ``dp`` still spans ``[lo, hi)``).  ``p`` holds
-    the window rows ``halo_rows = (up, mid)``: rows ``[up, up + mid)``; the
-    rows above and below come as halos or, where no computed row reads
-    them, not at all.  Every source a computed row reads must lie in the
-    window or outside the global box; other windows raise ``ValueError``.
-    Without ``g0`` the window is the whole box.
-
-    ``follows``: a geometry of the same window, moves and constraints
-    launched just before this one, whose sink partials this launch sums
-    with its own (one reduction for both); its own launches then return
-    no sinks.  A batched chain takes both launches at the same ``nb``."""
+    for the window's rows ``out_rows = (lo, hi)``.  ``p`` holds the window
+    rows ``halo_rows = (up, mid)``: rows ``[up, up + mid)``; the rows above
+    and below come as halos or, where no computed row reads them, not at
+    all.  Every source a computed row reads must lie in the window or
+    outside the global box; other windows raise ``ValueError``.  Without
+    ``g0`` the window is the whole box."""
 
     def __init__(self, shape: Sequence[int], stoich, num_constraints: int,
                  form=None, origin0: int = 0, g0: Optional[int] = None,
                  out_rows: Optional[Tuple[int, int]] = None,
-                 gap: Optional[Tuple[int, int]] = None,
-                 halo_rows: Optional[Tuple[int, int]] = None,
-                 follows: Optional["BoxGeometry"] = None):
+                 halo_rows: Optional[Tuple[int, int]] = None):
         self.shape = tuple(int(s) for s in shape)
         self.stoich = np.atleast_2d(np.asarray(stoich, dtype=np.int64))
         self.nc = int(num_constraints)
@@ -472,14 +459,10 @@ class BoxGeometry:
         self.out_lo, self.out_hi = (tuple(int(v) for v in out_rows)
                                     if out_rows is not None
                                     else (0, self.shape[0]))
-        self.gap = (tuple(int(v) for v in gap) if gap is not None
-                    else (self.out_lo, self.out_lo))
         self.halo_rows = (tuple(int(v) for v in halo_rows)
                           if halo_rows is not None else (0, self.shape[0]))
         self.plane = int(np.prod(self.shape[1:]))
         self.n_out = (self.out_hi - self.out_lo) * self.plane
-        self.rows_computed = (self.out_hi - self.out_lo
-                              - (self.gap[1] - self.gap[0]))
         self._check_window()
         strides = [int(np.prod(self.shape[d + 1:])) for d in range(S)]
         self.kflat = [int(sum(int(self.stoich[r, d]) * strides[d]
@@ -488,34 +471,12 @@ class BoxGeometry:
         # box), a unit of ``group`` rows of a plane at a time for a warp
         last = self.shape[-1] if S > 1 else 1
         self.group = max(1, min(32 // last, GROUP, self.plane // last))
-        self.units = self.rows_computed * -(-(self.plane // last)
-                                            // self.group)
-        #: sink partial rows this geometry's launches write
+        self.units = (self.out_hi - self.out_lo) * -(-(self.plane // last)
+                                                    // self.group)
+        #: sink partial rows a launch writes
         self.nslots = min(self.units, SLOTS)
         #: blocks of a launch
         self.nblocks = max(1, min(-(-self.nslots // WARPS), GRID_BLOCKS))
-        self.follows = follows
-        self.leads = False
-        #: the geometry that follows this one in a chain
-        self.follower: Optional["BoxGeometry"] = None
-        if follows is not None:
-            if (follows.follows is not None or follows.nc != self.nc
-                    or follows.shape != self.shape
-                    or not np.array_equal(follows.stoich, self.stoich)
-                    or follows.form != self.form):
-                raise ValueError("a geometry follows one leading geometry "
-                                 "of the same window, moves and "
-                                 "constraints")
-            follows.leads = True
-            follows.follower = self
-            self.part_base = follows.nslots
-            self.part_total = follows.nslots + self.nslots
-            follows.part_total = self.part_total
-            self.ticket_total = follows.nblocks + self.nblocks
-            follows.ticket_total = self.ticket_total
-        else:
-            self.part_base, self.part_total = 0, self.nslots
-            self.ticket_total = self.nblocks
         self._params: Optional[_BoxParams] = None
         self._ptrs = _BoxPtrs()
         self._c = None
@@ -525,11 +486,8 @@ class BoxGeometry:
         self._props_obj = None
         self._narrow = {}
         self._scratch = {}
-        self._pending = None
         self._synth_plain = None
         self._grids = {}
-        #: a batched chain's leading launch in flight: (nb, ticket)
-        self._bat_lead = None
         self._form_range: Optional[int] = None
         self.masks = (synth_masks(self.form, self.stoich)
                       if self.form is not None
@@ -537,7 +495,6 @@ class BoxGeometry:
 
     def _check_window(self) -> None:
         lo, hi, o, L = self.out_lo, self.out_hi, self.origin0, self.shape[0]
-        glo, ghi = self.gap
         up_rows, mid = self.halo_rows
         s0 = self.stoich[:, 0]
         up = int(max(s0.max(initial=0), 0))       # sources above a row
@@ -545,8 +502,6 @@ class BoxGeometry:
         why = None
         if not 0 <= lo <= hi <= L:
             why = f"output rows [{lo}, {hi}) outside the window's {L} rows"
-        elif not lo <= glo <= ghi <= hi:
-            why = f"gap [{glo}, {ghi}) outside the output rows [{lo}, {hi})"
         elif o + lo < 0 or o + hi > self.g0:
             why = (f"output rows [{o + lo}, {o + hi}) (global) outside the "
                    f"box's {self.g0} rows")
@@ -563,9 +518,9 @@ class BoxGeometry:
             raise ValueError(f"box kernel window (origin {o}, {L} rows, "
                              f"global extent {self.g0}): {why}")
         #: the window rows [a, b) that the computed rows and their sources
-        #: span inside the box, one span per run of computed rows
-        self.read_spans = tuple((max(a - up, -o), min(b + dn, self.g0 - o))
-                                for a, b in ((lo, glo), (ghi, hi)) if b > a)
+        #: span inside the box (none where no row is computed)
+        self.read_spans = (((max(lo - up, -o), min(hi + dn, self.g0 - o)),)
+                           if hi > lo else ())
         spans = self.read_spans
         #: whether a computed row reads the rows above / below p's
         self.reads_halo = (bool(spans) and spans[0][0] < up_rows,
@@ -588,13 +543,9 @@ class BoxGeometry:
     def mode_key(self, mode: str, batched: bool = False) -> str:
         """The launch counter of ``mode`` ("mask" or "synth") on this
         geometry: K4's own where the geometry is a window; with
-        ``batched`` K9's, or K9w's on a window (its chain's own where the
-        geometry leads or follows another)."""
+        ``batched`` K9's, or K9w's on a window."""
         key = "sharded_" + mode if self.sharded else mode
-        if not batched:
-            return key
-        chained = self.sharded and (self.leads or self.follows is not None)
-        return "batched_" + key + ("_chain" if chained else "")
+        return "batched_" + key if batched else key
 
     def narrow(self, bounds) -> bool:
         """Whether the synthesized-mask kernel may evaluate the form in
@@ -686,11 +637,9 @@ class BoxGeometry:
         prm.n, prm.R, prm.S, prm.nc = self.n, R, len(shape), self.nc
         prm.origin0, prm.g0 = self.origin0, self.g0
         prm.out_lo, prm.out_hi = self.out_lo, self.out_hi
-        prm.gap_lo, prm.gap_hi = self.gap
         prm.up_rows, prm.mid_rows = self.halo_rows
         prm.plane, prm.rstride, prm.vstride = self.plane, self.n, self.n
-        prm.part_base, prm.part_total = self.part_base, self.part_total
-        prm.ticket_total = self.ticket_total
+        prm.part_total, prm.ticket_total = self.nslots, self.nblocks
         prm.group = self.group
         prm.nb, prm.p_bstride, prm.dp_bstride = 1, self.p_n, self.n_out
         prm.up_bstride, prm.dn_bstride = self.halo_n()
@@ -728,15 +677,14 @@ class BoxGeometry:
     def scratch(self, device, nb: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The sink partials (room for ``nb`` vectors' in a batched
-        launch) and the ticket of this geometry's launches (shared with
-        the geometry it follows) on ``device``."""
-        head = self.follows if self.follows is not None else self
-        got = head._scratch.get(device)
-        need = max(nb * self.part_total * self.nc, 1)
+        launch) and the ticket of this geometry's launches on
+        ``device``."""
+        got = self._scratch.get(device)
+        need = max(nb * self.nslots * self.nc, 1)
         if got is None or got[0].numel() < need:
             # launches on one stream run in order, so a larger array may
             # replace the one an earlier launch still reads
-            got = head._scratch[device] = (
+            got = self._scratch[device] = (
                 torch.empty(need, dtype=torch.float64, device=device),
                 got[1] if got is not None
                 else torch.zeros(1, dtype=torch.int32, device=device))
@@ -790,13 +738,12 @@ class BoxActionKernel(CudaLibrary):
     # ----------------------------------------------------------- launch
     def launch(self, mode: str, c, p, a, geom: BoxGeometry, mask=None,
                viol=None, bounds=None, out=None, halos=None
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One launch of ``mode`` ("mask": K1/K2, "synth": K3; K4 on a
         window; K9 where ``p`` is ``[nb, n]``, K9w on a window, with
         halos ``[nb, ...]``).  Returns ``(dp, sinks)`` (``[nb, n]`` and
-        ``[nb, n_c]`` for K9); sinks is None where ``geom`` leads a chain
-        (the following launch returns both launches').  ``out`` may be a
-        row range of a wider ``[nb, m]`` tensor (its rows contiguous)."""
+        ``[nb, n_c]`` for K9).  ``out`` may be a row range of a wider
+        ``[nb, m]`` tensor (its rows contiguous)."""
         lib = self.lib if self.lib is not None else self.load()
         dev = p.device
         R, n = geom.num_reactions, geom.n
@@ -828,7 +775,6 @@ class BoxActionKernel(CudaLibrary):
         # vectors and its grid itself
         prm.nb = nb
         narrow = int(synth and geom._narrow_of(bounds))
-        nsk = 0 if geom.leads else geom.nc
         if batched:
             if out is None:
                 dp = torch.empty((nb, geom.n_out), dtype=torch.float64,
@@ -840,20 +786,19 @@ class BoxActionKernel(CudaLibrary):
             prm.p_bstride, prm.dp_bstride = p.stride(0), dp.stride(0)
             prm.ticket_total = _batched_ticket(lib, prm, geom, nb, synth,
                                                narrow, dev)
-            sinks = torch.empty((nb, nsk), dtype=torch.float64, device=dev)
+            sinks = torch.empty((nb, geom.nc), dtype=torch.float64,
+                                device=dev)
         elif out is None:
             # dp and the sinks in one allocation
-            buf = torch.empty(geom.n_out + nsk, dtype=torch.float64,
+            buf = torch.empty(geom.n_out + geom.nc, dtype=torch.float64,
                               device=dev)
             dp, sinks = buf[:geom.n_out], buf[geom.n_out:]
         else:
             _check(out, (geom.n_out,), torch.float64, dev, "out")
             dp = out
-            sinks = torch.empty(nsk, dtype=torch.float64, device=dev)
+            sinks = torch.empty(geom.nc, dtype=torch.float64, device=dev)
         if not batched:
-            prm.ticket_total = geom.ticket_total
-        if geom.leads:
-            sinks = None
+            prm.ticket_total = geom.nblocks
         part, ticket = geom.scratch(dev, nb)
         up, dn = halos if halos is not None else (None, None)
         q = geom._ptrs
@@ -870,10 +815,8 @@ class BoxActionKernel(CudaLibrary):
         q.viol = viol.data_ptr() if viol is not None else None
         q.dp = dp.data_ptr()
         q.part, q.ticket = part.data_ptr(), ticket.data_ptr()
-        q.sinks = sinks.data_ptr() if sinks is not None else None
+        q.sinks = sinks.data_ptr()
         q.coef, q.bounds = geom.write_inputs(dev, synth).pointers()
-        if batched:
-            _chain_check(geom, nb, prm.ticket_total, ticket)
         rc = lib.box_action_launch(
             ctypes.byref(prm), ctypes.byref(q), geom.nblocks, int(synth),
             narrow, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
@@ -881,8 +824,6 @@ class BoxActionKernel(CudaLibrary):
             raise KernelError(f"box_action launch ({mode}"
                               f"{', batched' if batched else ''}) failed: "
                               f"cudaError {rc}")
-        if batched and geom.leads:
-            geom._bat_lead = (nb, prm.ticket_total)
         tally(partial(self._count_launch, geom.mode_key(mode, batched)))
         return dp, sinks
 
@@ -892,48 +833,20 @@ class BoxActionKernel(CudaLibrary):
 
 def _batched_ticket(lib, prm, geom: BoxGeometry, nb: int, synth: bool,
                     narrow: int, dev) -> int:
-    """The blocks a batched launch's ticket counts: its grid's, and
-    in a chain the other launch's at the same ``nb`` (the chunk width
-    depends on what both geometries share), from the kernel's own
-    rule (``box_action_grid``), kept per geometry and layout."""
+    """The blocks a batched launch's ticket counts, its grid's, from
+    the kernel's own rule (``box_action_grid``), kept per geometry and
+    layout."""
     key = (nb, synth, narrow, prm.ntab, prm.tab_smem, dev.index)
     got = geom._grids.get(key)
     if got is None:
-        prm.ticket_total = geom.ticket_total
+        prm.ticket_total = geom.nblocks
         grid = (ctypes.c_int * 4)()
         rc = lib.box_action_grid(ctypes.byref(prm), geom.nblocks,
                                  int(synth), narrow, dev.index, grid)
         if rc != 0:
             raise KernelError(f"box_action grid failed: cudaError {rc}")
-        gx, gy, _, most = grid
-        other = geom.follows if geom.follows is not None \
-            else geom.follower
-        got = gx * gy
-        if other is not None:
-            got += min(other.nblocks, most) * gy
-        geom._grids[key] = got
+        got = geom._grids[key] = grid[0] * grid[1]
     return got
-
-
-def _chain_check(geom: BoxGeometry, nb: int, ticket: int,
-                 counter: torch.Tensor) -> None:
-    """Refuses a batched launch that would leave a chain's ticket count
-    wrong: a leading launch while one is in flight, or a following launch
-    without its leading one, or at another ``nb`` or ticket.  The counter
-    is then reset, so that the next chain starts clean."""
-    if geom.leads and geom._bat_lead is not None:
-        geom._bat_lead = None
-        counter.zero_()
-        raise KernelError("a batched chain's leading launch was not "
-                          "followed: refused")
-    if geom.follows is not None:
-        lead, geom.follows._bat_lead = geom.follows._bat_lead, None
-        if lead != (nb, ticket):
-            counter.zero_()
-            raise KernelError(
-                f"a batched chain's following launch (nb {nb}, ticket "
-                f"{ticket}) does not complete its leading one "
-                f"({'none' if lead is None else lead}): refused")
 
 
 def _halo_ptr(t, shape, read: bool, device, name: str):
@@ -1021,9 +934,9 @@ def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry, out=None,
                     halos=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero-filled box shifts (``shift_nd``) and dense masked sink sums,
     in the kernel's order of accumulation over reactions, over the whole
-    window; ``dp`` and the sinks of its computed rows (this launch's own:
-    :func:`_chained` sums a chain's).  Rows outside the global box count
-    as invalid, as the kernel's axis-0 source test makes them."""
+    window; ``dp`` and the sinks of its computed rows.  Rows outside the
+    global box count as invalid, as the kernel's axis-0 source test makes
+    them."""
     c = [float(v) for v in (c.tolist() if torch.is_tensor(c) else c)]
     shape = geom.shape
     a = as_props(a, geom).dense()
@@ -1037,9 +950,6 @@ def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry, out=None,
     rows = slice(geom.out_lo, geom.out_hi)
     zero = torch.zeros((), dtype=p.dtype, device=p.device)
     dp = torch.zeros_like(pb)
-    keep = torch.ones(shape[0], dtype=torch.bool, device=p.device)
-    keep[geom.gap[0]:geom.gap[1]] = False
-    keep = keep[rows].reshape((-1,) + (1,) * (len(shape) - 1))
     sinks = [zero] * geom.nc
     for r in range(geom.num_reactions):
         ap = torch.where(mb, a[r].reshape(shape) * pb, zero)
@@ -1047,30 +957,16 @@ def _masked_stencil(c, p, mask, a, viol, geom: BoxGeometry, out=None,
         dp = dp + c[r] * (inflow - ap)
         bits = viol[r].reshape(shape)[rows]
         for cc in range(geom.nc):
-            sel = (((bits >> cc) & 1) != 0) & keep
+            sel = ((bits >> cc) & 1) != 0
             sinks[cc] = sinks[cc] + c[r] * torch.where(sel, ap[rows],
                                                        zero).sum()
     sk = (torch.stack(sinks) if geom.nc
           else torch.zeros(0, dtype=p.dtype, device=p.device))
     dp = dp[rows]
     if out is None:
-        out = torch.zeros(geom.n_out, dtype=p.dtype, device=p.device)
-    ov = out.view(dp.shape)
-    ov.copy_(torch.where(keep, dp, ov))
+        return dp.reshape(-1), sk
+    out.view(dp.shape).copy_(dp)
     return out, sk
-
-
-def _chained(geom: BoxGeometry, sk: torch.Tensor) -> Optional[torch.Tensor]:
-    """A plain launch's sinks as the kernel returns them: a chain's
-    partial sinks wait on its head for the following launch, which
-    returns both launches' (None for the leading one)."""
-    if geom.leads:
-        geom._pending = sk
-        return None
-    if geom.follows is not None and geom.follows._pending is not None:
-        sk = geom.follows._pending + sk
-        geom.follows._pending = None
-    return sk
 
 
 def _count_plain(geom: BoxGeometry, mode: str, p) -> None:
@@ -1082,24 +978,21 @@ def _count_plain(geom: BoxGeometry, mode: str, p) -> None:
 
 def box_action_reference(c, p, mask, a, viol, geom: BoxGeometry, out=None,
                          halos=None
-                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the mask-reading kernel."""
     _count_plain(geom, "mask", p)
-    dp, sk = _masked_stencil(c, p, mask, a, viol, geom, out, halos)
-    return dp, _chained(geom, sk)
+    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
 
 
 def box_action_synth_reference(c, p, a, bounds, geom: BoxGeometry,
                                out=None, halos=None
-                               ) -> Tuple[torch.Tensor,
-                                          Optional[torch.Tensor]]:
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the synthesized-mask kernel: the mask and
     the violation bits from the form's torch evaluator, then the same
     masked stencil and sink sums."""
     _count_plain(geom, "synth", p)
     mask, viol = _synth_data(geom, bounds, p.device)
-    dp, sk = _masked_stencil(c, p, mask, a, viol, geom, out, halos)
-    return dp, _chained(geom, sk)
+    return _masked_stencil(c, p, mask, a, viol, geom, out, halos)
 
 
 def _synth_data(geom: BoxGeometry, bounds, device
@@ -1116,7 +1009,7 @@ def _synth_data(geom: BoxGeometry, bounds, device
 
 
 def box_action(c, p, mask, a, viol, geom: BoxGeometry, out=None, halos=None
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dp, sinks)`` of the truncated generator applied to ``p``.
 
     ``c [R]`` time coefficients (host floats or a CPU tensor), ``p``
@@ -1138,7 +1031,7 @@ def box_action(c, p, mask, a, viol, geom: BoxGeometry, out=None, halos=None
 
 def box_action_synth(c, p, a, bounds, geom: BoxGeometry, out=None,
                      halos=None
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`box_action` with the mask and the violation bits computed
     from ``geom.form`` at the constraint ``bounds [n_c]`` (host integers).
     Equal to :func:`box_action` wherever the mask is exactly "every
@@ -1153,10 +1046,9 @@ def box_action_synth(c, p, a, bounds, geom: BoxGeometry, out=None,
 
 
 def _batched_plain(mode: str, geom: BoxGeometry, p, out, halos, one
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A plain version over the leading axis of ``p [nb, n]``: ``one(row,
-    out_row, halos_row)`` for each vector, stacked; a chain's sinks as
-    :func:`_chained` gives them."""
+    out_row, halos_row)`` for each vector, stacked."""
     if p.dim() != 2:
         raise ValueError(f"p has shape {tuple(p.shape)}, expected [nb, n]")
     key = geom.mode_key(mode, batched=True)
@@ -1171,7 +1063,7 @@ def _batched_plain(mode: str, geom: BoxGeometry, p, out, halos, one
         dps.append(dp)
         sks.append(sk)
     return ((out if out is not None else torch.stack(dps)),
-            _chained(geom, torch.stack(sks)))
+            torch.stack(sks))
 
 
 def box_action_batched_reference(c, p, mask, a, viol, geom: BoxGeometry,

@@ -23,24 +23,16 @@ concatenated, and the halos are received into buffers allocated once.
 * One rank (no neighbour on either side): one launch on the slab, with no
   halos (the rows they would hold lie outside the box), and no
   collective.
-* Several ranks: one launch on the window after the exchange (K4), on
-  every transport.  The reference overlaps the exchange with a launch on
-  the interior rows, then one on both edge strips (``:149-193``); that
-  chain was slower than one launch over 2 and 4 NCCL ranks, one card
-  each, at a 256^3 box (``PERF.md``), as K9w's chain was, so the action
-  never takes it.
+* Several ranks: one launch on the window after the exchange (K4).  The
+  reference overlaps the exchange with a launch on the interior rows
+  (``:149-193``); the port takes one launch after the exchange because it
+  measured faster (``PERF.md`` section 6).
 
 :meth:`ShardedBoxAction.batched` applies the action to ``nb`` vectors of
 the rank's slab at once (the reference's meshed sensitivity solve
 ``vmap``s the sharded call): one exchange of every vector's edge planes,
-stacked ``[nb, w0 P]`` each way, the batched kernel on the window (K9w),
-and one all-reduce of the ``[nb, n_c]`` sinks, in one launch on the
-window after the exchange.  The kernel's chain (the interior rows of
-every vector with the halos in flight, then every vector's edge strips;
-``ops/box_kernel.py``), slower on one card and over two NCCL ranks, one
-card each (``PERF.md``), keeps its two geometries here
-(:attr:`ShardedBoxAction.chain`) for the measurements and tests that
-hold it to one launch; no action runs it.
+stacked ``[nb, w0 P]`` each way, the batched kernel in one launch on the
+window (K9w), and one all-reduce of the ``[nb, n_c]`` sinks.
 :meth:`ShardedBoxAction.apply` is the action on either, given halos that
 another action received (``halos=``, planes of a width of at least
 ``w0``: then no exchange) and with the sinks left unreduced on request
@@ -99,33 +91,21 @@ class ShardedBoxAction:
         self.plane = P = int(np.prod(self.shape[1:]))
         self.origin0 = lo - w0
         self.window_shape = (L0 + 2 * w0,) + self.shape[1:]
-
-        def geom(out, gap=None, follows=None):
-            return BoxGeometry(self.window_shape, stoichiometry,
-                               num_constraints, form, origin0=lo - w0,
-                               g0=self.shape[0], out_rows=out, gap=gap,
-                               halo_rows=(w0, L0), follows=follows)
-
         #: whether a halo crosses ranks; without, no exchange and no
         #: collective
         self.halos = mesh.size > 1
-        #: the kernel's chain on the window where the slab has an interior
-        #: (``L0 >= 2 w0``), else None: the interior rows, then both edge
-        #: strips, which read the halos and return both launches' sinks.
-        #: Held to one launch by tests and timed; no action runs it
-        self.chain = None
-        if self.halos and L0 >= 2 * w0:
-            lead = geom((2 * w0, L0))
-            self.chain = (lead, geom((w0, w0 + L0), gap=(2 * w0, L0),
-                                     follows=lead))
         #: one launch on the window: K4 and K9w
-        self.geom = geom((w0, w0 + L0))
+        self.geom = BoxGeometry(self.window_shape, stoichiometry,
+                                num_constraints, form, origin0=lo - w0,
+                                g0=self.shape[0], out_rows=(w0, w0 + L0),
+                                halo_rows=(w0, L0))
         # the received halos, per leading shape of p: () or (nb,)
         self._bufs = {}
 
-    def _run(self, geom, c, p, a, mask, viol, bounds, out=None, halos=None):
-        """The kernel on ``geom``, a window of the operator's data: K4 on
-        a vector ``p``, K9w on a batch ``[nb, L0 P]``."""
+    def _run(self, c, p, a, mask, viol, bounds, out=None, halos=None):
+        """The kernel on the window of the operator's data: K4 on a
+        vector ``p``, K9w on a batch ``[nb, L0 P]``."""
+        geom = self.geom
         if p.dim() == 2:
             if mask is None:
                 return box_action_synth_batched(c, p, a, bounds, geom, out,
@@ -147,7 +127,7 @@ class ShardedBoxAction:
         to write ``dp``."""
         w0, L0, P = self.w0, self.L0, self.plane
         if not self.halos:
-            dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out)
+            dp, ks = self._run(c, p, a, mask, viol, bounds, out)
             return dp, ks, None
         ex = None
         if halos is None:
@@ -165,8 +145,7 @@ class ShardedBoxAction:
             halos = (up[..., up.shape[-1] - w0 * P:], dn[..., :w0 * P])
         if ex is not None:
             halos = ex.wait()
-        dp, ks = self._run(self.geom, c, p, a, mask, viol, bounds, out,
-                           halos)
+        dp, ks = self._run(c, p, a, mask, viol, bounds, out, halos)
         if reduce and ks.numel():
             self.mesh.all_reduce(ks)
         return dp, ks, halos

@@ -202,7 +202,7 @@ def _k9w(torch, pt, bk, bo, dev, smi, label) -> None:
              for c in cases}
     for rnd in range(ROUNDS):
         for name, g, pa, b, c, Q, slabs in cases:
-            wins = [((wg, ps, h), pa.window(o, rows)) for wg, _, ps, h, o,
+            wins = [((wg, ps, h), pa.window(o, rows)) for wg, ps, h, o,
                     rows in timing.k9w_windows(g, Q, slabs)]
 
             def k9w():

@@ -1,6 +1,6 @@
 """Time the batched action on a window (K9w) over ranks, one card each:
-one launch after the halo exchange against the chain of the interior
-rows (with the exchange in flight) and then the edge strips.
+one launch after the halo exchange, and the exchange and the launch
+apart.
 
     python <path to this file> [--worlds 2 4] [--nb 3] [--side 128]
                                [--device cuda|cpu]
@@ -9,19 +9,15 @@ For each world size (at most the card count), spawns that many ranks
 (NCCL, rank r on card r; gloo on ``--device cpu``, a dry run at a small
 ``--side``), cuts the repressilator's ``side^3`` box (``chip_smoke.py``
 phase 11d's shape at 128) into axis-0 slabs, one a rank, and on every
-rank times four ways on ``nb`` random vectors of its slab: ``one``,
+rank times three ways on ``nb`` random vectors of its slab: ``one``,
 :meth:`ShardedBoxAction.batched` (the exchange, K9w in one launch on the
-window, the all-reduce of the sinks); ``chain``, the exchange started,
-K9w on the interior rows of every vector, the exchange awaited, K9w on
-every vector's edge strips (the geometries of
-:attr:`ShardedBoxAction.chain`), the all-reduce; ``exchange``, the exchange
-and the all-reduce alone; ``kernel``, the one launch alone on the halos
-received.  First each rank checks the chain against one launch: ``dp``
-bitwise, the sinks within 1e-12 relative.  Then CUDA events around REPS
-calls after WARM calls, the ranks aligned by a barrier before each, in
-the order of ORDER, ROUNDS times.  Prints, per world size, one line with
-each way's ms per call on every rank (the slowest rank is what a solve
-waits on), with the card's name and power limit.
+window, the all-reduce of the sinks); ``exchange``, the exchange and the
+all-reduce alone; ``kernel``, the one launch alone on the halos
+received.  CUDA events around REPS calls after WARM calls, the ranks
+aligned by a barrier before each, in the order of ORDER, ROUNDS times.
+Prints, per world size, one line with each way's ms per call on every
+rank (the slowest rank is what a solve waits on), with the card's name
+and power limit.
 """
 import argparse
 import os
@@ -31,8 +27,7 @@ import time
 from pathlib import Path
 
 REPS, WARM, ROUNDS = 100, 10, 3
-ORDER = ("one", "chain", "exchange", "kernel", "kernel", "exchange",
-         "chain", "one")
+ORDER = ("one", "exchange", "kernel", "kernel", "exchange", "one")
 
 
 def _free_port() -> int:
@@ -63,9 +58,6 @@ def _rank(rank, world, port, device, nb, side, out_file):
         c = rep.model.coefficients(0.0)
         sh = ShardedBoxAction(shape, rep.model.stoichiometry, 3, cs.form,
                               mesh)
-        if sh.chain is None:
-            raise RuntimeError("the slabs have no interior: no chain")
-        lead, edge = sh.chain
         w0, L0, P = sh.w0, sh.L0, sh.plane
         a = props.window(sh.origin0, L0 + 2 * w0)
         bounds = [side - 1] * 3
@@ -74,37 +66,16 @@ def _rank(rank, world, port, device, nb, side, out_file):
                        dtype=torch.float64)
         up, dn = (torch.zeros((nb, w0 * P), dtype=torch.float64, device=dev)
                   for _ in range(2))
-        dp = torch.empty_like(p)
-
-        def start():
-            return mesh.halo_start(p[:, :w0 * P], p[:, (L0 - w0) * P:], up,
-                                   dn)
-
-        def chain():
-            ex = start()
-            bk.box_action_synth_batched(c, p, a, bounds, lead,
-                                        dp[:, w0 * P:(L0 - w0) * P])
-            _, ks = bk.box_action_synth_batched(c, p, a, bounds,
-                                                edge, dp, ex.wait())
-            mesh.all_reduce(ks)
-            return dp, ks
 
         def exchange():
-            start().wait()
+            mesh.halo_start(p[:, :w0 * P], p[:, (L0 - w0) * P:], up,
+                            dn).wait()
             mesh.all_reduce(torch.zeros((nb, 3), dtype=torch.float64,
                                         device=dev))
         runs = {"one": lambda: sh.batched(c, p, a, None, None, bounds),
-                "chain": chain, "exchange": exchange,
+                "exchange": exchange,
                 "kernel": lambda: bk.box_action_synth_batched(
                     c, p, a, bounds, sh.geom, halos=(up, dn))}
-        d1, s1 = (x.clone() for x in runs["one"]())
-        d2, s2 = runs["chain"]()
-        rel = float(((s2 - s1).abs()
-                     / s1.abs().amax(dim=-1, keepdim=True)
-                     .clamp_min(1e-300)).max())
-        if not torch.equal(d1, d2) or rel > 1e-12:
-            raise AssertionError(f"rank {rank}: the chain's dp differs from "
-                                 f"one launch's, or sinks by {rel:.3e}")
 
         def timed(fn):
             for _ in range(WARM):
@@ -130,8 +101,8 @@ def _rank(rank, world, port, device, nb, side, out_file):
             for k in ORDER:
                 t[k].append(timed(runs[k]))
         got = [None] * world
-        dist.all_gather_object(got, {"rank": rank, "t": t, "rel": rel,
-                                     "L0": L0, "w0": w0})
+        dist.all_gather_object(got, {"rank": rank, "t": t, "L0": L0,
+                                     "w0": w0})
         if rank == 0:
             with open(out_file, "w") as f:
                 f.write(repr(got))
@@ -167,7 +138,7 @@ def main() -> None:
             mp.spawn(_rank, args=(world, _free_port(), args.device, args.nb,
                                   args.side, out), nprocs=world, join=True)
             got = ast.literal_eval(open(out).read())
-        ways = ("one", "chain", "exchange", "kernel")
+        ways = ("one", "exchange", "kernel")
         print(f"K9w over {world} {'nccl' if args.device == 'cuda' else 'gloo'}"
               f" ranks, {args.side}^3 repressilator box, slabs of "
               f"{got[0]['L0']} rows (w0 {got[0]['w0']}), nb={args.nb}, "
@@ -179,8 +150,7 @@ def main() -> None:
               + "; slowest rank's mean: " + ", ".join(
                   f"{k} {max(sum(g['t'][k]) / len(g['t'][k]) for g in got):.4f}"
                   for k in ways)
-              + f"; chain's sinks within {max(g['rel'] for g in got):.3e} "
-              f"of one launch's; {smi}", flush=True)
+              + f"; {smi}", flush=True)
 
 
 if __name__ == "__main__":

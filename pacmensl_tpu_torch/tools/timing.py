@@ -69,11 +69,9 @@ def graph_ms(fn, reps: int = 100) -> float:
 def k9w_windows(geom, P, slabs: int):
     """``geom``'s box cut into ``slabs`` axis-0 slabs, each a window with
     every vector's halo planes as ShardedBoxAction.batched's exchange
-    delivers them.  Per slab: (the window's geometry, its chain (the
-    interior rows' geometry, the edge strips') where the slab has an
-    interior (``L0 >= 2 w0``) else None, the slab of ``P [nb, n]``, the
-    halos ``(up, dn)``, each ``[nb, w0 P]``, the window's origin and
-    rows)."""
+    delivers them.  Per slab: (the window's geometry, the slab of
+    ``P [nb, n]``, the halos ``(up, dn)``, each ``[nb, w0 P]``, the
+    window's origin and rows)."""
     import numpy as np
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
@@ -89,18 +87,9 @@ def k9w_windows(geom, P, slabs: int):
     cuts = np.linspace(0, g0, slabs + 1).astype(int)
     for lo, hi in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
         o, rows, L0 = lo - w0, hi - lo + 2 * w0, hi - lo
-
-        def win_geom(out_rows, gap=None, follows=None):
-            return bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
-                                  geom.form, origin0=o, g0=g0,
-                                  out_rows=out_rows, gap=gap,
-                                  halo_rows=(w0, L0), follows=follows)
-        chain = None
-        if L0 >= 2 * w0:
-            gi = win_geom((2 * w0, L0))
-            chain = (gi, win_geom((w0, w0 + L0), gap=(2 * w0, L0),
-                                  follows=gi))
-        out.append((win_geom((w0, w0 + L0)), chain,
-                    P[:, lo * plane:hi * plane].contiguous(),
+        g = bk.BoxGeometry((rows,) + shape[1:], geom.stoich, geom.nc,
+                           geom.form, origin0=o, g0=g0,
+                           out_rows=(w0, w0 + L0), halo_rows=(w0, L0))
+        out.append((g, P[:, lo * plane:hi * plane].contiguous(),
                     (rows_of(o, w0), rows_of(hi, w0)), o, rows))
     return out

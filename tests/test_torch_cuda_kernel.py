@@ -9,9 +9,7 @@ atol 1e-13.  Two launches of the kernel must agree bitwise, and on a box
 whose mask is constraint-only the synthesized-mask mode (K3) must give
 the mask-reading mode's (K1) ``dp`` and sinks bitwise.  The sharded mode
 (K4) on slabs of a box gives the whole box's ``dp`` bitwise, and the
-batched launch on such a window (K9w) nb single K4 launches', in one
-launch and as the chain of the interior rows and the edge strips (nb K4
-chains'; a chain whose ticket count would be wrong is refused).  Every case
+batched launch on such a window (K9w) nb single K4 launches'.  Every case
 runs on the operators' propensity tables (``tables``) and on their
 ``[R, n]`` fields read as field rows.  A one-rank mesh on the card uses
 NCCL."""
@@ -545,11 +543,8 @@ def test_cuda_batched_kernel_at_each_constraint_width(nc, shape, synth, nb):
 
 @pytest.mark.cuda
 def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
-    """Bad shapes raise; a batched chain whose ticket count would be wrong
-    (a following launch without its leading one, or at another nb; a
-    second leading launch) is refused before it launches; a window (K9w)
-    raises where a halo it reads is missing (windows without halos to
-    read run, see the K9w tests)."""
+    """Bad shapes raise; a window (K9w) raises where a halo it reads is
+    missing (windows without halos to read run, see the K9w tests)."""
     _needs_cuda()
     b, op = _operator("hog1p_5d", [3, 6, 6, 6, 6, 8, 8], "cuda")
     mask, viol = _k1_data(op)
@@ -562,28 +557,6 @@ def test_cuda_batched_wrapper_rejects_windows_and_bad_shapes():
         bk.box_action_synth_batched(c, P.t().contiguous().t(), op.props,
                                     bnd, op.geom)
     g0 = op.shape[0]
-    lead = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
-                          op.geom.form, g0=g0, gap=(1, g0))
-    tail = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
-                          op.geom.form, g0=g0, gap=(0, 1), follows=lead)
-    key = "batched_sharded_synth_chain"
-    n0 = bk.KERNEL.launches[key]
-    with pytest.raises(bk.KernelError, match="refused"):
-        bk.box_action_synth_batched(c, P, op.props, bnd, tail)
-    bk.box_action_synth_batched(c, P, op.props, bnd, lead)
-    with pytest.raises(bk.KernelError, match="refused"):
-        bk.box_action_synth_batched(c, P[:1].contiguous(), op.props, bnd,
-                                    tail)
-    bk.box_action_synth_batched(c, P, op.props, bnd, lead)
-    with pytest.raises(bk.KernelError, match="refused"):
-        bk.box_action_synth_batched(c, P, op.props, bnd, lead)
-    assert bk.KERNEL.launches[key] == n0 + 2
-    # a whole chain after the refusals: both launches' sinks, as one
-    # launch on the box gives them
-    bk.box_action_synth_batched(c, P, op.props, bnd, lead)
-    _, sk = bk.box_action_synth_batched(c, P, op.props, bnd, tail)
-    torch.cuda.synchronize()
-    assert sk.shape == (2, op.geom.nc)
     # rows 1..g0-2 of the box from a slab of rows 1..g0-2: the rows above
     # and below are read and not given
     win = bk.BoxGeometry(op.shape, op.geom.stoich, op.geom.nc,
@@ -703,119 +676,12 @@ def test_cuda_batched_window_kernel_matches_plain_and_k4(name, bounds, t,
                                **TOL)
 
 
-def _chain(geom):
-    """The chain of ``geom``'s slab window, as ShardedBoxAction builds it:
-    the interior rows ``[2 w0, L0)``, then both edge strips."""
-    w0, L0 = geom.out_lo, geom.out_hi - geom.out_lo
-
-    def g(out, gap=None, follows=None):
-        return bk.BoxGeometry(geom.shape, geom.stoich, geom.nc, geom.form,
-                              origin0=geom.origin0, g0=geom.g0,
-                              out_rows=out, gap=gap, halo_rows=(w0, L0),
-                              follows=follows)
-    gi = g((2 * w0, L0))
-    return gi, g((w0, w0 + L0), gap=(2 * w0, L0), follows=gi)
-
-
-def _window_runs(c, bnd, synth, g, ps, up, dn, wm, wa, wv):
-    """K9w on the window geometry ``g`` of a slab: one launch, its plain
-    version, the chain and its plain version, each vector's K4 chain."""
-    gi, ge = _chain(g)
-    L0, w0, P_ = g.out_hi - g.out_lo, g.out_lo, g.plane
-
-    def one(geom, pv, out=None, halos=None, plain=False):
-        if synth:
-            fn = ((bk.box_action_synth_batched_reference if plain
-                   else bk.box_action_synth_batched) if pv.dim() == 2
-                  else bk.box_action_synth)
-            return fn(c, pv, wa, bnd, geom, out, halos)
-        fn = ((bk.box_action_batched_reference if plain
-               else bk.box_action_batched) if pv.dim() == 2
-              else bk.box_action)
-        return fn(c, pv, wm, wa, wv, geom, out, halos)
-
-    def chain(pv, halos, plain=False):
-        dp = torch.empty_like(pv)
-        one(gi, pv, dp[..., w0 * P_:(L0 - w0) * P_], plain=plain)
-        return one(ge, pv, dp, halos, plain=plain)
-    return {"single": one(g, ps, halos=(up, dn)),
-            "plain": one(g, ps, halos=(up, dn), plain=True),
-            "chain": chain(ps, (up, dn)),
-            "chain2": chain(ps, (up, dn)),
-            "chain_plain": chain(ps, (up, dn), plain=True),
-            "k4": [chain(ps[i].contiguous(), (up[i], dn[i]))
-                   for i in range(ps.shape[0])]}
-
-
-def _check_window_runs(r):
-    """The chain bitwise the one launch, its plain version's dp and each
-    vector's K4 chain; its sinks bitwise the K4 chains', within TOL of the
-    one launch's and the plain versions'."""
-    kp, ks = r["chain"]
-    assert torch.equal(kp, r["chain2"][0]) and torch.equal(ks, r["chain2"][1])
-    for k in ("single", "plain", "chain_plain"):
-        assert torch.equal(kp, r[k][0]), k
-        np.testing.assert_allclose(ks.cpu().numpy(), r[k][1].cpu().numpy(),
-                                   **TOL)
-    assert torch.equal(kp, torch.stack([o[0] for o in r["k4"]]))
-    assert torch.equal(ks, torch.stack([o[1] for o in r["k4"]]))
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb", [2, 3, 5])
-@pytest.mark.parametrize("synth", [True, False])
-@pytest.mark.parametrize("name,bounds,slabs", [
-    ("repressilator", [25, 15, 15, 60, 30, 60], 4),
-    ("toggle", [12, 9, 40], 2)])
-def test_cuda_batched_window_chain_matches_single_and_k4(name, bounds, slabs,
-                                                        synth, nb):
-    """K9w as the chain of the interior rows and the edge strips, on
-    slabs with an interior (``L0 >= 2 w0``): dp bitwise the single K9w
-    launch's, the plain versions' and nb K4 chains', sinks bitwise the K4
-    chains', the slabs' dp bitwise the whole box's K9."""
-    _needs_cuda()
-    b, op = _operator(name, bounds, "cuda")
-    if synth and not op.synth_mask:
-        pytest.skip("the mask is not constraint-only: K1 only")
-    mask, viol = _k1_data(op)
-    rng = np.random.default_rng(29)
-    P = torch.as_tensor(rng.random((nb, op.geom.n)), device="cuda") * mask
-    c, bnd = b.model.coefficients(0.0), op.data().bounds
-    shape, plane = op.shape, op.geom.plane
-    w0 = halo_width(op.model.stoichiometry)
-    whole = (bk.box_action_synth_batched(c, P, op.props, bnd, op.geom)
-             if synth else
-             bk.box_action_batched(c, P, mask, op.props, viol, op.geom))
-    key = "batched_sharded_" + ("synth" if synth else "mask") + "_chain"
-    dps, n0 = [], bk.KERNEL.launches[key]
-    for geom, _, wm, wa, wv in _slab_windows(op, P[0], mask, viol, slabs):
-        lo, L0 = geom.origin0 + w0, geom.out_hi - geom.out_lo
-        assert L0 >= 2 * w0
-        g = bk.BoxGeometry(geom.shape, geom.stoich, geom.nc, geom.form,
-                           origin0=geom.origin0, g0=geom.g0,
-                           out_rows=(w0, w0 + L0), halo_rows=(w0, L0))
-        ps = P[:, lo * plane:(lo + L0) * plane].contiguous()
-
-        def rows(a, n):
-            return torch.stack([window_rows(P[i].reshape(shape), a, n)
-                                .reshape(-1) for i in range(nb)])
-        r = _window_runs(c, bnd, synth, g, ps, rows(lo - w0, w0),
-                         rows(lo + L0, w0), wm, wa, wv)
-        torch.cuda.synchronize()
-        _check_window_runs(r)
-        dps.append(r["chain"][0])
-    assert bk.KERNEL.launches[key] == n0 + 4 * slabs
-    assert torch.equal(torch.cat(dps, dim=1), whole[0])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("chained", [False, True])
-def test_cuda_batched_window_kernel_at_the_widest_constraints(chained):
+def test_cuda_batched_window_kernel_at_the_widest_constraints():
     """K9w in the mask-reading mode at 20 constraints and the widest batch
     (9 vectors: more than one chunk of vectors, so the last block's tail
-    takes more than one chunk of (vector, constraint) pairs), in one
-    launch and as the chain: bitwise nb K4 launches (or chains) and the
-    plain version's dp."""
+    takes more than one chunk of (vector, constraint) pairs): bitwise nb
+    K4 launches and the plain version's dp."""
     _needs_cuda()
     dev = torch.device("cuda", 0)
     nc, nb, shape = 20, BATCHES[-1], (16, 10, 37)
@@ -842,24 +708,20 @@ def test_cuda_batched_window_kernel_at_the_widest_constraints(chained):
             return torch.stack([window_rows(P[i].reshape(shape), a0, w0)
                                 .reshape(-1) for i in range(nb)])
         ps = P[:, lo * plane:(lo + L0) * plane].contiguous()
-        r = _window_runs(c, None, False, g, ps, halo(lo - w0),
-                         halo(lo + L0), win(mask), a.window(o, rows),
-                         torch.stack([win(v) for v in viol]))
+        up, dn = halo(lo - w0), halo(lo + L0)
+        wm, wa = win(mask), a.window(o, rows)
+        wv = torch.stack([win(v) for v in viol])
+        kp, ks = bk.box_action_batched(c, ps, wm, wa, wv, g, halos=(up, dn))
+        rp, rs = bk.box_action_batched_reference(c, ps, wm, wa, wv, g,
+                                                 halos=(up, dn))
         torch.cuda.synchronize()
-        if chained:
-            _check_window_runs(r)
-        else:
-            kp, ks = r["single"]
-            assert torch.equal(kp, r["plain"][0])
-            np.testing.assert_allclose(ks.cpu().numpy(),
-                                       r["plain"][1].cpu().numpy(), **TOL)
-            one = [bk.box_action(c, ps[i], win(mask), a.window(o, rows),
-                                 torch.stack([win(v) for v in viol]), g,
-                                 halos=(halo(lo - w0)[i], halo(lo + L0)[i]))
-                   for i in range(nb)]
-            assert torch.equal(kp, torch.stack([q[0] for q in one]))
-            assert torch.equal(ks, torch.stack([q[1] for q in one]))
-        assert bool((r["single"][1] != 0).any())
+        assert torch.equal(kp, rp)
+        np.testing.assert_allclose(ks.cpu().numpy(), rs.cpu().numpy(), **TOL)
+        one = [bk.box_action(c, ps[i], wm, wa, wv, g, halos=(up[i], dn[i]))
+               for i in range(nb)]
+        assert torch.equal(kp, torch.stack([q[0] for q in one]))
+        assert torch.equal(ks, torch.stack([q[1] for q in one]))
+        assert bool((ks != 0).any())
 
 
 def _ablation_case(name, bounds, dev):

@@ -88,9 +88,7 @@ def _work_matvec(pt, mesh):
             out[key + "_sinks"] = d.sinks.numpy()
             out[key + "_dp1"] = one.p.numpy()
             out[key + "_sinks1"] = one.sinks.numpy()
-            out[key + "_mode"] = np.array([op.synth_mask,
-                                           sh.chain is not None, sh.L0,
-                                           sh.w0])
+            out[key + "_mode"] = np.array([op.synth_mask, sh.L0, sh.w0])
         bo.USE_SYNTH_MASK = True
     # slabs thinner than the halo: axis-0 moves of 4 need w0 = 5 planes
     jump = pt.Model(np.array([[4], [-4]]),
@@ -238,9 +236,7 @@ def test_sharded_matvec_matches_single_device(matvec_run):
     for name, _, _ in MATVEC_CASES:
         for synth in (1, 0):
             key = f"{name}_{synth}"
-            is_synth, interior, L0, w0 = o[key + "_mode"]
-            assert bool(is_synth) == bool(synth), key
-            assert bool(interior) == (L0 >= 2 * w0), key
+            assert bool(o[key + "_mode"][0]) == bool(synth), key
             assert np.array_equal(o[key + "_dp"], o[key + "_dp1"]), key
             np.testing.assert_allclose(o[key + "_sinks"],
                                        o[key + "_sinks1"], rtol=1e-12,
@@ -248,16 +244,16 @@ def test_sharded_matvec_matches_single_device(matvec_run):
             for other in outs[1:]:      # sinks replicated bit for bit
                 assert np.array_equal(other[key + "_sinks"],
                                       o[key + "_sinks"]), key
-    # the repressilator's slabs have an interior (the kernel's chain
-    # could run there; the action takes one launch all the same)
-    assert o["repressilator_1_mode"][1]
+    # the repressilator's slabs have an interior; the action takes one
+    # launch there all the same
+    L0, w0 = o["repressilator_1_mode"][1:]
+    assert L0 >= 2 * w0
 
 
 def test_sharded_matvec_calls_per_matvec(matvec_run):
     """A matvec is one call of the box action on every rank, also where
     a slab has an interior: one launch on the window after the exchange,
-    the sinks reduced in it (the chain of the interior rows and the edge
-    strips was slower over 2 and 4 NCCL ranks)."""
+    the sinks reduced in it."""
     world, outs, _ = matvec_run
     for o in outs:
         for name, _, _ in MATVEC_CASES:

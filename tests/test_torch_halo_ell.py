@@ -24,10 +24,7 @@ workers import no JAX.
 * The batched window plain version against the sharded plain version
   applied to each vector: one launch on the window, one halo exchange
   and one all-reduce a call, the sinks bitwise one K4 launch's a vector
-  and within 1e-12 of one device; the kernel's chain
-  (``ShardedBoxAction.chain``, the interior rows with the exchange in
-  flight, then the edge strips) over the ranks: the same ``dp`` on every
-  rank, bitwise one launch's, the sinks within 1e-12 of its.
+  and within 1e-12 of one device, and the same on every rank.
 * HYPERGRAPH's order the same on every rank, and the solver's check of
   the ranks' orders; the scaling sweep's rank body
   (``examples/scaling_sweep.py``) at a tiny box.
@@ -270,7 +267,7 @@ def _sens_actions(pt, mesh):
         key = f"act_{name}_"
         out[key + "counts"] = np.array(counts)
         out[key + "interior"] = np.array(
-            [op.sharded.chain is not None for op in sop.sub_ops()])
+            [op.sharded.L0 >= 2 * op.sharded.w0 for op in sop.sub_ops()])
         out[key + "p"] = got.p.numpy()
         out[key + "sinks"] = got.sinks.numpy()
         out[key + "p_each"] = want.numpy()
@@ -303,10 +300,7 @@ def _births_1_2(pt):
 def _work_window(pt, mesh):
     """ShardedBoxAction.batched (K9w's plain version behind one halo
     exchange of every vector) against the sharded action on each vector
-    (keys ``s1_*``, ``s0_*``), and the kernel's chain on the window over
-    the ranks (keys ``chain_s1_*``, ``chain_s0_*``): the exchange started,
-    the interior rows of every vector, the exchange awaited, every
-    vector's edge strips, the all-reduce of the sinks."""
+    (keys ``s1_*``, ``s0_*``)."""
     import torch
     from pacmensl_tpu_torch.ops import box_kernel as bk
     from pacmensl_tpu_torch.ops import box_operator as bo
@@ -333,8 +327,8 @@ def _work_window(pt, mesh):
         n0 = dict(bk.KERNEL.plain_calls)
         dp, sk = op.action_batched(0.3, loc)
         counts = (mesh.halo_exchanges - ex, mesh.all_reduces - ar)
-        calls = [bk.KERNEL.plain_calls[k] - n0[k]
-                 for k in (k9w, k9w + "_chain")]
+        calls = [bk.KERNEL.plain_calls[k9w] - n0[k9w],
+                 sum(bk.KERNEL.plain_calls.values()) - sum(n0.values())]
         each = [op.action(0.3, pt.FspVector(p=loc[i], sinks=None))
                 for i in range(3)]
         key = f"s{int(synth)}"
@@ -350,32 +344,6 @@ def _work_window(pt, mesh):
         d1, s1 = one.action_batched(0.3, P)
         out[key + "_dp1"] = d1.numpy().reshape(-1)
         out[key + "_sk1"] = s1.numpy()
-        # the kernel's chain on the window, with the exchange in flight
-        gi, ge = sh.chain
-        w0, L0, P_ = sh.w0, sh.L0, sh.plane
-        d, c = op.data(), op.model.coefficients(0.3)
-        up, dn = (torch.zeros((3, w0 * P_), dtype=torch.float64)
-                  for _ in range(2))
-
-        def run(geom, out=None, halos=None):
-            if synth:
-                return bk.box_action_synth_batched(c, loc, op.props,
-                                                   d.bounds, geom, out,
-                                                   halos)
-            return bk.box_action_batched(c, loc, d.mask, op.props, d.viol,
-                                         geom, out, halos)
-        n0 = dict(bk.KERNEL.plain_calls)
-        dpc = torch.empty_like(loc)
-        pending = mesh.halo_start(loc[:, :w0 * P_], loc[:, (L0 - w0) * P_:],
-                                  up, dn)
-        run(gi, dpc[:, w0 * P_:(L0 - w0) * P_])
-        _, skc = run(ge, dpc, pending.wait())
-        mesh.all_reduce(skc)
-        out["chain_" + key + "_calls"] = np.array(
-            [bk.KERNEL.plain_calls[k] - n0[k] for k in (k9w, k9w + "_chain")])
-        out["chain_" + key + "_dp"] = gather_rows(dpc.reshape(-1), 3,
-                                                  mesh).numpy()
-        out["chain_" + key + "_sk"] = skc.numpy()
     bo.USE_SYNTH_MASK = True
     return out
 
@@ -580,24 +548,20 @@ def test_batched_window_plain_matches_sharded_each(window_run):
                                        rtol=1e-12, atol=1e-13)
 
 
-def test_batched_window_chain_over_ranks(window_run):
-    """ShardedBoxAction.batched in one K9w launch on the window, none of
-    its chain's, one exchange and one all-reduce; the kernel's chain
-    (two launches over the ranks, the exchange in flight under the
-    first): dp bitwise the one launch's and the same on every rank, the
-    sinks within 1e-12 of the one launch's and of one device's."""
+def test_batched_window_over_ranks(window_run):
+    """ShardedBoxAction.batched in one K9w launch on the window and no
+    other call, one exchange and one all-reduce: dp and the reduced sinks
+    the same on every rank, the sinks within 1e-12 of one device's."""
     for o in window_run:
         for synth in (1, 0):
-            key, one = f"chain_s{synth}", f"s{synth}"
-            assert o[one + "_calls"].tolist() == [1, 0]
-            assert o[key + "_calls"].tolist() == [0, 2]
-            assert bool(o[one + "_mode"]) == bool(synth)
-            assert o[one + "_counts"].tolist() == [1, 1]
-            assert np.array_equal(o[key + "_dp"], o[one + "_dp"])
+            key = f"s{synth}"
+            assert o[key + "_calls"].tolist() == [1, 1]
+            assert bool(o[key + "_mode"]) == bool(synth)
+            assert o[key + "_counts"].tolist() == [1, 1]
             assert np.array_equal(o[key + "_dp"], window_run[0][key + "_dp"])
-            for ref in (one + "_sk", one + "_sk1"):
-                np.testing.assert_allclose(o[key + "_sk"], o[ref],
-                                           rtol=1e-12, atol=1e-13)
+            assert np.array_equal(o[key + "_sk"], window_run[0][key + "_sk"])
+            np.testing.assert_allclose(o[key + "_sk"], o[key + "_sk1"],
+                                       rtol=1e-12, atol=1e-13)
 
 
 def test_sensitivity_action_over_ranks_makes_one_exchange(solves_run):

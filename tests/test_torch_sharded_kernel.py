@@ -11,11 +11,9 @@ and both agree with the reference within 1e-12 relative; so do the sinks
 (summed in another order).  Cases: the toggle ``[39, 17]`` box of
 ``tests/test_sharded_pallas.py:19-74`` in both kernel modes, and the
 repressilator case of ``:105-145``, whose overlap split (the reference's
-default) the kernel's chain of two launches on each rank's window
-matches, as the action's one launch does.  On the repressilator's slabs
-the batched plain version (K9w's) also runs the chain, against one
-launch on the window and against each vector's chain of K4 launches;
-the batched action itself takes one launch on the window.
+default) the action's one launch on each rank's window matches.  On the
+repressilator's slabs the batched action takes one launch on the window
+(K9w's plain version), against each vector's K4 action.
 """
 import numpy as np
 import pytest
@@ -170,113 +168,42 @@ def test_sharded_kernel_matches_reference(synth, monkeypatch):
 
 
 def test_overlap_split_matches_monolithic(monkeypatch):
-    """The kernel's chain on each rank's window
-    (:attr:`ShardedBoxAction.chain`: the interior rows, then both edge
-    strips from the halos, whose launch returns both launches' sinks)
-    against the action's one launch, which it takes on every transport:
-    dp bitwise, the summed sinks within TOL; both against the reference's
-    overlap split."""
+    """The action's one launch on each rank's window, where every slab
+    has an interior (``L0 >= 2 w0``): one plain call a rank, dp bitwise
+    the whole box's, the summed sinks within TOL of its; both within TOL
+    of the reference's overlap split (the interior rows under the
+    exchange, then the edge strips)."""
     jb, jcs, jsp, tb, tsp = _spaces(
         "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
     assert tsp.mask_is_constraint_only
     c = np.ones(tb.model.num_reactions)
     p = _seeded_p(tsp)
-    dp1, sinks1, ops = _sharded_port(tb, tsp, p, c)
-    p_box = p.reshape(tsp.shape)
-    dps, sinks = [], 0
+    n0 = dict(bk.KERNEL.plain_calls)
+    dp, sinks, ops = _sharded_port(tb, tsp, p, c)
+    assert bk.KERNEL.plain_calls["sharded_synth"] == \
+        n0["sharded_synth"] + RANKS
+    assert sum(bk.KERNEL.plain_calls.values()) == \
+        sum(n0.values()) + RANKS
     for op in ops:
-        sh, d = op.sharded, op.data()
-        assert op.synth_mask and sh.chain is not None
-        lead, edge = sh.chain
-        w0, L0, P_ = sh.w0, sh.L0, sh.plane
-        lo = sh.origin0 + w0
-        loc = p_box[lo:lo + L0].reshape(-1)
-        up = window_rows(p_box, lo - w0, w0).reshape(-1)
-        dn = window_rows(p_box, lo + L0, w0).reshape(-1)
-        dp = torch.empty_like(loc)
-        _, none = bk.box_action_synth(c, loc, op.props, d.bounds, lead,
-                                      dp[w0 * P_:(L0 - w0) * P_])
-        assert none is None
-        _, ks = bk.box_action_synth(c, loc, op.props, d.bounds, edge, dp,
-                                    (up, dn))
-        dps.append(dp)
-        sinks = sinks + ks
-    assert torch.equal(torch.cat(dps), dp1)
+        sh = op.sharded
+        assert op.synth_mask and sh.L0 >= 2 * sh.w0
+    one = pt.BoxOperator(tb.model, tsp)
+    dp1, sinks1 = bo.box_action_synth(c, p, one.prop_fields,
+                                      one.data().bounds, one.geom)
+    assert torch.equal(dp, dp1)
     np.testing.assert_allclose(sinks.numpy(), sinks1.numpy(), **TOL)
     monkeypatch.setenv("PACMENSL_HALO_OVERLAP", "1")
     act, jdp, jks = _reference(jb, jcs, jsp, c, p, synth=True)
     assert act.overlap
-    for got, ks in ((torch.cat(dps), sinks), (dp1, sinks1)):
-        np.testing.assert_allclose(got.numpy(), jdp, **TOL)
-        np.testing.assert_allclose(ks.numpy(), jks, **TOL)
-
-
-@pytest.mark.parametrize("synth", [True, False])
-def test_batched_chain_plain_matches_one_window_and_k4(synth, monkeypatch):
-    """K9w's plain version as a chain (the interior rows of every vector,
-    then every vector's edge strips from the halos, which returns both
-    launches' sinks) on each rank's window of the repressilator: dp
-    bitwise one launch on the window and each vector's K4 chain, the
-    sinks bitwise the K4 chains' and within TOL of the one launch's."""
-    monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
-    _, _, _, tb, tsp = _spaces(
-        "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
-    nb = 3
-    rng = np.random.default_rng(17)
-    P = (torch.as_tensor(rng.random((nb, tsp.size)))
-         * tsp.mask.reshape(1, -1)).to(torch.float64)
-    c = rng.random(tb.model.num_reactions) + 0.5
-    for r in range(RANKS):
-        op = pt.BoxOperator(tb.model, tsp,
-                            mesh=_LocalMesh(r, P[0].reshape(tsp.shape)))
-        assert op.synth_mask == synth
-        sh, d = op.sharded, op.data()
-        w0, L0, P_ = sh.w0, sh.L0, sh.plane
-        lo = sh.origin0 + w0
-        ps = P[:, lo * P_:(lo + L0) * P_].contiguous()
-        up = torch.stack([window_rows(P[i].reshape(tsp.shape), lo - w0, w0)
-                          .reshape(-1) for i in range(nb)])
-        dn = torch.stack([window_rows(P[i].reshape(tsp.shape), lo + L0, w0)
-                          .reshape(-1) for i in range(nb)])
-        one = bk.BoxGeometry(sh.window_shape, op.stoichiometry, op.geom.nc,
-                             op.geom.form, origin0=sh.origin0,
-                             g0=tsp.shape[0], out_rows=(w0, w0 + L0),
-                             halo_rows=(w0, L0))
-
-        def run(geom, pv, out=None, halos=None):
-            if synth:
-                return ((bk.box_action_synth_batched if pv.dim() == 2
-                         else bk.box_action_synth)(
-                    c, pv, op.props, d.bounds, geom, out, halos))
-            return ((bk.box_action_batched if pv.dim() == 2
-                     else bk.box_action)(
-                c, pv, d.mask, op.props, d.viol, geom, out, halos))
-        key = "batched_sharded_" + ("synth" if synth else "mask")
-        n0 = dict(bk.KERNEL.plain_calls)
-        dp = torch.empty_like(ps)
-        gi, ge = sh.chain
-        lead = run(gi, ps, dp[:, w0 * P_:(L0 - w0) * P_])
-        assert lead[1] is None
-        got, sk = run(ge, ps, dp, (up, dn))
-        assert got is dp and sk.shape == (nb, op.geom.nc)
-        assert bk.KERNEL.plain_calls[key + "_chain"] == n0[key + "_chain"] + 2
-        dp1, sk1 = run(one, ps, halos=(up, dn))
-        assert torch.equal(dp, dp1)
-        np.testing.assert_allclose(sk.numpy(), sk1.numpy(), **TOL)
-        for i in range(nb):
-            dpi = torch.empty_like(ps[i])
-            run(gi, ps[i], dpi[w0 * P_:(L0 - w0) * P_])
-            _, ski = run(ge, ps[i], dpi, (up[i], dn[i]))
-            assert torch.equal(dp[i], dpi)
-            assert torch.equal(sk[i], ski)
+    np.testing.assert_allclose(dp.numpy(), jdp, **TOL)
+    np.testing.assert_allclose(sinks.numpy(), jks, **TOL)
 
 
 def test_window_geometry():
-    """The window fields of the one launch on a rank's window and of the
-    kernel's chain (:attr:`ShardedBoxAction.chain`, which no action runs):
-    the interior rows, then both edge strips with the interior as their
-    gap, over the rank's window at global origin ``r L0 - w0``, with the
-    halo width of the reference."""
+    """The window fields of the one launch on a rank's window: the slab's
+    rows over the rank's window at global origin ``r L0 - w0``, with the
+    halo width of the reference, reading the halos where a neighbour
+    holds them."""
     _, _, _, tb, tsp = _spaces("repressilator",
                                np.array([31, 7, 7, 99, 21, 99]), custom=True)
     p_box = _seeded_p(tsp).reshape(tsp.shape)
@@ -288,19 +215,8 @@ def test_window_geometry():
         assert sh.origin0 == r * L0 - w0
         g = sh.geom
         assert (g.origin0, g.out_lo, g.out_hi) == (r * L0 - w0, w0, w0 + L0)
-        assert g.gap[0] == g.gap[1]     # no gap
-        assert g.halo_rows == (w0, L0) and not g.leads and g.follows is None
-        gi, ge = sh.chain
-        assert (gi.origin0, gi.out_lo, gi.out_hi) == (r * L0 - w0, 2 * w0,
-                                                      L0)
-        assert (ge.origin0, ge.out_lo, ge.out_hi, ge.gap) == (
-            r * L0 - w0, w0, w0 + L0, (2 * w0, L0))
-        assert gi.halo_rows == ge.halo_rows == (w0, L0)
-        assert gi.leads and ge.follows is gi
-        assert ge.part_total == gi.nslots + ge.nslots
-        assert ge.ticket_total == gi.nblocks + ge.nblocks
-        assert ge.reads_halo == (r > 0, r < RANKS - 1)
-        assert not any(gi.reads_halo)
+        assert g.halo_rows == (w0, L0) and g.n_out == L0 * sh.plane
+        assert g.reads_halo == (r > 0, r < RANKS - 1)
         assert op.prop_fields.shape[1] == (L0 + 2 * w0) * sh.plane
         assert op.props.shape == sh.window_shape
         assert sh.comm_values_per_matvec() == 2 * w0 * sh.plane * (RANKS - 1)
@@ -312,8 +228,8 @@ def test_batched_action_takes_one_launch_on_the_window(synth, nb,
                                                        monkeypatch):
     """ShardedBoxAction.batched runs K9w in one launch on each rank's
     window after the exchange, where the slabs have an interior too: one
-    batched plain call, none of the chain's; dp bitwise each vector's K4
-    action, the sinks within TOL of its."""
+    batched plain call and no other; dp bitwise each vector's K4 action,
+    the sinks within TOL of its."""
     monkeypatch.setattr(bo, "USE_SYNTH_MASK", synth)
     _, _, _, tb, tsp = _spaces(
         "repressilator", np.array([31, 7, 7, 99, 21, 99]), custom=True)
@@ -325,13 +241,13 @@ def test_batched_action_takes_one_launch_on_the_window(synth, nb,
         op = pt.BoxOperator(tb.model, tsp, mesh=_LocalBatchMesh(
             r, P.reshape((nb,) + tuple(tsp.shape))))
         sh = op.sharded
-        assert sh.chain is not None
+        assert sh.L0 >= 2 * sh.w0
         lo = sh.origin0 + sh.w0
         loc = P[:, lo * sh.plane:(lo + sh.L0) * sh.plane].contiguous()
         n0 = dict(bk.KERNEL.plain_calls)
         dp, sk = op.action_batched(0.3, loc)
         assert bk.KERNEL.plain_calls[key] == n0[key] + 1
-        assert bk.KERNEL.plain_calls[key + "_chain"] == n0[key + "_chain"]
+        assert sum(bk.KERNEL.plain_calls.values()) == sum(n0.values()) + 1
         for i in range(nb):
             one = pt.BoxOperator(tb.model, tsp, mesh=_LocalMesh(
                 r, P[i].reshape(tsp.shape)))
