@@ -7,8 +7,9 @@ Phases (each check that fails ends the run with a nonzero exit):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; build (or
    load) every library from ``pacmensl_tpu_torch/csrc``, one ``nvcc``
-   each, all at once: the box kernel, the probes and the box kernel's two
-   ablation builds (phase 14); print the build times and each production
+   each, all at once: the box kernel, the probes, the box kernel's two
+   ablation builds (phase 14) and the fused BDF step's passes (phase 15);
+   print the build times and each production
    box instantiation's registers, static shared memory and spills
    (``ptxas``).
 2. Both modes of the kernel (mask-reading K1, synthesized-mask K3) vs
@@ -273,12 +274,31 @@ Phases (each check that fails ends the run with a nonzero exit):
     its plain version before it is timed (a mismatch fails the run); its
     launches are not counted for any path.  The phase's time is printed.
 
+15. The fused passes of a BDF step (``csrc/bdf_step.cu``, ``ops/
+    bdf_step.py``: predict, rhs, post, update) against the PyTorch
+    operations they replace (``BdfSolver._predict``, ``c a - psi``,
+    ``y_pred + d`` with ``_err_norm_dev``'s terms and norm,
+    ``_update_D``), bitwise in the int64 views, at q = 1..5 on hog1p_5d's
+    final box vector and hog1p_5d_sens's stacked vector (``BDF_SHAPES``);
+    a NaN and an Inf in either part of the action or of d set the flags
+    as ``vecops.isfinite`` does.  Then each pass timed with CUDA events
+    at the stacked vector at q = 3 beside its PyTorch operations and its
+    bound (each vector read or written once: q + 3, 3, 4 and 2q + 6 of
+    them).  Every solve of phases 4-13 that runs through an entry point
+    sets the passes' launch counters to 0 before it and checks after it
+    that BDF took them on every attempt: predict, rhs and post once per
+    error-norm read (``HostSync.BDFErrorNorm``, equal to
+    ``BDFFusedStep``) and update once per accepted step; any other
+    integrator launches none.
+
 The ``kernels`` record counts each kernel's launches in the paths' own
 solves only: K1 and K3 in phases 4, 5, 6, 9b, 10c (before the
 migration), 10e, 11a, 11b, 12e, 13a, 13b (before the migration), 13c
 (one card) and 13d (``entry()``), K4 in phases 7b, 7c, 13c and 13d
 (over all ranks), K5-K8 in phase 8's two entry points, K9 in phase 9b,
-K9w in phase 11e (over both ranks).
+K9w in phase 11e (over both ranks), the fused BDF step's passes in every
+solve of phases 4-13 through an entry point (its ``ms``, ``plain_ms`` and
+``bound_ms`` are one step's four passes at q = 3, phase 15).
 ``bound_ms`` is the
 compulsory bytes of each timed call over the H100's 3.35 TB/s (the larger
 bound: the float operations over its 34 TFLOP/s in float64 and 67 in
@@ -398,6 +418,13 @@ TR6_TPU_STATES, TR6_TPU_BOUNDS = 2303250, [82, 124, 6, 2, 10, 36]
 #: phase 13c: the scaling sweep's box edge less one (256^3 = 16.8M
 #: elements, the scale of the repressilator's final capacity)
 SWEEP_BOUND = 255
+#: phase 15: the fused BDF step's passes are checked at (box elements,
+#: sinks) of hog1p_5d's final box and of hog1p_5d_sens's stacked vector
+#: (p and the two sensitivities at its final box), and timed at the
+#: second at order BDF_TIMED_Q
+BDF_SHAPES = {"hog1p_5d": (94 * 42 * 4 * 42 * 63, 7),
+              "hog1p_5d_sens": (3 * 94 * 42 * 4 * 42 * 94, 21)}
+BDF_TIMED, BDF_TIMED_Q = "hog1p_5d_sens", 3
 #: where the entry points write their CSVs
 OUT_DIR = Path(__file__).resolve().parent / "_local" / "smoke"
 
@@ -2665,6 +2692,188 @@ def ablation_phase(smi, cases):
     return res
 
 
+def bdf_step_phase(dev, smi):
+    """Phase 15: the fused passes of a BDF step against their PyTorch
+    versions, bitwise, at both shapes and every order, the flags, and the
+    passes timed at the stacked vector; returns the ``kernels`` entry."""
+    import statistics
+
+    import torch
+    from pacmensl_tpu_torch.ops import bdf_step as bs
+    from pacmensl_tpu_torch.ops import vecops as vo
+    from pacmensl_tpu_torch.solvers import bdf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    solver = bdf.BdfSolver(lambda t, v: v)
+    err = [0.0]
+
+    def random(n, nc, scale=1.0):
+        """Normal entries times ``scale``, a tenth of them +0 and a tenth
+        -0, as a box vector's masked states and small differences give."""
+        def part(m):
+            x = torch.randn(m, dtype=torch.float64, device=dev,
+                            generator=gen) * scale
+            u = torch.rand(m, device=dev, generator=gen)
+            x[u < 0.1] = 0.0
+            x[(u >= 0.1) & (u < 0.2)] = -0.0
+            return x
+        return vo.FspVector(p=part(n), sinks=part(nc))
+
+    def same(label, got, want):
+        """Bitwise (the int64 views, so -0 against +0 counts)."""
+        for g, w in zip(got, want):
+            e = float((g - w).abs().max()) if g.numel() else 0.0
+            err[0] = max(err[0], e)
+            check(torch.equal(g.view(torch.int64), w.view(torch.int64)),
+                  f"15 {label}: not bitwise the PyTorch operations' (max "
+                  f"abs {e:.3e})")
+
+    def passes(D, q, a, d, S, out, flags):
+        """Each pass at order q against its PyTorch version; returns the
+        plain (y_pred, psi)."""
+        y = bs.predict(D, q, bdf._PSI[q], S, flags[1:])
+        y_pred, psi = bdf.BdfSolver._predict(D, q)
+        same(f"predict q={q}", y, y_pred)
+        same(f"predict q={q} psi", S, psi)
+        check(flags[1:].tolist() == [1.0, 1.0], f"15 predict q={q}: flags "
+                                                f"{flags[1:].tolist()}")
+        del y
+        c = float(0.37 / bdf._ALPHA[q])
+        same(f"rhs q={q}", bs.rhs(a, psi, c, flags[1]),
+             vo.sub(vo.scale(c, a), psi))
+        errc = float(bdf._ERRC[q])
+        y_new = bs.post(y_pred, d, errc, solver.atol, solver.rtol, out, S,
+                        flags[2])
+        e = vo.scale(errc, d)
+        same(f"post q={q} y_new", y_new, vo.add(y_pred, d))
+        same(f"post q={q} terms", S, vo.FspVector(
+            p=solver._err_terms(e.p, y_pred.p),
+            sinks=solver._err_terms(e.sinks, y_pred.sinks)))
+        solver._rms(S, out=flags[0])
+        same(f"post q={q} norm", [flags[:1]],
+             [solver._err_norm_dev(e, y_pred).reshape(1)])
+        check(flags[1:].tolist() == [1.0, 1.0], f"15 post q={q}: flags "
+                                                f"{flags[1:].tolist()}")
+        del e, y_new
+        rows = slice(0, q + 3)
+        keep = (D.p[rows].clone(), D.sinks[rows].clone())
+        bdf.BdfSolver._update_D(D, q, d)
+        want = (D.p[rows].clone(), D.sinks[rows].clone())
+        D.p[rows].copy_(keep[0])
+        D.sinks[rows].copy_(keep[1])
+        bs.update(D, q, d)
+        same(f"update q={q}", (D.p[rows], D.sinks[rows]), want)
+        D.p[rows].copy_(keep[0])
+        D.sinks[rows].copy_(keep[1])
+        return y_pred, psi
+
+    t0 = time.perf_counter()
+    for name, (n, nc) in BDF_SHAPES.items():
+        D = vo.basis_empty(vo.FspVector(
+            p=torch.empty(n, dtype=torch.float64, device=dev),
+            sinks=torch.empty(nc, dtype=torch.float64, device=dev)), bdf.ND)
+        for j in range(bdf.ND):
+            vo.basis_set(D, j, random(n, nc, 10.0 ** -j))
+        a, d = random(n, nc), random(n, nc, 1e-4)
+        S, out = (vo.FspVector(p=torch.empty_like(d.p),
+                               sinks=torch.empty_like(d.sinks))
+                  for _ in range(2))
+        flags = torch.zeros(3, dtype=torch.float64, device=dev)
+        for q in range(1, bdf.MAX_ORDER + 1):
+            passes(D, q, a, d, S, out, flags)
+        print(f"[15] {name} ({n} elements, {nc} sinks): predict, rhs, post "
+              f"and update at q = 1..{bdf.MAX_ORDER} bitwise their PyTorch "
+              f"versions", flush=True)
+        if name != BDF_TIMED:
+            del D, a, d, S, out
+            torch.cuda.empty_cache()
+    # a NaN and an Inf in the action (so the right-hand side) and in d
+    # (so the new state), in either part: the flag vecops.isfinite clears
+    n, nc = 1000003, 7
+    Ds = vo.basis_empty(random(n, nc), bdf.ND)
+    for j in range(bdf.ND):
+        vo.basis_set(Ds, j, random(n, nc, 10.0 ** -j))
+    fl = torch.zeros(3, dtype=torch.float64, device=dev)
+    for where in ("p", "sinks"):
+        for bad in (float("nan"), float("inf")):
+            for planted in ("rhs", "y_new"):
+                a1, d1 = random(n, nc), random(n, nc, 1e-4)
+                getattr(a1 if planted == "rhs" else d1, where)[
+                    n // 3 if where == "p" else 2] = bad
+                S1 = vo.FspVector(p=torch.empty_like(a1.p),
+                                  sinks=torch.empty_like(a1.sinks))
+                y1 = bs.predict(Ds, 2, bdf._PSI[2], S1, fl[1:])
+                r1 = bs.rhs(a1, S1, 0.5, fl[1])
+                want = [bool(vo.isfinite(vo.sub(vo.scale(0.5, a1), S1))),
+                        bool(vo.isfinite(vo.add(y1, d1)))]
+                bs.post(y1, d1, 0.25, 1e-14, 1e-6, r1, S1, fl[2])
+                got = [v == 1.0 for v in fl[1:].tolist()]
+                check(got == want == [planted != "rhs", planted != "y_new"],
+                      f"15 flags: {bad} in {planted}'s {where}: {got}, "
+                      f"vecops.isfinite {want}")
+    del Ds, a1, d1, S1, y1, r1
+    print(f"[15] a NaN and an Inf in either part of the action or of d: "
+          f"the flags are vecops.isfinite's; checks "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # each pass alone at the stacked vector, order BDF_TIMED_Q, beside its
+    # PyTorch operations; the compulsory bytes: each vector read and each
+    # written once (predict q + 3, rhs 3, post 4, update 2q + 6)
+    q = BDF_TIMED_Q
+    n, nc = BDF_SHAPES[BDF_TIMED]
+    y_pred, psi = bdf.BdfSolver._predict(D, q)
+    c, errc = float(0.37 / bdf._ALPHA[q]), float(bdf._ERRC[q])
+
+    def plain_post():
+        e = vo.scale(errc, d)
+        return vo.add(y_pred, d), vo.FspVector(
+            p=solver._err_terms(e.p, y_pred.p),
+            sinks=solver._err_terms(e.sinks, y_pred.sinks))
+    cases = [
+        ("predict", q + 3, 3 * q - 1,
+         lambda: bs.predict(D, q, bdf._PSI[q], S, flags[1:]),
+         lambda: bdf.BdfSolver._predict(D, q)),
+        ("rhs", 3, 2, lambda: bs.rhs(a, psi, c, flags[1]),
+         lambda: vo.sub(vo.scale(c, a), psi)),
+        ("post", 4, 6, lambda: bs.post(y_pred, d, errc, solver.atol,
+                                       solver.rtol, out, S, flags[2]),
+         plain_post),
+        # the timed updates change D's values, not the bytes they move
+        ("update", 2 * q + 6, q + 2, lambda: bs.update(D, q, d),
+         lambda: bdf.BdfSolver._update_D(D, q, d))]
+    per = 8 * (n + nc)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+    for label, vectors, ops, run, plain in cases:
+        fused = [time_ms(run, reps=20) for _ in range(3)]
+        ref = [time_ms(plain, reps=20) for _ in range(3)]
+        ms, ref_ms = statistics.median(fused), statistics.median(ref)
+        b_ms, by = bound(vectors * per, ops * (n + nc))
+        total["ms"] += ms
+        total["plain_ms"] += ref_ms
+        total["bytes"] += vectors * per
+        total["flops"] += ops * (n + nc)
+        print(f"[15] {label} q={q} at {BDF_TIMED} ({n} elements): "
+              + " / ".join(f"{v * 1e3:.1f}" for v in fused) + " us, bound "
+              f"{b_ms * 1e3:.1f} us ({vectors} vectors, by {by}), "
+              f"{100 * b_ms / ms:.1f}% of {HBM_RATE / 1e12:.2f} TB/s; "
+              f"PyTorch operations " + " / ".join(f"{v * 1e3:.1f}"
+                                                  for v in ref)
+              + f" us; {smi}", flush=True)
+    b_ms, by = bound(total["bytes"], total["flops"])
+    print(f"[15] one step's passes at q={q}: {total['ms'] * 1e3:.1f} us, "
+          f"bound {b_ms * 1e3:.1f} us, {100 * b_ms / total['ms']:.1f}%; "
+          f"PyTorch operations {total['plain_ms'] * 1e3:.1f} us", flush=True)
+    del D, a, d, S, out, y_pred, psi
+    torch.cuda.empty_cache()
+    return {"name": "bdf_step", "route": "cuda",
+            "source": "pacmensl_tpu_torch/csrc/bdf_step.cu",
+            "replaces": "pacmensl_tpu/solvers/bdf.py:226",
+            "max_abs_err": err[0], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
+
+
 def main():
     import numpy as np
     import torch
@@ -2696,12 +2905,14 @@ def main():
     # builds of the box kernel (phase 14) too
     from concurrent.futures import ThreadPoolExecutor
     from pacmensl_tpu_torch.ops import ablation
+    from pacmensl_tpu_torch.ops import bdf_step as bs
     from pacmensl_tpu_torch.ops import probes as pr
     from pacmensl_tpu_torch.ops.cuda_build import NVCC_FLAGS
     t0 = time.perf_counter()
     libs = {"box kernel": bk.KERNEL, "probe kernels": pr.PROBES,
             "box kernel, no-tail build": ablation.NO_TAIL,
-            "box kernel, zero-coords build": ablation.ZERO_COORDS}
+            "box kernel, zero-coords build": ablation.ZERO_COORDS,
+            "BDF step passes": bs.KERNELS}
     with ThreadPoolExecutor(len(libs)) as ex:
         for f in [ex.submit(lib.load) for lib in libs.values()]:
             f.result()
@@ -2964,11 +3175,15 @@ def main():
         s.set_initial_distribution(bundle.x0, bundle.p0)
         return s
 
+    #: the fused BDF step's launches in every solve of run_entry, by pass
+    bdf_launches = dict.fromkeys(bs.NAMES, 0)
+
     def run_entry(phase, label, go, tol, mass_tol, kernel=True,
                   neg_tol=lambda steps: 1.0e-12):
         """One solve through an entry point, ``go()`` returning
         ``(solver, distribution, wall)``, with the counters set to 0 just
-        before it; prints and checks its output; returns (solver,
+        before it; prints and checks its output and the fused BDF step's
+        launches (adding them to ``bdf_launches``); returns (solver,
         distribution, launches, wall).  ``kernel=False``: a
         compressed-backend solve, which launches no box kernel.
         ``neg_tol(steps)``: how far below 0 an entry of p may lie after
@@ -2977,9 +3192,11 @@ def main():
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
         bk.KERNEL.reset_counts()
+        bs.KERNELS.reset_counts()
         s, d, wall = go()
         torch.cuda.synchronize()
         launches = dict(bk.KERNEL.launches)
+        fused = dict(bs.KERNELS.launches)
         plain = dict(bk.KERNEL.plain_cuda_calls)
         peak = torch.cuda.max_memory_allocated(dev)
         ev = s.get_event_log().events
@@ -3029,6 +3246,20 @@ def main():
               flush=True)
         check((sum(launches.values()) > 0) == kernel,
               f"{label}: kernel launches {launches}")
+        # BDF on the card takes the fused passes on every attempt (one
+        # error-norm read each): predict, rhs and post once per attempt,
+        # update once per accepted step; any other integrator none
+        attempts = (ev["HostSync.BDFErrorNorm"].count
+                    if "HostSync.BDFErrorNorm" in ev else 0)
+        n_fused = ev["BDFFusedStep"].count if "BDFFusedStep" in ev else 0
+        print(f"[{phase}] {label}: BDF attempts {attempts}, BDFFusedStep "
+              f"{n_fused}, fused step launches {fused}", flush=True)
+        check(fused["predict"] == fused["rhs"] == fused["post"] == attempts
+              == n_fused and fused["update"] == (steps if attempts else 0),
+              f"{label}: fused step launches {fused} against {attempts} "
+              f"attempts, {n_fused} BDFFusedStep, {steps} steps")
+        for k, v in fused.items():
+            bdf_launches[k] += v
         check(sum(plain.values()) == 0,
               f"{label}: the plain versions ran {plain} times on CUDA")
         return s, d, launches, wall
@@ -3134,11 +3365,9 @@ def main():
           "hog1p_5d did not run the BDF integrator")
     check(launch5["synth"] > 0, "hog1p_5d launched no K3 kernel")
     ev = s.get_event_log().events
-    n_solves = (ev["ODESteps"].count + ev["ODEStepsRejected"].count
-                + ev["ODESolve"].count)
-    print(f"[5] GMRES iterations {ev['RHSEvaluation'].count - n_solves} "
-          f"(RHS evaluations less one per step and one per epoch)",
-          flush=True)
+    attempts = ev["HostSync.BDFErrorNorm"].count
+    print(f"[5] GMRES matvecs {ev['RHSEvaluation'].count - attempts} "
+          f"(RHS evaluations less one per step attempt)", flush=True)
     tables(5, "hog1p_5d final operator", s._operator)
     final_operator(5, "hog1p_5d", s, HOG_T_FINAL)
     keep = {}
@@ -3527,6 +3756,14 @@ def main():
     print(f"[clock] phase 14 took {time.perf_counter() - t14:.1f} s",
           flush=True)
 
+    # --------------------------------------------------------- phase 15
+    clock(15)
+    bdf15 = bdf_step_phase(dev, smi)
+    bdf15["launches"] = sum(bdf_launches.values())
+    print(f"[15] fused step launches in the solves above {bdf_launches}",
+          flush=True)
+    check(all(bdf_launches.values()), "no solve took the fused BDF step")
+
     paths = (launch4, launch5, launch6, launch9, launch10c, launch10e,
              launch11a, launch11b, launch12, launch13a, launch13b,
              launch13c, launch13d)
@@ -3573,7 +3810,8 @@ def main():
          "max_abs_err": max_err["batched_sharded"],
          "ms": k9w["ms"], "plain_ms": k9w["plain_ms"],
          "bound_ms": k9w["bound"][0], "bound_by": k9w["bound"][1],
-         "library_ms": k9w["library_ms"]}] + probe_entries}), flush=True)
+         "library_ms": k9w["library_ms"]}, bdf15] + probe_entries}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,12 +8,18 @@ arithmetic is the reference package's: the same target
 ``max(tol * |b|, atol)``, the rotation denominator ``sqrt(a^2 + b^2)``,
 the residual of the last cycle taken from the rotations, and only Arnoldi
 matvecs counted in ``n_matvecs`` (the residual matvec that opens each
-cycle is not).
+cycle is not).  ``x0=None`` is the zero vector, as SPGMR's zero guess in
+CVODE: the first cycle's residual is then ``b`` itself, so it applies no
+map and takes no residual norm (counter ``GMRESZeroGuess``, one such
+cycle).  Where ``A 0`` is +0 in every entry, as for BDF's corrector map
+``v + s A v`` (``0 + s A 0`` is +0), ``b - A 0`` is ``b`` bit for bit and
+the solution is bitwise that of an explicit zero ``x0``.
 
 The loop runs on the host; vectors stay on their device.  Host syncs
 (each marked ``sync`` below, spans ``HostSync.<site>``): the norm of
-``b`` once (``GMRESNorm``), the residual norm once per restart cycle
-(``GMRESResidual``), and once per Arnoldi iteration the new Hessenberg
+``b`` once (``GMRESNorm``), the residual norm once per restart cycle that
+applied the map to its start (``GMRESResidual``), and once per Arnoldi
+iteration the new Hessenberg
 column (``GMRESColumn``: the dots ``h_ij`` stay on the device through the
 orthogonalization and come back with the norm in one copy).  The Givens
 rotations and the back-substitution run on the host in float64.  Spans:
@@ -25,12 +31,14 @@ sync (:func:`_arnoldi_step`): the map of ``V[j]``, Gram-Schmidt and the
 norm, the column into a static ``[m + 1]`` buffer, and the normalisation
 into ``V[j + 1]`` by the device scalar ``1 / where(h > 0, h, 1)`` (after
 the span), which rounds as a division on the host would.  The linear map
-is a callable, or a map that can also apply itself into a given output
-with its step-varying values held on the device (``apply_into(v, out)``,
-``capture_key()``; BDF's :class:`~.box_operator.ShiftedAction` over a box
-operator or a box sensitivity operator, without a mesh), which writes
-``A V[j]`` straight into ``V[j + 1]``, where the iteration then
-orthogonalizes and normalizes it in place.  For such a map on a CUDA
+is a callable, whose ``A V[j]`` is copied into ``V[j + 1]``, or a map
+that can also apply itself into a given output with its step-varying
+values held on the device (``apply_into(v, out)``, ``capture_key()``;
+BDF's :class:`~.box_operator.ShiftedAction` over a box operator or a box
+sensitivity operator, without a mesh), which writes ``A V[j]`` straight
+into ``V[j + 1]``.  Either way the iteration orthogonalizes and
+normalizes it in place there, so both run their reductions on the same
+storage and give the same bits.  For such a map on a CUDA
 device :class:`ArnoldiGraphs` captures each iteration ``j`` once as a
 CUDA graph, the first time it is reached for a basis storage, and replays
 it after (spans ``GMRESCapture``, ``GMRESReplay``); the column is read at
@@ -48,7 +56,8 @@ import numpy as np
 import torch
 
 from ..sys.events import (EVT_GMRES, EVT_GMRES_CAPTURE, EVT_GMRES_REPLAY,
-                          EVT_ORTHO, deferred, span)
+                          EVT_GMRES_ZERO_GUESS, EVT_ORTHO, count, deferred,
+                          span)
 from . import vecops as vo
 
 #: replay the Arnoldi iterations of a capturable map from CUDA graphs on a
@@ -92,13 +101,13 @@ def _orthogonalize(w: vo.FspVector, V: vo.FspBasis, j: int) -> list:
 
 
 def _mapped(A, V: vo.FspBasis, j: int) -> vo.FspVector:
-    """``A V[j]``: a capturable map's into ``V[j + 1]``, a callable's as
-    it returns it."""
-    v = vo.basis_get(V, j)
-    if not hasattr(A, "apply_into"):
-        return A(v)
-    w = vo.basis_get(V, j + 1)
-    A.apply_into(v, w)
+    """``A V[j]`` in ``V[j + 1]``: a capturable map's written there, a
+    callable's copied there."""
+    v, w = vo.basis_get(V, j), vo.basis_get(V, j + 1)
+    if hasattr(A, "apply_into"):
+        A.apply_into(v, w)
+    else:
+        vo.basis_set(V, j + 1, A(v))
     return w
 
 
@@ -193,7 +202,7 @@ class ArnoldiGraphs:
 
 def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
           b: vo.FspVector,
-          x0: vo.FspVector,
+          x0: Optional[vo.FspVector] = None,
           *,
           restart: int = 30,
           tol: float = 1.0e-10,
@@ -201,8 +210,9 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
           max_restarts: int = 40,
           basis: Optional[vo.FspBasis] = None,
           graphs: Optional[ArnoldiGraphs] = None) -> GmresResult:
-    """Solve ``A x = b`` for a linear map ``apply_A``.  ``basis`` is
-    optional storage for ``restart + 1`` vectors shaped like ``b``;
+    """Solve ``A x = b`` for a linear map ``apply_A`` from ``x0`` (None:
+    the zero vector).  ``basis`` is optional storage for ``restart + 1``
+    vectors shaped like ``b``;
     ``graphs`` keeps the CUDA graphs of a capturable map's iterations
     over it."""
     m = int(restart)
@@ -222,9 +232,13 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
         target = np.maximum(np.float64(tol) * bnorm, np.float64(atol))
         x, rnorm, nmv, it = x0, np.float64(np.inf), 0, 0
         while rnorm > target and it < max_restarts:
-            r = vo.sub(b, apply_A(x))
-            beta = np.float64(vo.to_host(vo.norm2(r),
-                                         "GMRESResidual"))    # sync
+            if x is None:           # the zero vector: r = b, |r| = |b|
+                count(EVT_GMRES_ZERO_GUESS, 1)
+                r, beta = b, bnorm
+            else:
+                r = vo.sub(b, apply_A(x))
+                beta = np.float64(vo.to_host(vo.norm2(r),
+                                             "GMRESResidual"))    # sync
             safe_beta = beta if beta > 0 else np.float64(1.0)
             torch.mul(r.p, float(1.0 / safe_beta), out=V.p[0])
             torch.mul(r.sinks, float(1.0 / safe_beta), out=V.sinks[0])
@@ -269,7 +283,11 @@ def gmres(apply_A: Callable[[vo.FspVector], vo.FspVector],
             for i in range(m - 1, -1, -1):
                 yk[i] = (gk[i] - np.dot(Hk[i, :], yk)) / Hk[i, i]
             if k:
-                x = vo.add(x, vo.basis_lincomb(torch.from_numpy(yk[:k]), V))
+                dx = vo.basis_lincomb(torch.from_numpy(yk[:k]), V)
+                # from the zero vector: 0 + dx, which turns -0 into +0
+                x = vo.plus_zero(dx) if x is None else vo.add(x, dx)
             rnorm, it = res, it + 1
+    if x is None:
+        x = vo.zeros_like(b)
     return GmresResult(x=x, res_norm=float(rnorm), n_matvecs=nmv,
                        converged=bool(rnorm <= target))

@@ -54,6 +54,14 @@ def sum_ranks(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def min_ranks(t: torch.Tensor) -> torch.Tensor:
+    """Local flags (1 or 0, float), in place their minimum over the
+    ranks."""
+    if _MESH is not None:
+        _MESH.all_reduce(t, op="min")
+    return t
+
+
 def to_host(x: torch.Tensor, site: str):
     """``x`` on the host, a Python number for a 0-d tensor and a numpy
     array otherwise: a copy that waits for the work queued before it,
@@ -96,6 +104,14 @@ def sub(x: FspVector, y: FspVector) -> FspVector:
     return FspVector(p=x.p - y.p, sinks=x.sinks - y.sinks)
 
 
+def plus_zero(x: FspVector) -> FspVector:
+    """``x`` with 0 added in place, as adding it to a zero vector gives
+    (-0 becomes +0, every other entry stays)."""
+    x.p.add_(0.0)
+    x.sinks.add_(0.0)
+    return x
+
+
 def zeros_like(x: FspVector) -> FspVector:
     return FspVector(p=torch.zeros_like(x.p), sinks=torch.zeros_like(x.sinks))
 
@@ -104,7 +120,7 @@ def isfinite(x: FspVector) -> torch.Tensor:
     """Every entry of both parts finite (a 0-d bool device tensor)."""
     ok = torch.isfinite(x.p).all()
     if _MESH is not None:
-        ok = _MESH.all_reduce(ok.to(torch.float64), op="min") > 0
+        ok = min_ranks(ok.to(torch.float64)) > 0
     return ok & torch.isfinite(x.sinks).all()
 
 

@@ -18,7 +18,19 @@ norm with the finiteness flags (``HostSync.BDFErrorNorm``), one for the
 sinks in the stop-check of an accepted step (``HostSync.StopCheck``), and
 one for the two neighbouring-order error norms when the order adapts
 (``HostSync.BDFOrderNorms``); once per solve the first step's norm
-(``HostSync.BDFStartNorm``).
+(``HostSync.BDFStartNorm``).  GMRES starts each step from the zero vector
+(``x0=None``), so its first cycle applies no matvec.
+
+Where the vectors are float64 on one CUDA device
+(:func:`~..ops.bdf_step.fusable`; in a sharded solve each rank's parts),
+the step's arithmetic outside GMRES runs as four fused CUDA passes
+(:mod:`..ops.bdf_step`: the prediction, the corrector's right-hand side,
+the new state with the error norm's terms, the difference array's
+update), with one persistent scratch vector beside ``D`` and the flags
+written on the device, reduced over the ranks with the error norm and
+read with it; each such step counts one ``BDFFusedStep``.  Elsewhere the same arithmetic
+runs as PyTorch operations (:meth:`BdfSolver._predict`, ``_update_D``,
+``_err_norm_dev``), which give the kernels' bits.
 
 Where the matvec is the action of a box operator without a mesh, or of a
 sensitivity operator over box operators without a mesh (the stacked
@@ -41,9 +53,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import bdf_step
 from ..ops import vecops as vo
 from ..ops.box_operator import ShiftedAction
 from ..ops.gmres import ArnoldiGraphs, gmres
+from ..sys.events import EVT_BDF_FUSED, count
 from .base import (MatVec, StopCheck, SolveResult, SolveStats, StepRing,
                    STATUS_OK, STATUS_FSP_STOP, STATUS_FAILURE,
                    host_excess, wrap_stop_check)
@@ -55,6 +69,9 @@ _KAPPA = np.array([0.0, -0.1850, -1 / 9, -0.0823, -0.0415, 0.0])
 _GAMMA = np.concatenate([[0.0], np.cumsum(1.0 / np.arange(1, MAX_ORDER + 1))])
 _ALPHA = (1 - _KAPPA) * _GAMMA
 _ERRC = _KAPPA * _GAMMA + 1.0 / np.arange(1, MAX_ORDER + 2)
+#: psi's coefficients gamma_j / alpha_q, j = 1..q, of each order q
+_PSI = [None] + [[float(_GAMMA[j] / _ALPHA[q]) for j in range(1, q + 1)]
+                 for q in range(1, MAX_ORDER + 1)]
 
 MIN_FACTOR, MAX_FACTOR, SAFETY = 0.2, 10.0, 0.9
 #: consecutive error-test/linear-solve failures before declaring a fatal
@@ -119,6 +136,11 @@ class BdfSolver:
         self.stop_check = wrap_stop_check(stop_check)
         self._D: Optional[vo.FspBasis] = None
         self._V: Optional[vo.FspBasis] = None
+        #: the fused step's scratch vector (psi, then the error norm's
+        #: terms) and its [error norm, rhs finite, y_new finite]
+        self._S: Optional[vo.FspVector] = None
+        self._stat: Optional[torch.Tensor] = None
+        self._fused = False
         self._shifted = _shifted_action(matvec)
         self._graphs = (ArnoldiGraphs() if self._shifted is not None
                         else None)
@@ -126,28 +148,43 @@ class BdfSolver:
     # -------------------------------------------------------------- util
     def _storage(self, y: vo.FspVector) -> None:
         """Difference array and GMRES basis, allocated once per vector
-        shape and device."""
+        shape and device, and the fused step's scratch where it runs."""
         D = self._D
         if (D is None or D.p.shape[1:] != y.p.shape
                 or D.sinks.shape[1:] != y.sinks.shape
                 or D.p.device != y.p.device):
-            self._D = self._V = None     # free before allocating anew
+            # free before allocating anew
+            self._D = self._V = self._S = self._stat = None
             if self._graphs is not None:
                 self._graphs.reset()
             self._D = vo.stack_zeros(y, ND)
             self._V = vo.basis_empty(y, self.gmres_restart + 1)
+        self._fused = bdf_step.fusable(y)
+        if self._fused and self._S is None:
+            self._S = vo.FspVector(p=torch.empty_like(y.p),
+                                   sinks=torch.empty_like(y.sinks))
+            self._stat = torch.empty(3, dtype=y.p.dtype, device=y.p.device)
+
+    def _err_terms(self, e: torch.Tensor, yref: torch.Tensor):
+        """(e / (atol + rtol |yref|))^2, elementwise."""
+        return (e / (self.atol + self.rtol * torch.abs(yref))) ** 2
+
+    @staticmethod
+    def _rms(sq: vo.FspVector, out=None) -> torch.Tensor:
+        """sqrt of the sum of both parts of ``sq`` (the ``p`` sum over every
+        rank in a sharded solve) over the total element count (box
+        capacity plus sinks): a 0-d device tensor, into ``out`` where
+        given."""
+        tot = vo.sum_ranks(torch.sum(sq.p)) + torch.sum(sq.sinks)
+        return torch.sqrt(tot / vo.numel(sq), out=out)
 
     def _err_norm_dev(self, err: vo.FspVector,
                       scale_ref: vo.FspVector) -> torch.Tensor:
-        """RMS of err / (atol + rtol |ref|) over both parts, divided by the
-        total element count (box capacity plus sinks; the ``p`` sum over
-        every rank in a sharded solve): a 0-d device tensor."""
-        def part(e, yref):
-            return torch.sum((e / (self.atol + self.rtol * torch.abs(yref)))
-                             ** 2)
-        tot = (vo.sum_ranks(part(err.p, scale_ref.p))
-               + part(err.sinks, scale_ref.sinks))
-        return torch.sqrt(tot / vo.numel(err))
+        """RMS of err / (atol + rtol |ref|) over both parts: a 0-d device
+        tensor."""
+        return self._rms(vo.FspVector(
+            p=self._err_terms(err.p, scale_ref.p),
+            sinks=self._err_terms(err.sinks, scale_ref.sinks)))
 
     # ------------------------------------------------------- D updates
     @staticmethod
@@ -162,13 +199,13 @@ class BdfSolver:
     @staticmethod
     def _predict(D: vo.FspBasis, order: int):
         """(y_pred, psi) for the current order."""
-        q = order
+        q, g = order, _PSI[order]
         y_pred = vo.basis_get(D, 0)
         for i in range(1, q + 1):
             y_pred = vo.add(y_pred, vo.basis_get(D, i))
-        psi = vo.scale(_GAMMA[1] / _ALPHA[q], vo.basis_get(D, 1))
+        psi = vo.scale(g[0], vo.basis_get(D, 1))
         for i in range(2, q + 1):
-            psi = vo.axpy(_GAMMA[i] / _ALPHA[q], vo.basis_get(D, i), psi)
+            psi = vo.axpy(g[i - 1], vo.basis_get(D, i), psi)
         return y_pred, psi
 
     @staticmethod
@@ -260,8 +297,6 @@ class BdfSolver:
                 t_mv = float(t_new)
                 order_step = order
 
-                y_pred, psi = self._predict(D, order)
-
                 # linear solve: (I - c A) d = c A y_pred - psi
                 if self._shifted is not None:
                     apply_M = self._shifted
@@ -270,21 +305,40 @@ class BdfSolver:
                     def apply_M(v):
                         return vo.axpy(-float(c), mv(t_mv, v), v)
 
-                rhs = vo.sub(vo.scale(float(c), mv(t_mv, y_pred)), psi)
-                sol = gmres(apply_M, rhs, vo.zeros_like(rhs),
+                S, stat = self._S, self._stat
+                if self._fused:
+                    # psi into the scratch, then the error norm's terms
+                    y_pred = bdf_step.predict(D, order, _PSI[order], S,
+                                              stat[1:])
+                    rhs = bdf_step.rhs(mv(t_mv, y_pred), S, float(c),
+                                       stat[1])
+                else:
+                    y_pred, psi = self._predict(D, order)
+                    rhs = vo.sub(vo.scale(float(c), mv(t_mv, y_pred)), psi)
+                    del psi
+                sol = gmres(apply_M, rhs, None,
                             restart=self.gmres_restart, tol=self.gmres_tol,
                             atol=self.atol, basis=V, graphs=self._graphs)
                 d = sol.x
                 n_mv += sol.n_matvecs + 1
-                y_new = vo.add(y_pred, d)
-
-                err_dev = self._err_norm_dev(
-                    vo.scale(float(_ERRC[order]), d), y_pred)
+                errc = float(_ERRC[order])
                 # a non-finite rhs means the user matvec failed: propagate
-                # at once (GMRES would return x0 unchanged on a NaN rhs)
-                flags = vo.to_host(torch.stack([
-                    err_dev, vo.isfinite(rhs).to(err_dev.dtype),
-                    vo.isfinite(y_new).to(err_dev.dtype)]), "BDFErrorNorm")
+                # at once (GMRES returns the zero vector on a NaN rhs)
+                if self._fused:
+                    # y_new over the rhs, which GMRES is done with
+                    y_new = bdf_step.post(y_pred, d, errc, self.atol,
+                                          self.rtol, rhs, S, stat[2])
+                    self._rms(S, out=stat[0])
+                    vo.min_ranks(stat[1:])
+                    flags = vo.to_host(stat, "BDFErrorNorm")
+                    count(EVT_BDF_FUSED, 1)
+                else:
+                    y_new = vo.add(y_pred, d)
+                    err_dev = self._err_norm_dev(vo.scale(errc, d), y_pred)
+                    flags = vo.to_host(torch.stack([
+                        err_dev, vo.isfinite(rhs).to(err_dev.dtype),
+                        vo.isfinite(y_new).to(err_dev.dtype)]),
+                        "BDFErrorNorm")
                 err_norm = flags[0]                             # sync
                 rhs_finite, y_finite = bool(flags[1]), bool(flags[2])
                 healthy = y_finite and np.isfinite(err_norm) and rhs_finite
@@ -304,7 +358,10 @@ class BdfSolver:
                 advance = accept and not violated
 
                 if advance:
-                    self._update_D(D, order, d)
+                    if self._fused:
+                        bdf_step.update(D, order, d)
+                    else:
+                        self._update_D(D, order, d)
                     n_eq_new = n_eq + 1
                     if n_eq_new >= order + 1:
                         order, factor = self._adapt_order(
@@ -344,7 +401,7 @@ class BdfSolver:
                 if (not accept) and h_new < min_step and status == STATUS_OK:
                     status = STATUS_FAILURE
                 t, h = t_out, h_new
-                del y_pred, psi, rhs, sol, d, y_new
+                del y_pred, rhs, sol, d, y_new
 
         if status == STATUS_OK and stop == 1:
             status = STATUS_FSP_STOP

@@ -51,6 +51,10 @@ EVT_ORTHO = "GMRESOrthogonalize"
 #: one capture of an Arnoldi iteration as a CUDA graph, and one replay
 EVT_GMRES_CAPTURE = "GMRESCapture"
 EVT_GMRES_REPLAY = "GMRESReplay"
+#: counters: one GMRES restart cycle opened from the zero vector, without
+#: a matvec; one BDF step attempt whose arithmetic took the fused passes
+EVT_GMRES_ZERO_GUESS = "GMRESZeroGuess"
+EVT_BDF_FUSED = "BDFFusedStep"
 #: prefix of the blocking device-to-host reads, one name per site
 #: (:func:`~..ops.vecops.to_host`)
 EVT_HOST_SYNC = "HostSync."

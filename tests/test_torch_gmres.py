@@ -4,7 +4,9 @@ corrector matrix ``I - c A`` of the box operator, a right-hand side made
 with numpy from a seed.  Both run in float64 with the same restarts; the
 solutions agree to 1e-12 with the same matvec count and convergence flag
 (the Arnoldi sums are taken in another order, so the last bits differ).
-The capturable map BDF hands GMRES gives the callable's bits."""
+The capturable map BDF hands GMRES gives the callable's bits, and the
+zero guess (``x0=None``) an explicit zero vector's with one matvec and
+one residual read fewer."""
 import numpy as np
 import pytest
 
@@ -23,6 +25,7 @@ from pacmensl_tpu_torch.ops import vecops as tvo  # noqa: E402
 from pacmensl_tpu_torch.ops.box_operator import ShiftedAction  # noqa: E402
 from pacmensl_tpu_torch.ops.gmres import ArnoldiGraphs  # noqa: E402
 from pacmensl_tpu_torch.ops.gmres import gmres as tgmres  # noqa: E402
+from pacmensl_tpu_torch.sys import events  # noqa: E402
 
 BOUNDS = np.array([12, 9, 40])
 C = 0.75
@@ -123,3 +126,98 @@ def test_gmres_capturable_map_is_bitwise_the_callable(
         assert torch.equal(got.x.sinks, want.x.sinks)
         assert (got.n_matvecs, got.converged, got.res_norm) == (
             want.n_matvecs, want.converged, want.res_norm)
+
+
+def _counting(top):
+    """The corrector map as a callable, and its list of calls."""
+    calls = []
+
+    def apply(v):
+        calls.append(1)
+        return tvo.axpy(-C, top.action(0.0, v), v)
+    return apply, calls
+
+
+def _run(apply, b, x0, **kw):
+    log = events.EventLog()
+    with events.active(log):
+        res = tgmres(apply, b, x0, **kw)
+    return res, {k: v.count for k, v in log.events.items()}
+
+
+@pytest.mark.parametrize("restart,tol,max_restarts,seed", [
+    (16, 1e-10, 40, 0),
+    (4, 1e-12, 40, 1),         # several restart cycles
+    (2, 1e-14, 1, 2),
+])
+def test_gmres_zero_guess_is_bitwise_the_zero_vector(
+        toggle_ops, restart, tol, max_restarts, seed):
+    """``x0=None`` (SPGMR's zero guess) gives the solution of an explicit
+    zero ``x0`` bit for bit, with the same matvecs, residual and
+    convergence, on the callable and on the capturable map; its first
+    cycle applies no map and reads no residual norm."""
+    _, top = toggle_ops
+    p, sk = _rhs(top.space.mask.numpy(), top.num_constraints, seed)
+    b = tvo.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                      sinks=torch.as_tensor(sk))
+    kw = dict(restart=restart, tol=tol, max_restarts=max_restarts)
+    apply, calls = _counting(top)
+    want, nw = _run(apply, b, tvo.zeros_like(b), **kw)
+    n_want = len(calls)
+    del calls[:]
+    got, ng = _run(apply, b, None, **kw)
+    assert torch.equal(got.x.p, want.x.p)
+    assert torch.equal(got.x.sinks, want.x.sinks)
+    assert torch.equal(torch.signbit(got.x.p), torch.signbit(want.x.p))
+    assert (got.n_matvecs, got.converged, got.res_norm) == (
+        want.n_matvecs, want.converged, want.res_norm)
+    assert len(calls) == n_want - 1
+    assert ng.get("HostSync.GMRESResidual", 0) == (
+        nw["HostSync.GMRESResidual"] - 1)
+    assert ng["GMRESZeroGuess"] == 1 and "GMRESZeroGuess" not in nw
+    shifted = ShiftedAction(top)
+    shifted.set(0.0, -C)
+    for graphs in (None, ArnoldiGraphs()):
+        m = tgmres(shifted, b, None, graphs=graphs, **kw)
+        assert torch.equal(m.x.p, want.x.p)
+        assert torch.equal(m.x.sinks, want.x.sinks)
+        assert (m.n_matvecs, m.converged, m.res_norm) == (
+            want.n_matvecs, want.converged, want.res_norm)
+
+
+def test_gmres_nonzero_guess_applies_the_map_each_cycle(toggle_ops):
+    """With a guess other than None every cycle opens with the residual
+    matvec and its norm: one call of the map beyond the Arnoldi
+    iterations and one ``HostSync.GMRESResidual`` a cycle, no
+    ``GMRESZeroGuess``; the solution is the same to rounding."""
+    _, top = toggle_ops
+    p, sk = _rhs(top.space.mask.numpy(), top.num_constraints, 3)
+    b = tvo.FspVector(p=torch.as_tensor(p.reshape(-1)),
+                      sinks=torch.as_tensor(sk))
+    rng = np.random.default_rng(4)
+    x0 = tvo.FspVector(
+        p=torch.as_tensor(rng.standard_normal(b.p.shape)) * 1e-3
+        * top.space.mask.reshape(-1),
+        sinks=torch.as_tensor(rng.standard_normal(b.sinks.shape)) * 1e-3)
+    apply, calls = _counting(top)
+    got, n = _run(apply, b, x0, restart=4, tol=1e-12)
+    cycles = n["HostSync.GMRESResidual"]
+    assert cycles > 1 and "GMRESZeroGuess" not in n
+    assert len(calls) == got.n_matvecs + cycles
+    ref, _ = _run(apply, b, None, restart=4, tol=1e-12)
+    assert got.converged and ref.converged
+    np.testing.assert_allclose(got.x.p.numpy(), ref.x.p.numpy(), rtol=0,
+                               atol=1e-10)
+
+
+def test_gmres_zero_guess_nan_rhs_returns_zeros(toggle_ops):
+    """A non-finite right-hand side from the zero guess ends the solve at
+    once, unconverged, with the zero vector returned and no map applied."""
+    _, top = toggle_ops
+    b = top.zero_vector()
+    b.p[0] = float("nan")
+    calls = []
+    res = tgmres(lambda v: calls.append(1) or v, b, None)
+    assert not res.converged and res.n_matvecs == 0 and not calls
+    assert torch.equal(res.x.p, torch.zeros_like(b.p))
+    assert torch.equal(res.x.sinks, torch.zeros_like(b.sinks))

@@ -43,9 +43,12 @@ def solved():
 def test_actions_are_rhs_evaluations_plus_gmres_cycles(solved):
     _, _, n = solved
     assert n["ODESolve"] > 1                      # the solve expanded
-    cycles = n["HostSync.GMRESResidual"]
-    assert cycles >= n["GMRES"]
-    assert n["OperatorAction"] == n["RHSEvaluation"] + cycles
+    # each GMRES solve's first cycle opens from the zero vector without a
+    # matvec; a later cycle's residual is one
+    restarts = n.get("HostSync.GMRESResidual", 0)
+    assert n["GMRESZeroGuess"] == n["GMRES"]
+    assert restarts + n["GMRESZeroGuess"] >= n["GMRES"]
+    assert n["OperatorAction"] == n["RHSEvaluation"] + restarts
     # a time-varying model: every action computes its c(t)
     assert n["ModelCoefficients"] == n["OperatorAction"]
 
@@ -74,7 +77,7 @@ def test_host_syncs_follow_the_loop(solved):
     order_changes = got["BDFOrderNorms"]
     assert 0 < order_changes <= accepted
     assert sum(got.values()) == (sum(want.values()) + order_changes
-                                 + got["GMRESResidual"])
+                                 + got.get("GMRESResidual", 0))
 
 
 def _phase_parent(e):
